@@ -1,0 +1,101 @@
+"""Port lanes IP solver (kernel 4's plain version, via its wrapper on CPU
+tensors) against the JAX package: the XLA box-QP solver scenario by scenario,
+and the Pallas resident kernel (interpret mode) with Mehrotra and the
+tile-wide adaptive exit. QP data as in tests/test_pallas_ocp.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpmpc_tpu.ops.boxqp import OcpQpData, solve_ocp_qp
+from gpmpc_tpu.ops.pallas_ocp import LanesQp as JLanesQp
+from gpmpc_tpu.ops.pallas_ocp import solve_ocp_qp_lanes as j_solve_lanes
+from gpmpc_tpu_torch.ops import cuda_ocp
+from gpmpc_tpu_torch.ops.sqp import SqpConfig
+from gpmpc_tpu_torch.ops.sqp_lanes import MAX_LANES_HORIZON, _solve_qp_lanes
+
+T, NX, NU, L = 5, 12, 4, 8
+F32 = np.float32
+
+
+def make_batch(seed=0, t=T):
+    """tests/test_pallas_ocp.py::make_batch: (L, ...) batch-leading numpy data."""
+    rng = np.random.default_rng(seed)
+    A = np.tile(np.eye(NX, dtype=F32), (L, t, 1, 1)) + 0.1 * rng.normal(size=(L, t, NX, NX)).astype(F32)
+    B = rng.normal(size=(L, t, NX, NU)).astype(F32) * 0.4
+    r = rng.normal(size=(L, t, NX)).astype(F32) * 0.05
+    qdiag = rng.uniform(0.5, 2.0, size=(L, t + 1, NX)).astype(F32)
+    qx = rng.normal(size=(L, t + 1, NX)).astype(F32) * 0.5
+    rdiag = rng.uniform(0.5, 2.0, size=(L, t, NU)).astype(F32)
+    ru = rng.normal(size=(L, t, NU)).astype(F32) * 0.5
+    lx = np.full((L, t + 1, NX), -1.5, F32)
+    ux = np.full((L, t + 1, NX), 1.5, F32)
+    lu = np.full((L, t, NU), -0.3, F32)
+    uu = np.full((L, t, NU), 0.3, F32)
+    lx[:, 0, :] = -1e8
+    ux[:, 0, :] = 1e8
+    return dict(A=A, B=B, r=r, qdiag=qdiag, qx=qx, rdiag=rdiag, ru=ru, lx=lx, ux=ux, lu=lu, uu=uu)
+
+
+def to_port(batches):
+    """List of (L, ...) batches (one per tile) -> port LanesQp (n_tiles, ..., L)."""
+    return cuda_ocp.LanesQp(**{
+        k: torch.as_tensor(np.stack([np.moveaxis(b[k], 0, -1) for b in batches]).copy())
+        for k in cuda_ocp.LanesQp._fields
+    })
+
+
+def test_plain_centering_matches_xla_boxqp_per_scenario():
+    d = make_batch(0)
+    n_iter = 12
+    dx, du, gap = cuda_ocp.solve_ocp_qp_lanes(to_port([d]), n_ip=n_iter)
+    assert bool((gap < 1e-4).all())
+    dx = np.moveaxis(dx[0].numpy(), -1, 0)  # (L, T+1, NX)
+    du = np.moveaxis(du[0].numpy(), -1, 0)
+    qp = OcpQpData(  # leaves lead with the scenario axis; solved one scenario per vmap lane
+        A=jnp.asarray(d["A"]), B=jnp.asarray(d["B"]), r=jnp.asarray(d["r"]),
+        Qxx=jnp.asarray(d["qdiag"][..., None] * np.eye(NX, dtype=F32)),
+        qx=jnp.asarray(d["qx"]),
+        Ruu=jnp.asarray(d["rdiag"][..., None] * np.eye(NU, dtype=F32)),
+        ru=jnp.asarray(d["ru"]), lx=jnp.asarray(d["lx"]), ux=jnp.asarray(d["ux"]),
+        lu=jnp.asarray(d["lu"]), uu=jnp.asarray(d["uu"]),
+    )
+    sol = jax.jit(jax.vmap(lambda q: solve_ocp_qp(q, n_iter=n_iter)))(qp)
+    np.testing.assert_allclose(du, np.asarray(sol.du, F32), atol=2e-4)
+    np.testing.assert_allclose(dx, np.asarray(sol.dx, F32), atol=2e-4)
+
+
+def test_mehrotra_adaptive_exit_matches_pallas_kernel_per_tile():
+    """Two tiles that converge at different IP iterations (the second has 5x
+    larger gradients): each tile's tile-wide exit must match the reference
+    kernel run on that tile alone."""
+    hard = make_batch(5)
+    hard["qx"] *= 5
+    hard["ru"] *= 5
+    batches = [make_batch(2), hard]
+    kw = dict(n_ip=10, adaptive_tol=1e-6, mehrotra=True)
+    qp = to_port(batches)
+    dx, du, gap = cuda_ocp.solve_ocp_qp_lanes(qp, **kw)
+    # tile 0 has exited after 4 iterations, tile 1 has not
+    _, du4, _ = cuda_ocp.solve_ocp_qp_lanes(qp, **dict(kw, n_ip=4))
+    np.testing.assert_array_equal(du4[0].numpy(), du[0].numpy())
+    assert float((du4[1] - du[1]).abs().max()) > 1e-6
+    for i, d in enumerate(batches):
+        qp_j = JLanesQp(**{k: jnp.asarray(np.moveaxis(v, 0, -1)) for k, v in d.items()})
+        dx_j, du_j, gap_j = j_solve_lanes(qp_j, interpret=True, **kw)
+        np.testing.assert_allclose(dx[i].numpy(), np.asarray(dx_j, F32), atol=1e-5)
+        np.testing.assert_allclose(du[i].numpy(), np.asarray(du_j, F32), atol=1e-5)
+        np.testing.assert_allclose(gap[i].numpy(), np.asarray(gap_j, F32), rtol=1e-2, atol=1e-10)
+
+
+def test_soft_bounds_are_not_ported_and_say_so():
+    """The SQP's QP dispatch refuses what the resident kernel does not serve:
+    soft state bounds, and horizons past MAX_LANES_HORIZON."""
+    cfg = SqpConfig(qp_iters=2)
+    with pytest.raises(NotImplementedError, match="soft_x_penalty.*ROADMAP.md"):
+        _solve_qp_lanes(to_port([make_batch(0)]), cfg._replace(soft_x_penalty=2.0))
+    long_qp = to_port([make_batch(0, t=MAX_LANES_HORIZON + 1)])
+    with pytest.raises(NotImplementedError, match="MAX_LANES_HORIZON.*ROADMAP.md"):
+        _solve_qp_lanes(long_qp, cfg)

@@ -6,9 +6,10 @@ identical inputs. It imports `torch`, numpy and scipy, never `jax` and never
 `gpmpc_tpu`.
 
 The slice ported so far is the `lanes-fused` closed-loop step
-(`parallel/batch.py::batched_gpmpc_step`): quadrotor, hard bounds, Mehrotra IP,
-horizons up to `ops/sqp_lanes.py::MAX_LANES_HORIZON`. Its four kernels are
-hand-written CUDA C++ in `csrc/`, built with `nvcc` on first use
+(`parallel/batch.py::batched_gpmpc_step`) for the three model families
+(quadrotor, cartpole, two-link arm): hard bounds, Mehrotra IP, horizons up to
+`ops/sqp_lanes.py::MAX_LANES_HORIZON`. Its four kernels are hand-written CUDA
+C++ in `csrc/`, instantiated per family, built with `nvcc` on first use
 (`_build.py`); every kernel wrapper runs its plain PyTorch version only for
 CPU tensors. Importing this package does no work beyond defining names.
 """

@@ -1,7 +1,8 @@
 """Builds and loads the port's CUDA kernels.
 
-All sources in `csrc/` compile with `nvcc` for `sm_90a` into one shared
-library with a plain C interface, which is loaded with `ctypes`. The library
+Each `.cu` source in `csrc/` compiles with its own `nvcc` for `sm_90a`, all
+started together, and the objects link into one shared library with a plain C
+interface, which is loaded with `ctypes`. The library
 goes to `build/gpmpc_tpu_torch/` at the repository root (git-ignored), named by
 a hash of the sources and flags, so an edited source rebuilds. The build runs
 on the first kernel launch, never at import. A missing `nvcc` or a failed
@@ -24,8 +25,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "gpmpc_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+UNSUPPORTED = -1  # a launcher's code for a shape or family it has no instantiation for
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,13 +37,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     # z, Zt, alpha, W, mask, hyp, n, m, d, mean, var, stream
     "gp_posterior_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    # covdn, A, B, K, Bd, ppf, n_tiles, T, nd, L, tx, tu, stream
-    "tighten_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    # par8, hyp, X, U, Zs, alpha, n_tiles, T, L, Ms, use_gp, dt, fnext, A, B, stream
-    "linearize_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+    # covdn, A, B, K, Bd, ppf, n_tiles, T, nd, L, nx, nu, tx, tu, stream
+    "tighten_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # family, nx, nu, par8, hyp, X, U, Zs, alpha, n_tiles, T, L, Ms, use_gp, dt, fnext, A, B, stream
+    "linearize_launch": [_I, _I, _I] + [_P] * 6 + [_I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
     # A, B, r, qdiag, qx, rdiag, ru, lx, ux, lu, uu, dx, du, gap, ws,
-    # n_tiles, T, L, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, stream
-    "ocp_ip_launch": [_P] * 15 + [_I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
+    # n_tiles, T, L, nx, nu, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, stream
+    "ocp_ip_launch": [_P] * 15 + [_I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
 }
 
 
@@ -77,11 +79,55 @@ def library_path() -> Path:
 
 
 class BuildInfo:
-    """What the last build did: seconds spent and the compiler's report."""
+    """What the last build did: wall seconds of the whole build, seconds from
+    the build's start to each source's nvcc exit (they run in parallel), and
+    the compiler's report."""
 
     seconds: float = 0.0
+    per_source: dict = {}
     log: str = ""
     cached: bool = False
+
+
+def _compile_all(nvcc: str, units: list[Path], workdir: Path, out: str) -> None:
+    """One nvcc per source, all started together, then one link into `out`."""
+    t0 = time.perf_counter()
+    procs = {}
+    for src in units:
+        obj, log = workdir / (src.stem + ".o"), workdir / (src.stem + ".log")
+        with open(log, "w") as f:  # the child keeps its own handle
+            procs[src] = (obj, log, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)],
+                stdout=f, stderr=subprocess.STDOUT,
+            ))
+    try:
+        while any(src.name not in BuildInfo.per_source for src in procs):
+            for src, (_, _, proc) in procs.items():
+                if src.name not in BuildInfo.per_source and proc.poll() is not None:
+                    BuildInfo.per_source[src.name] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:  # an interrupted build leaves no compiler running
+        for _, _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    logs, failed = [], []
+    for src, (_, log, proc) in procs.items():
+        logs.append(f"== {src.name}\n{log.read_text()}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (exit {proc.returncode})")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", out, *(str(obj) for obj, _, _ in procs.values())],
+            capture_output=True, text=True,
+        )
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link (exit {link.returncode})")
+    BuildInfo.seconds = time.perf_counter() - t0
+    BuildInfo.log = "\n".join(logs)
+    if failed:
+        raise KernelBuildError(f"nvcc failed: {', '.join(failed)}\n{BuildInfo.log}")
 
 
 @functools.cache
@@ -93,23 +139,17 @@ def load_library() -> ctypes.CDLL:
     else:
         nvcc = _find_nvcc()
         out.parent.mkdir(parents=True, exist_ok=True)
-        units = [str(p) for p in _sources() if p.suffix == ".cu"]
+        units = [p for p in _sources() if p.suffix == ".cu"]
         # Build into a temporary name and rename: concurrent first launches
         # (several test processes) never load a half-written library.
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
         os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *units],
-            capture_output=True, text=True,
-        )
-        BuildInfo.seconds = time.perf_counter() - t0
-        BuildInfo.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        try:
+            with tempfile.TemporaryDirectory(dir=out.parent) as objdir:
+                _compile_all(nvcc, units, Path(objdir), tmp)
+        except BaseException:
             os.unlink(tmp)
-            raise KernelBuildError(
-                f"nvcc failed (exit {proc.returncode}):\n{BuildInfo.log}"
-            )
+            raise
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in SIGNATURES.items():
@@ -118,15 +158,18 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.cudaGetErrorString_wrapper.argtypes = [ctypes.c_int]
     lib.cudaGetErrorString_wrapper.restype = ctypes.c_char_p
-    lib.ocp_ip_workspace_floats.argtypes = [ctypes.c_int]
+    lib.ocp_ip_workspace_floats.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.ocp_ip_workspace_floats.restype = ctypes.c_long
     return lib
 
 
 def launch(name: str, *args) -> None:
-    """Call C entry point `name`; raise if it reports a CUDA error."""
+    """Call C entry point `name`; raise if it reports a CUDA error or has no
+    instantiation for the arguments."""
     lib = load_library()
     err = getattr(lib, name)(*args)
+    if err == UNSUPPORTED:
+        raise ValueError(f"{name}: no kernel instantiation for these widths or family")
     if err != 0:
         msg = lib.cudaGetErrorString_wrapper(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -209,8 +209,8 @@ def batched_select_action_lanes(
     if not (cfg.kernel_linearize and spec.supports_kernel_linearize and gp.Zs.dim() == 3
             and T <= MAX_FUSED_HORIZON):
         raise UnsupportedPathError(
-            "only the fused lanes branch (kernel_linearize, quadrotor, shared GP, "
-            f"T <= {MAX_FUSED_HORIZON}) is ported; see ROADMAP.md Queue 1"
+            "only the fused lanes branch (kernel_linearize, a family with a kernel "
+            f"linearizer, shared GP, T <= {MAX_FUSED_HORIZON}) is ported; see ROADMAP.md Queue 1"
         )
     xref, bounds, X_init, U_init, clamp_frac = batched_prepare_step(model, consts, gp, states, obs)
     if cfg.warm_shift:
@@ -226,7 +226,7 @@ def batched_select_action_lanes(
     lin = LanesLinearizer(
         params8=spec.kernel_params(model.params).to(obs.device),
         hyp=torch.cat([sf2[:, None], inv_ell2], dim=1).contiguous(),
-        Zs=gp.Zs, alpha=gp.alpha_s, use_gp=True,
+        Zs=gp.Zs, alpha=gp.alpha_s, use_gp=True, family=spec.name,
     )
     sol = sqp_solve_batch_lanes_fused(
         lin, model.dt, cost, bounds, obs, X_init, U_init, cfg, lanes=lanes
@@ -243,8 +243,9 @@ def batched_select_action_lanes(
 
 class GPMPC:
     """Controller setup (the setup half of the reference's `GPMPC.__init__`):
-    `consts` (GpMpcConsts on `device`) and `cfg` (SqpConfig). The stateful
-    select_action / train_gp API is not ported yet."""
+    `consts` (GpMpcConsts on `device`) and `cfg` (SqpConfig). `bounds`
+    (((lx, ux), (lu, uu)), default the quadrotor's boxes) and `lm_reg` are the
+    reference's. The stateful select_action / train_gp API is not ported yet."""
 
     def __init__(
         self,
@@ -258,11 +259,16 @@ class GPMPC:
         sqp_iters: int = 25,
         qp_iters: int = 15,
         device: torch.device | str = "cpu",
+        bounds: tuple | None = None,
+        lm_reg: float = 0.0,
     ):
-        if prior_params is None or any(k not in prior_params for k in ("a", "b")):
+        self.spec = model_spec(model)
+        # only the quadrotor's thrust map consumes the prior's a and b
+        if self.spec.name == "quadrotor" and (
+            prior_params is None or any(k not in prior_params for k in ("a", "b"))
+        ):
             raise ValueError("GPMPC requires prior_params to be defined and contain 'a' and 'b'.")
         self.model = model
-        self.spec = model_spec(model)
         self.T = horizon
         nx, nu = model.nx, model.nu
         traj = torch.as_tensor(np.array(traj, np.float32))
@@ -280,8 +286,8 @@ class GPMPC:
         Bd_mat = np.eye(nx)[:, list(self.spec.uncertain_dim)]
         t = lambda a: torch.as_tensor(np.array(a, np.float32, order="C"), device=device)  # noqa: E731
         self.consts = GpMpcConsts(
-            mpc=mpc_mod.make_consts(model, traj, q_mpc, r_mpc, horizon, device=device),
+            mpc=mpc_mod.make_consts(model, traj, q_mpc, r_mpc, horizon, device=device, bounds=bounds),
             Ad=t(Ad), Bd_in=t(Bd_in), lqr_gain=t(lqr_K), Bd=t(Bd_mat),
             inverse_cdf=t(inverse_cdf), dt=t(model.dt),
         )
-        self.cfg = SqpConfig(sqp_iters=sqp_iters, qp_iters=qp_iters)
+        self.cfg = SqpConfig(sqp_iters=sqp_iters, qp_iters=qp_iters, lm_reg=lm_reg)

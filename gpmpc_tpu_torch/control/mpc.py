@@ -47,11 +47,20 @@ class MpcInfo(NamedTuple):
     converged: torch.Tensor
 
 
-def make_consts(model, traj, q_mpc, r_mpc, horizon: int, device="cpu") -> MpcConsts:
-    """The quadrotor's constants: hover-trim input reference and its boxes."""
-    assert len(q_mpc) == model.nx and len(r_mpc) == model.nu
-    (lx, ux), (lu, uu) = quadrotor.state_bounds(), quadrotor.input_bounds()
-    u_eq = model.u_eq if model.u_eq is not None else np.zeros(model.nu, np.float32)
+def make_consts(
+    model, traj, q_mpc, r_mpc, horizon: int, device="cpu", bounds=None, u_eq=None
+) -> MpcConsts:
+    """The MPC constants. Defaults keep the reference's quadrotor contract (the
+    quadrotor's boxes); other families pass `bounds=((lx, ux), (lu, uu))`. The
+    input reference is `u_eq`, else the model's own trim, else zero."""
+    if len(q_mpc) != model.nx or len(r_mpc) != model.nu:
+        raise ValueError(f"q_mpc/r_mpc need {model.nx}/{model.nu} entries, got {len(q_mpc)}/{len(r_mpc)}")
+    if bounds is None:
+        (lx, ux), (lu, uu) = quadrotor.state_bounds(), quadrotor.input_bounds()
+    else:
+        (lx, ux), (lu, uu) = bounds
+    if u_eq is None:
+        u_eq = model.u_eq if model.u_eq is not None else np.zeros(model.nu, np.float32)
     scale = np.full(horizon + 1, model.dt)
     scale[-1] = 1.0
     t = lambda a: torch.as_tensor(np.array(a, np.float32, order="C"), device=device)  # noqa: E731
@@ -65,11 +74,21 @@ def make_consts(model, traj, q_mpc, r_mpc, horizon: int, device="cpu") -> MpcCon
     )
 
 
-def init_state(batch: int, horizon: int, nx: int = 12, nu: int = 4, device="cpu") -> MpcState:
-    """B fresh controller states: step 0, zero state guess, hover-trim inputs."""
-    u_eq = torch.as_tensor(quadrotor.U_EQ, device=device) if nu == quadrotor.NU else (
-        torch.zeros(nu, dtype=F32, device=device)
-    )
+def default_u_eq(nu: int, device="cpu") -> torch.Tensor:
+    """The reference's warm-start input when none is given: the quadrotor's
+    hover trim for nu = 4, zeros otherwise (the first step replaces it with
+    the consts' input reference)."""
+    if nu == quadrotor.NU:
+        return torch.as_tensor(quadrotor.U_EQ, device=device)
+    return torch.zeros(nu, dtype=F32, device=device)
+
+
+def init_state(
+    batch: int, horizon: int, nx: int = 12, nu: int = 4, device="cpu", u_eq=None
+) -> MpcState:
+    """B fresh controller states: step 0, zero state guess, `u_eq` (default
+    `default_u_eq(nu)`) as the input guess."""
+    u_eq = default_u_eq(nu, device) if u_eq is None else torch.as_tensor(u_eq, dtype=F32, device=device)
     return MpcState(
         traj_step=torch.zeros(batch, dtype=torch.int32, device=device),
         X_warm=torch.zeros(batch, horizon + 1, nx, dtype=F32, device=device),

@@ -3,8 +3,9 @@
 The reference's pytrees cross over as dicts of numpy arrays (the port never
 imports JAX): `gp_model_from_numpy`, `consts_from_numpy` and
 `state_from_numpy` turn them into the port's tensors on a given device.
-`load_bench_gp` reads the committed fixture of the benchmark's GP
-(`data/bench_gp.npz`, written by `scripts/export_torch_gp_fixture.py`).
+`load_bench_gp` reads the committed fixture of a family's benchmark GP
+(`data/bench_gp.npz` for the quadrotor, `data/bench_gp_{cartpole,twolink}.npz`,
+written by `scripts/export_torch_gp_fixture.py`).
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import torch
 from gpmpc_tpu_torch.control.gpmpc import GpModel, GpMpcConsts, GPHypers
 from gpmpc_tpu_torch.control.mpc import MpcConsts, MpcState
 
-BENCH_GP_PATH = Path(__file__).resolve().parent / "data" / "bench_gp.npz"
+DATA = Path(__file__).resolve().parent / "data"
+BENCH_GP_PATH = DATA / "bench_gp.npz"
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -60,7 +62,15 @@ def state_from_numpy(d, device="cpu") -> MpcState:
     )
 
 
-def load_bench_gp(device="cpu") -> GpModel:
-    """The benchmark's GP (`synthetic_gp_model` at bench.py's defaults)."""
-    with np.load(BENCH_GP_PATH) as d:
+def bench_gp_path(family: str = "quadrotor") -> Path:
+    if family not in ("quadrotor", "cartpole", "twolink"):
+        raise ValueError(f"no bench GP fixture for model family {family!r}")
+    return BENCH_GP_PATH if family == "quadrotor" else DATA / f"bench_gp_{family}.npz"
+
+
+def load_bench_gp(device="cpu", family: str = "quadrotor") -> GpModel:
+    """The benchmark's GP of a model family (`synthetic_gp_model`,
+    `synthetic_cartpole_gp_model` or `synthetic_twolink_gp_model` at bench.py's
+    defaults)."""
+    with np.load(bench_gp_path(family)) as d:
         return gp_model_from_numpy(dict(d), device)

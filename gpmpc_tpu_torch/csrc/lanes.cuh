@@ -10,10 +10,26 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace gpmpc {
 
-constexpr int NX = 12;  // quadrotor state width
-constexpr int NU = 4;   // quadrotor input width
+// Returned by a launcher for a shape or family it has no instantiation for.
+// Not a cudaError_t value; the Python wrapper raises on it.
+constexpr int kUnsupported = -1;
+
+// The (state width, input width) pairs the tighten and OCP kernels are
+// instantiated for: quadrotor (12, 4), cartpole (4, 1), two-link arm (4, 2).
+// Calls f(NX, NU) with both as std::integral_constant, or returns
+// kUnsupported for any other pair.
+template <class F>
+int dispatch_nx_nu(int nx, int nu, F&& f) {
+  using std::integral_constant;
+  if (nx == 12 && nu == 4) return f(integral_constant<int, 12>{}, integral_constant<int, 4>{});
+  if (nx == 4 && nu == 1) return f(integral_constant<int, 4>{}, integral_constant<int, 1>{});
+  if (nx == 4 && nu == 2) return f(integral_constant<int, 4>{}, integral_constant<int, 2>{});
+  return kUnsupported;
+}
 
 // View of one lane of a lanes-layout tensor: element i of the per-lane
 // flattened trailing block (everything between the tile and lane axes).

@@ -1,39 +1,35 @@
-// Quadrotor dynamics linearization: RK4 of the prior plus the GP-mean
-// residual, with the analytic Jacobian chain through the four RK4 stages.
+// Dynamics linearization of the three model families: RK4 of the prior plus
+// the GP-mean residual, with the analytic Jacobian chain through the four RK4
+// stages.
 //
-// Replaces: gpmpc_tpu/ops/pallas_linearize.py::linearize_ocp_lanes with the
-// quadrotor closure (_linearize_kernel_body, _quad_fc_and_jac, _gp_mean_grad,
-// _build_mat). For each stage k of each scenario:
+// Replaces: gpmpc_tpu/ops/pallas_linearize.py::linearize_ocp_lanes with its
+// family closures (_linearize_kernel_body, _gp_mean_grad, _build_mat, and
+// _quad_fc_and_jac, _cart_fc_and_jac, _twolink_fc_and_jac of the
+// _FAMILY_FC_JAC registry). For each stage k of each scenario:
 //   fnext_k = RK4(x_k, u_k),  A_k = d fnext / dx,  B_k = d fnext / du.
 //
 // What bounds it on an H100: arithmetic and special functions. Each stage
-// evaluates the GP means and gradients 4 times (3 GPs x Ms inducing points,
-// one expf each) and the Jacobian chain; it reads 64 bytes and writes 832 bytes
-// per scenario-stage, so the writes of A and B are the device-memory traffic.
+// evaluates the GP means and gradients 4 times (G GPs x Ms inducing points,
+// one expf each) and the Jacobian chain; at the quadrotor's widths it reads
+// 64 bytes and writes 832 bytes per scenario-stage, so the writes of A and B
+// are the device-memory traffic.
 //
 // Design: one block per L-scenario tile, one thread per scenario, stages in a
-// loop. The inducing inputs, weights and hyperparameters (shared by all
-// scenarios) are staged in shared memory and read as broadcasts. The
-// continuous Jacobian of the quadrotor has 17 non-constant entries, so each
-// RK4 evaluation keeps only those (struct QuadJac) and multiplies sparsely.
-// The chain  dk_{i+1} = J_{i+1} (I + h dk_i)  acts column by column on
-// [dx | du], so each of the 16 columns runs the whole four-stage chain with
-// three 12-vectors in registers and is written straight to A or B: no 12x12
+// loop. The kernel is a template on a family trait that supplies NX, NU, the
+// GP count G and input width D, the family's sparse continuous Jacobian
+// (struct Jac: only its non-constant entries), fc_and_jac (f and Jac at one
+// point) and jac_col (one column of [Jx | Ju] applied to a vector). The
+// inducing inputs, weights and hyperparameters (shared by all scenarios) are
+// staged in shared memory and read as broadcasts. The chain
+// dk_{i+1} = J_{i+1} (I + h dk_i) acts column by column on [dx | du], so each
+// of the NX + NU columns runs the whole four-stage chain with three
+// NX-vectors in registers and is written straight to A or B: no NX x NX
 // matrix is ever held per thread.
 #include "lanes.cuh"
 
 namespace {
 
-using gpmpc::NX;
-using gpmpc::NU;
-constexpr int G = 3;  // quadrotor GPs: thrust, roll rate, pitch rate
-constexpr int D = 3;  // input width of each GP slice
 constexpr float GRAVITY = 9.81f;
-
-struct QuadJac {  // non-constant entries of the continuous Jacobian
-  float x1_6, x1_7, x1_8, x3_6, x3_7, x3_8, x5_6, x5_7, x9_6, x9_9, x10_7, x10_10;
-  float u1_0, u3_0, u5_0, u9_1, u10_2;
-};
 
 struct GpShared {
   const float* Zs;     // (G, Ms, D)
@@ -42,108 +38,283 @@ struct GpShared {
   int Ms;
 };
 
-__device__ void gp_mean_grad(const GpShared& gp, int g, float z0, float z1, float z2,
-                             float& mean, float grad[3]) {
+// SE posterior mean of GP g at z and its gradient d mean / dz.
+template <int D>
+__device__ void gp_mean_grad(const GpShared& gp, int g, const float z[D], float& mean,
+                             float grad[D]) {
   const float* Z = gp.Zs + g * gp.Ms * D;
   const float* a = gp.alpha + g * gp.Ms;
   const float sf2 = gp.hyp[g * (1 + D)];
-  const float i0 = gp.hyp[g * (1 + D) + 1], i1 = gp.hyp[g * (1 + D) + 2],
-              i2 = gp.hyp[g * (1 + D) + 3];
-  float m = 0.0f, g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
+  const float* inv = gp.hyp + g * (1 + D) + 1;
+  float m = 0.0f, gs[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) gs[d] = 0.0f;
   for (int j = 0; j < gp.Ms; ++j) {
-    const float d0 = Z[j * D] - z0, d1 = Z[j * D + 1] - z1, d2 = Z[j * D + 2] - z2;
-    const float dist2 = d0 * d0 * i0 + d1 * d1 * i1 + d2 * d2 * i2;
+    float diff[D], dist2 = 0.0f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      diff[d] = Z[j * D + d] - z[d];
+      dist2 += diff[d] * diff[d] * inv[d];
+    }
     const float ka = sf2 * expf(-0.5f * dist2) * a[j];
     m += ka;
-    g0 += ka * d0;
-    g1 += ka * d1;
-    g2 += ka * d2;
+#pragma unroll
+    for (int d = 0; d < D; ++d) gs[d] += ka * diff[d];
   }
   mean = m;
-  grad[0] = g0 * i0;
-  grad[1] = g1 * i1;
-  grad[2] = g2 * i2;
+#pragma unroll
+  for (int d = 0; d < D; ++d) grad[d] = gs[d] * inv[d];
 }
 
-// Continuous dynamics f(x, u) and its Jacobian entries (models/jacobians.py's
-// closed forms plus the GP terms; the GP rotation is the psi = 0 slice).
-__device__ void fc_and_jac(const float* par, const GpShared& gp, bool use_gp,
-                           const float x[NX], const float u[NU], float f[NX], QuadJac& J) {
-  const float pa = par[0], pb = par[1], pc = par[2], pd = par[3];
-  const float pe = par[4], pf = par[5], ph = par[6], pl = par[7];
-  const float phi = x[6], theta = x[7], psi = x[8];
-  const float dphi = x[9], dtheta = x[10], dpsi = x[11];
-  const float cphi = cosf(phi), sphi = sinf(phi);
-  const float cth = cosf(theta), sth = sinf(theta);
-  const float cpsi = cosf(psi), spsi = sinf(psi);
-  const float acc = pa * u[0] + pb;
+// ---- quadrotor: models/quadrotor.py plus thrust, roll-rate, pitch-rate GPs --
 
-  float Tp = 0.0f, Rp = 0.0f, Pp = 0.0f;
-  float dT[3] = {0.0f, 0.0f, 0.0f}, dR[3] = {0.0f, 0.0f, 0.0f}, dP[3] = {0.0f, 0.0f, 0.0f};
-  if (use_gp) {
-    gp_mean_grad(gp, 0, u[0], 0.0f, 0.0f, Tp, dT);  // thrust GP sees (u0, 0, 0)
-    gp_mean_grad(gp, 1, phi, dphi, u[1], Rp, dR);
-    gp_mean_grad(gp, 2, theta, dtheta, u[2], Pp, dP);
+struct Quad {
+  static constexpr int NX = 12, NU = 4, G = 3, D = 3;
+  struct Jac {  // non-constant entries of the continuous Jacobian
+    float x1_6, x1_7, x1_8, x3_6, x3_7, x3_8, x5_6, x5_7, x9_6, x9_9, x10_7, x10_10;
+    float u1_0, u3_0, u5_0, u9_1, u10_2;
+  };
+
+  // f(x, u) and its Jacobian entries (models/jacobians.py's closed forms plus
+  // the GP terms; the GP rotation is the psi = 0 slice). par = [a..l].
+  static __device__ void fc_and_jac(const float* par, const GpShared& gp, bool use_gp,
+                                    const float x[NX], const float u[NU], float f[NX], Jac& J) {
+    const float pa = par[0], pb = par[1], pc = par[2], pd = par[3];
+    const float pe = par[4], pf = par[5], ph = par[6], pl = par[7];
+    const float phi = x[6], theta = x[7], psi = x[8];
+    const float dphi = x[9], dtheta = x[10], dpsi = x[11];
+    const float cphi = cosf(phi), sphi = sinf(phi);
+    const float cth = cosf(theta), sth = sinf(theta);
+    const float cpsi = cosf(psi), spsi = sinf(psi);
+    const float acc = pa * u[0] + pb;
+
+    float Tp = 0.0f, Rp = 0.0f, Pp = 0.0f;
+    float dT[D] = {0.0f, 0.0f, 0.0f}, dR[D] = {0.0f, 0.0f, 0.0f}, dP[D] = {0.0f, 0.0f, 0.0f};
+    if (use_gp) {
+      const float zT[D] = {u[0], 0.0f, 0.0f};  // the thrust GP sees (u0, 0, 0)
+      const float zR[D] = {phi, dphi, u[1]};
+      const float zP[D] = {theta, dtheta, u[2]};
+      gp_mean_grad<D>(gp, 0, zT, Tp, dT);
+      gp_mean_grad<D>(gp, 1, zR, Rp, dR);
+      gp_mean_grad<D>(gp, 2, zP, Pp, dP);
+    }
+
+    f[0] = x[1];
+    f[1] = acc * (cphi * sth * cpsi + sphi * spsi) + Tp * cphi * sth;
+    f[2] = x[3];
+    f[3] = acc * (cphi * sth * spsi - sphi * cpsi) + Tp * (-sphi);
+    f[4] = x[5];
+    f[5] = acc * cphi * cth - GRAVITY + Tp * cphi * cth;
+    f[6] = dphi;
+    f[7] = dtheta;
+    f[8] = dpsi;
+    f[9] = pc * phi + pd * dphi + pe * u[1] + Rp;
+    f[10] = pf * theta + ph * dtheta + pl * u[2] + Pp;
+    f[11] = 0.0f;
+
+    J.x1_6 = acc * (-sphi * sth * cpsi + cphi * spsi) - Tp * sphi * sth;
+    J.x1_7 = acc * (cphi * cth * cpsi) + Tp * cphi * cth;
+    J.x1_8 = acc * (-cphi * sth * spsi + sphi * cpsi);
+    J.x3_6 = acc * (-sphi * sth * spsi - cphi * cpsi) - Tp * cphi;
+    J.x3_7 = acc * (cphi * cth * spsi);
+    J.x3_8 = acc * (cphi * sth * cpsi + sphi * spsi);
+    J.x5_6 = -(acc + Tp) * sphi * cth;
+    J.x5_7 = -(acc + Tp) * cphi * sth;
+    J.x9_6 = pc + dR[0];
+    J.x9_9 = pd + dR[1];
+    J.x10_7 = pf + dP[0];
+    J.x10_10 = ph + dP[1];
+    J.u1_0 = pa * (cphi * sth * cpsi + sphi * spsi) + dT[0] * cphi * sth;
+    J.u3_0 = pa * (cphi * sth * spsi - sphi * cpsi) - dT[0] * sphi;
+    J.u5_0 = pa * cphi * cth + dT[0] * cphi * cth;
+    J.u9_1 = pe + dR[2];
+    J.u10_2 = pl + dP[2];
   }
 
-  f[0] = x[1];
-  f[1] = acc * (cphi * sth * cpsi + sphi * spsi) + Tp * cphi * sth;
-  f[2] = x[3];
-  f[3] = acc * (cphi * sth * spsi - sphi * cpsi) + Tp * (-sphi);
-  f[4] = x[5];
-  f[5] = acc * cphi * cth - GRAVITY + Tp * cphi * cth;
-  f[6] = dphi;
-  f[7] = dtheta;
-  f[8] = dpsi;
-  f[9] = pc * phi + pd * dphi + pe * u[1] + Rp;
-  f[10] = pf * theta + ph * dtheta + pl * u[2] + Pp;
-  f[11] = 0.0f;
-
-  J.x1_6 = acc * (-sphi * sth * cpsi + cphi * spsi) - Tp * sphi * sth;
-  J.x1_7 = acc * (cphi * cth * cpsi) + Tp * cphi * cth;
-  J.x1_8 = acc * (-cphi * sth * spsi + sphi * cpsi);
-  J.x3_6 = acc * (-sphi * sth * spsi - cphi * cpsi) - Tp * cphi;
-  J.x3_7 = acc * (cphi * cth * spsi);
-  J.x3_8 = acc * (cphi * sth * cpsi + sphi * spsi);
-  J.x5_6 = -(acc + Tp) * sphi * cth;
-  J.x5_7 = -(acc + Tp) * cphi * sth;
-  J.x9_6 = pc + dR[0];
-  J.x9_9 = pd + dR[1];
-  J.x10_7 = pf + dP[0];
-  J.x10_10 = ph + dP[1];
-  J.u1_0 = pa * (cphi * sth * cpsi + sphi * spsi) + dT[0] * cphi * sth;
-  J.u3_0 = pa * (cphi * sth * spsi - sphi * cpsi) - dT[0] * sphi;
-  J.u5_0 = pa * cphi * cth + dT[0] * cphi * cth;
-  J.u9_1 = pe + dR[2];
-  J.u10_2 = pl + dP[2];
-}
-
-// out = Jx v + (column c of Ju, for input columns c >= NX).
-__device__ __forceinline__ void jac_col(const QuadJac& J, const float v[NX], int c,
-                                        float out[NX]) {
-  out[0] = v[1];
-  out[1] = J.x1_6 * v[6] + J.x1_7 * v[7] + J.x1_8 * v[8];
-  out[2] = v[3];
-  out[3] = J.x3_6 * v[6] + J.x3_7 * v[7] + J.x3_8 * v[8];
-  out[4] = v[5];
-  out[5] = J.x5_6 * v[6] + J.x5_7 * v[7];
-  out[6] = v[9];
-  out[7] = v[10];
-  out[8] = v[11];
-  out[9] = J.x9_6 * v[6] + J.x9_9 * v[9];
-  out[10] = J.x10_7 * v[7] + J.x10_10 * v[10];
-  out[11] = 0.0f;
-  if (c == NX) {
-    out[1] += J.u1_0;
-    out[3] += J.u3_0;
-    out[5] += J.u5_0;
-  } else if (c == NX + 1) {
-    out[9] += J.u9_1;
-  } else if (c == NX + 2) {
-    out[10] += J.u10_2;
+  // out = Jx v + (column c of Ju, for input columns c >= NX).
+  static __device__ __forceinline__ void jac_col(const Jac& J, const float v[NX], int c,
+                                                 float out[NX]) {
+    out[0] = v[1];
+    out[1] = J.x1_6 * v[6] + J.x1_7 * v[7] + J.x1_8 * v[8];
+    out[2] = v[3];
+    out[3] = J.x3_6 * v[6] + J.x3_7 * v[7] + J.x3_8 * v[8];
+    out[4] = v[5];
+    out[5] = J.x5_6 * v[6] + J.x5_7 * v[7];
+    out[6] = v[9];
+    out[7] = v[10];
+    out[8] = v[11];
+    out[9] = J.x9_6 * v[6] + J.x9_9 * v[9];
+    out[10] = J.x10_7 * v[7] + J.x10_10 * v[10];
+    out[11] = 0.0f;
+    if (c == NX) {
+      out[1] += J.u1_0;
+      out[3] += J.u3_0;
+      out[5] += J.u5_0;
+    } else if (c == NX + 1) {
+      out[9] += J.u9_1;
+    } else if (c == NX + 2) {
+      out[10] += J.u10_2;
+    }
   }
-}
+};
 
+// ---- cartpole: models/cartpole.py, GP0 on the cart row, GP1 on the pole row -
+//
+// State [x, v, theta, w], input [F], par = [m_cart, m_pole, length]. With
+// M = m_cart + m_pole, k = m_pole l / M, s = sin theta, c = cos theta:
+//   p = (F + k M w^2 s) / M,   n = g s - c p,   e = l (4/3 - m_pole c^2 / M),
+//   theta'' = n / e,           x'' = p - k c theta''.
+// Partials by the chain rule through (p, n, e):
+//   d theta'' = (dn - theta'' de) / e,   dx'' = dp - k (c dtheta'' - s theta'' dtheta).
+// GP0 sees (v, w, F) and adds to x''; GP1 sees (theta, w, F) and adds to theta''.
+
+struct Cart {
+  static constexpr int NX = 4, NU = 1, G = 2, D = 3;
+  struct Jac {  // rows 1 (x'') and 3 (theta''); rows 0 and 2 are constant
+    float x1_1, x1_2, x1_3, x3_2, x3_3, u1_0, u3_0;
+  };
+
+  static __device__ void fc_and_jac(const float* par, const GpShared& gp, bool use_gp,
+                                    const float x[NX], const float u[NU], float f[NX], Jac& J) {
+    const float mc = par[0], mp = par[1], len = par[2];
+    const float M = mc + mp, k = mp * len / M;
+    const float v = x[1], th = x[2], w = x[3], F = u[0];
+    const float s = sinf(th), c = cosf(th);
+
+    float g0 = 0.0f, g1 = 0.0f, d0[D] = {0.0f, 0.0f, 0.0f}, d1[D] = {0.0f, 0.0f, 0.0f};
+    if (use_gp) {
+      const float z0[D] = {v, w, F};
+      const float z1[D] = {th, w, F};
+      gp_mean_grad<D>(gp, 0, z0, g0, d0);
+      gp_mean_grad<D>(gp, 1, z1, g1, d1);
+    }
+
+    const float p = (F + mp * len * w * w * s) / M;
+    const float e = len * (4.0f / 3.0f - mp * c * c / M);
+    const float n = GRAVITY * s - c * p;
+    const float thdd = n / e;
+    const float xdd = p - k * thdd * c;
+
+    // (d/dtheta, d/dw, d/dF) of p, n and e
+    const float p_th = mp * len * w * w * c / M, p_w = 2.0f * mp * len * w * s / M, p_F = 1.0f / M;
+    const float e_th = 2.0f * len * mp * c * s / M;
+    const float n_th = GRAVITY * c + s * p - c * p_th, n_w = -c * p_w, n_F = -c * p_F;
+    const float thdd_th = (n_th - thdd * e_th) / e, thdd_w = n_w / e, thdd_F = n_F / e;
+
+    f[0] = v;
+    f[1] = xdd + g0;
+    f[2] = w;
+    f[3] = thdd + g1;
+    J.x1_1 = d0[0];
+    J.x1_2 = p_th - k * (c * thdd_th - s * thdd);
+    J.x1_3 = p_w - k * c * thdd_w + d0[1];
+    J.u1_0 = p_F - k * c * thdd_F + d0[2];
+    J.x3_2 = thdd_th + d1[0];
+    J.x3_3 = thdd_w + d1[1];
+    J.u3_0 = thdd_F + d1[2];
+  }
+
+  static __device__ __forceinline__ void jac_col(const Jac& J, const float v[NX], int c,
+                                                 float out[NX]) {
+    out[0] = v[1];
+    out[1] = J.x1_1 * v[1] + J.x1_2 * v[2] + J.x1_3 * v[3];
+    out[2] = v[3];
+    out[3] = J.x3_2 * v[2] + J.x3_3 * v[3];
+    if (c == NX) {
+      out[1] += J.u1_0;
+      out[3] += J.u3_0;
+    }
+  }
+};
+
+// ---- two-link arm: models/twolink.py, both GPs on the full feature vector ---
+//
+// State [q1, q2, dq1, dq2], input [t1, t2], par = [m1, m2, l1, l2]. Uniform
+// rods: M(q) ddq = r, r = t - C(q, dq) dq - g(q), with
+//   M = [[k1 + 2 a c2, k2 + a c2], [k2 + a c2, k2]],  a = m2 l1 l2 / 2,
+//   h = a s2,  C dq = (-h dq2 (2 dq1 + dq2), h dq1^2),
+//   g = (g1c cos q1 + g2c cos(q1 + q2), g2c cos(q1 + q2)).
+// ddq = M^-1 r by the 2x2 inverse (det = m11 m22 - m12 m12, the reference's
+// order). For any coordinate p, d ddq / dp = M^-1 (dr/dp - dM/dp ddq), and
+// only q2 moves M. Both GPs see z = (q1, q2, dq1, dq2, t1 / 10, t2 / 10)
+// (models/residual.py::_TWOLINK_TAU_SCALE), so their torque gradients carry
+// the chain-rule factor 0.1.
+
+struct TwoLink {
+  static constexpr int NX = 4, NU = 2, G = 2, D = 6;
+  static constexpr float TAU_SCALE = 0.1f;
+  struct Jac {  // rows 2 and 3 (ddq1, ddq2); rows 0 and 1 are constant
+    float x[2][NX], u[2][NU];
+  };
+
+  static __device__ void fc_and_jac(const float* par, const GpShared& gp, bool use_gp,
+                                    const float x[NX], const float u[NU], float f[NX], Jac& J) {
+    const float m1 = par[0], m2 = par[1], l1 = par[2], l2 = par[3];
+    const float lc1 = 0.5f * l1, lc2 = 0.5f * l2;
+    const float i1 = m1 * l1 * l1 / 12.0f, i2 = m2 * l2 * l2 / 12.0f;
+    const float k1 = i1 + i2 + m1 * lc1 * lc1 + m2 * (l1 * l1 + lc2 * lc2);
+    const float k2 = i2 + m2 * lc2 * lc2;
+    const float a = m2 * l1 * lc2;
+    const float g1c = (m1 * lc1 + m2 * l1) * GRAVITY, g2c = m2 * lc2 * GRAVITY;
+    const float q1 = x[0], q2 = x[1], dq1 = x[2], dq2 = x[3];
+    const float c2 = cosf(q2), s2 = sinf(q2), c12 = cosf(q1 + q2), s12 = sinf(q1 + q2);
+
+    float gm[2] = {0.0f, 0.0f}, gd[2][D] = {};
+    if (use_gp) {
+      const float z[D] = {q1, q2, dq1, dq2, TAU_SCALE * u[0], TAU_SCALE * u[1]};
+      gp_mean_grad<D>(gp, 0, z, gm[0], gd[0]);
+      gp_mean_grad<D>(gp, 1, z, gm[1], gd[1]);
+    }
+
+    const float m11 = k1 + 2.0f * a * c2, m12 = k2 + a * c2, m22 = k2;
+    const float det = m11 * m22 - m12 * m12;
+    const float h = a * s2;
+    const float r1 = u[0] + h * dq2 * (2.0f * dq1 + dq2) - (g1c * cosf(q1) + g2c * c12);
+    const float r2 = u[1] - h * dq1 * dq1 - g2c * c12;
+    const float dd1 = (m22 * r1 - m12 * r2) / det;
+    const float dd2 = (m11 * r2 - m12 * r1) / det;
+
+    // dr/dp for p = q1, q2, dq1, dq2 (the torques give dr = unit vectors)
+    const float dh = a * c2, gs12 = g2c * s12;
+    const float dr1[NX] = {g1c * sinf(q1) + gs12, dh * dq2 * (2.0f * dq1 + dq2) + gs12,
+                           2.0f * h * dq2, 2.0f * h * (dq1 + dq2)};
+    const float dr2[NX] = {gs12, -dh * dq1 * dq1 + gs12, -2.0f * h * dq1, 0.0f};
+    const float dm11 = -2.0f * a * s2, dm12 = -a * s2;  // d/dq2; dm22 = 0
+
+    f[0] = dq1;
+    f[1] = dq2;
+    f[2] = dd1 + gm[0];
+    f[3] = dd2 + gm[1];
+    for (int p = 0; p < NX; ++p) {
+      float w1 = dr1[p], w2 = dr2[p];
+      if (p == 1) {
+        w1 -= dm11 * dd1 + dm12 * dd2;
+        w2 -= dm12 * dd1;
+      }
+      J.x[0][p] = (m22 * w1 - m12 * w2) / det + gd[0][p];
+      J.x[1][p] = (m11 * w2 - m12 * w1) / det + gd[1][p];
+    }
+    J.u[0][0] = m22 / det + TAU_SCALE * gd[0][4];
+    J.u[0][1] = -m12 / det + TAU_SCALE * gd[0][5];
+    J.u[1][0] = -m12 / det + TAU_SCALE * gd[1][4];
+    J.u[1][1] = m11 / det + TAU_SCALE * gd[1][5];
+  }
+
+  static __device__ __forceinline__ void jac_col(const Jac& J, const float v[NX], int c,
+                                                 float out[NX]) {
+    out[0] = v[2];
+    out[1] = v[3];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float s = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NX; ++j) s += J.x[r][j] * v[j];
+      out[2 + r] = c >= NX ? s + J.u[r][c - NX] : s;
+    }
+  }
+};
+
+template <class Fam>
 __global__ void linearize_kernel(const float* __restrict__ par8,   // (8,)
                                  const float* __restrict__ hyp,    // (G, 1+D)
                                  const float* __restrict__ X,      // (n_tiles, T+1, NX, L)
@@ -154,6 +325,7 @@ __global__ void linearize_kernel(const float* __restrict__ par8,   // (8,)
                                  float* __restrict__ fnext,        // (n_tiles, T, NX, L)
                                  float* __restrict__ Aout,         // (n_tiles, T, NX, NX, L)
                                  float* __restrict__ Bout) {       // (n_tiles, T, NX, NU, L)
+  constexpr int NX = Fam::NX, NU = Fam::NU, G = Fam::G, D = Fam::D;
   extern __shared__ float smem[];
   float* par_s = smem;                  // 8
   float* hyp_s = par_s + 8;             // G*(1+D)
@@ -178,14 +350,14 @@ __global__ void linearize_kernel(const float* __restrict__ par8,   // (8,)
     float x[NX], u[NU], xs[NX], kf[NX], ksum[NX];
     for (int i = 0; i < NX; ++i) x[i] = Xl[k * NX + i];
     for (int i = 0; i < NU; ++i) u[i] = Ul[k * NU + i];
-    QuadJac J1, J2, J3, J4;
-    fc_and_jac(par_s, gp, use_gp, x, u, kf, J1);
+    typename Fam::Jac J1, J2, J3, J4;
+    Fam::fc_and_jac(par_s, gp, use_gp, x, u, kf, J1);
     for (int i = 0; i < NX; ++i) { ksum[i] = kf[i]; xs[i] = x[i] + h * kf[i]; }
-    fc_and_jac(par_s, gp, use_gp, xs, u, kf, J2);
+    Fam::fc_and_jac(par_s, gp, use_gp, xs, u, kf, J2);
     for (int i = 0; i < NX; ++i) { ksum[i] += 2.0f * kf[i]; xs[i] = x[i] + h * kf[i]; }
-    fc_and_jac(par_s, gp, use_gp, xs, u, kf, J3);
+    Fam::fc_and_jac(par_s, gp, use_gp, xs, u, kf, J3);
     for (int i = 0; i < NX; ++i) { ksum[i] += 2.0f * kf[i]; xs[i] = x[i] + dt * kf[i]; }
-    fc_and_jac(par_s, gp, use_gp, xs, u, kf, J4);
+    Fam::fc_and_jac(par_s, gp, use_gp, xs, u, kf, J4);
     for (int i = 0; i < NX; ++i) Fl[k * NX + i] = x[i] + dt6 * (ksum[i] + kf[i]);
 
     // Column c of [A | B]: e = unit column (state) or 0 (input).
@@ -193,22 +365,22 @@ __global__ void linearize_kernel(const float* __restrict__ par8,   // (8,)
       float m[NX], n[NX], s[NX];
       for (int i = 0; i < NX; ++i) m[i] = 0.0f;
       if (c < NX) m[c] = 1.0f;
-      jac_col(J1, m, c, n);  // J1 e (+ J1u column)
+      Fam::jac_col(J1, m, c, n);  // J1 e (+ J1u column)
       for (int i = 0; i < NX; ++i) {
         s[i] = n[i];
         m[i] = (i == c ? 1.0f : 0.0f) + h * n[i];
       }
-      jac_col(J2, m, c, n);
+      Fam::jac_col(J2, m, c, n);
       for (int i = 0; i < NX; ++i) {
         s[i] += 2.0f * n[i];
         m[i] = (i == c ? 1.0f : 0.0f) + h * n[i];
       }
-      jac_col(J3, m, c, n);
+      Fam::jac_col(J3, m, c, n);
       for (int i = 0; i < NX; ++i) {
         s[i] += 2.0f * n[i];
         m[i] = (i == c ? 1.0f : 0.0f) + dt * n[i];
       }
-      jac_col(J4, m, c, n);
+      Fam::jac_col(J4, m, c, n);
       if (c < NX) {
         for (int i = 0; i < NX; ++i)
           Al[(k * NX + i) * NX + c] = (i == c ? 1.0f : 0.0f) + dt6 * (s[i] + n[i]);
@@ -219,17 +391,43 @@ __global__ void linearize_kernel(const float* __restrict__ par8,   // (8,)
   }
 }
 
-}  // namespace
-
-extern "C" int linearize_launch(const float* par8, const float* hyp, const float* X,
-                                const float* U, const float* Zs, const float* alpha,
-                                int n_tiles, int T, int L, int Ms, int use_gp, float dt,
-                                float* fnext, float* A, float* B, void* stream) {
+template <class Fam>
+int launch_family(int nx, int nu, const float* par8, const float* hyp, const float* X,
+                  const float* U, const float* Zs, const float* alpha, int n_tiles, int T, int L,
+                  int Ms, int use_gp, float dt, float* fnext, float* A, float* B,
+                  cudaStream_t stream) {
+  if (nx != Fam::NX || nu != Fam::NU) return gpmpc::kUnsupported;
+  constexpr int G = Fam::G, D = Fam::D;
   const size_t smem = sizeof(float) * (8 + G * (1 + D) + (size_t)G * Ms * D + (size_t)G * Ms);
   cudaError_t err = cudaFuncSetAttribute(
-      linearize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      linearize_kernel<Fam>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  linearize_kernel<<<n_tiles, L, smem, static_cast<cudaStream_t>(stream)>>>(
-      par8, hyp, X, U, Zs, alpha, T, L, Ms, use_gp != 0, dt, fnext, A, B);
+  linearize_kernel<Fam><<<n_tiles, L, smem, stream>>>(par8, hyp, X, U, Zs, alpha, T, L, Ms,
+                                                      use_gp != 0, dt, fnext, A, B);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// family: 0 quadrotor, 1 cartpole, 2 two-link arm (ops/cuda_linearize.py
+// FAMILIES); (nx, nu) must be the family's widths.
+extern "C" int linearize_launch(int family, int nx, int nu, const float* par8, const float* hyp,
+                                const float* X, const float* U, const float* Zs,
+                                const float* alpha, int n_tiles, int T, int L, int Ms,
+                                int use_gp, float dt, float* fnext, float* A, float* B,
+                                void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (family) {
+    case 0:
+      return launch_family<Quad>(nx, nu, par8, hyp, X, U, Zs, alpha, n_tiles, T, L, Ms, use_gp,
+                                 dt, fnext, A, B, s);
+    case 1:
+      return launch_family<Cart>(nx, nu, par8, hyp, X, U, Zs, alpha, n_tiles, T, L, Ms, use_gp,
+                                 dt, fnext, A, B, s);
+    case 2:
+      return launch_family<TwoLink>(nx, nu, par8, hyp, X, U, Zs, alpha, n_tiles, T, L, Ms,
+                                    use_gp, dt, fnext, A, B, s);
+    default:
+      return gpmpc::kUnsupported;
+  }
 }

@@ -4,27 +4,29 @@
 // with _mm, _mv and the _chol4_* helpers), hard-bound modes: plain centering or
 // Mehrotra predictor-corrector, fixed iteration count or the adaptive exit.
 // Each iteration: barrier weights, dynamics residual, a backward Riccati sweep
-// (diagonal Q/R plus barrier, a 4x4 Cholesky per stage), a forward rollout,
+// (diagonal Q/R plus barrier, an NU x NU Cholesky per stage), a forward rollout,
 // per-scenario fraction-to-boundary step lengths, and the slack/dual update.
 // Mehrotra factorizes once per iteration: the affine sweep stores P r, the
 // Guu Cholesky factor and Gxu, and the corrector reuses them in a
 // vector-only sweep.
 //
 // What bounds it on an H100: the sequential dependency chain per scenario
-// (T stages x ~4k FMAs per Riccati step, twice per iteration) and on-chip
+// (T stages x ~4k FMAs per Riccati step at NX = 12, twice per iteration) and on-chip
 // memory bandwidth for the per-stage matrices; there is no data reuse across
 // scenarios. Device-memory traffic is the QP data (~1 KB per scenario-stage,
 // read once per sweep from L2) and the per-scenario workspace.
 //
 // Design:
-//  * one block per L-scenario tile, one thread per scenario (lane);
+//  * one block per L-scenario tile, one thread per scenario (lane); templated
+//    on (NX, NU) and instantiated for (12, 4), (4, 1) and (4, 2);
 //  * the tile-wide adaptive exit of the reference is a block-wide vote,
 //    __syncthreads_and(mu <= tol), over exactly the L lanes of the tile:
 //    padded scenarios vote too, as in the reference;
-//  * the Riccati matrix P (12x12) and W = P [A | B] (12x16) of each scenario
-//    live in shared memory, lane-interleaved (entry e of lane l at e * L + l,
-//    bank-conflict-free): 336 * L floats, 172 KB at L = 128. In registers they
-//    would need ~340 per thread, past the 255 limit. The per-stage register
+//  * the Riccati matrix P (NX x NX) and W = P [A | B] (NX x (NX+NU)) of each
+//    scenario live in shared memory, lane-interleaved (entry e of lane l at
+//    e * L + l, bank-conflict-free): (2 NX^2 + NX NU) * L floats at L = 128,
+//    172 KB for 12x4, 18 KB for 4x1, 20 KB for 4x2. At NX = 12 they would need
+//    ~340 registers per thread, past the 255 limit. The per-stage register
 //    arrays (Gxu, Guu, its factor, gx, p) still spill some (ptxas -v; the
 //    counts are in PERF.md);
 //  * everything that must survive a sweep (slacks, duals, K, kff, the dynamics
@@ -39,8 +41,6 @@
 
 namespace {
 
-using gpmpc::NX;
-using gpmpc::NU;
 using gpmpc::ConstLaneView;
 using gpmpc::LaneView;
 
@@ -52,6 +52,7 @@ struct WsLayout {
   long total;
 };
 
+template <int NX, int NU>
 __host__ __device__ WsLayout ws_layout(int T) {
   WsLayout w;
   const long nxs = (long)(T + 1) * NX, nus = (long)T * NU;
@@ -78,6 +79,7 @@ __host__ __device__ WsLayout ws_layout(int T) {
   return w;
 }
 
+template <int NX, int NU>
 struct Ip {
   int T, L;
   bool mehrotra;
@@ -127,37 +129,44 @@ __device__ __forceinline__ float pair_corr(const Pair& p) {
   return (p.rc_l + p.ll * p.r_sl) / p.sl - (p.rc_u + p.lu * p.r_su) / p.su;
 }
 
-__device__ __forceinline__ Pair x_pair(const Ip& ip, int idx, int mode, float cent) {
+template <int NX, int NU>
+__device__ __forceinline__ Pair x_pair(const Ip<NX, NU>& ip, int idx, int mode, float cent) {
   return pair_terms(ip.dx[idx], ip.lx[idx], ip.ux[idx], ip.slx[idx], ip.sux[idx], ip.llx[idx],
                     ip.lux[idx], mode, cent, mode == CORRECTOR ? ip.ddx_a[idx] : 0.0f);
 }
 
-__device__ __forceinline__ Pair u_pair(const Ip& ip, int idx, int mode, float cent) {
+template <int NX, int NU>
+__device__ __forceinline__ Pair u_pair(const Ip<NX, NU>& ip, int idx, int mode, float cent) {
   return pair_terms(ip.du[idx], ip.lu[idx], ip.uu[idx], ip.slu[idx], ip.suu[idx], ip.llu[idx],
                     ip.luu[idx], mode, cent, mode == CORRECTOR ? ip.ddu_a[idx] : 0.0f);
 }
 
-__device__ __forceinline__ float qhat(const Ip& ip, int idx, int mode, float cent) {
+template <int NX, int NU>
+__device__ __forceinline__ float qhat(const Ip<NX, NU>& ip, int idx, int mode, float cent) {
   const Pair p = x_pair(ip, idx, mode, cent);
   return ip.qdiag[idx] * ip.dx[idx] + ip.qx[idx] - p.ll + p.lu + pair_corr(p);
 }
 
-__device__ __forceinline__ float rhat(const Ip& ip, int idx, int mode, float cent) {
+template <int NX, int NU>
+__device__ __forceinline__ float rhat(const Ip<NX, NU>& ip, int idx, int mode, float cent) {
   const Pair p = u_pair(ip, idx, mode, cent);
   return ip.rdiag[idx] * ip.du[idx] + ip.ru[idx] - p.ll + p.lu + pair_corr(p);
 }
 
-__device__ __forceinline__ float sigx(const Ip& ip, int idx) {
+template <int NX, int NU>
+__device__ __forceinline__ float sigx(const Ip<NX, NU>& ip, int idx) {
   return ip.llx[idx] / ip.slx[idx] + ip.lux[idx] / ip.sux[idx];
 }
 
-__device__ __forceinline__ float sigu(const Ip& ip, int idx) {
+template <int NX, int NU>
+__device__ __forceinline__ float sigu(const Ip<NX, NU>& ip, int idx) {
   return ip.llu[idx] / ip.slu[idx] + ip.luu[idx] / ip.suu[idx];
 }
 
-// Lower Cholesky factor of a 4x4 SPD matrix, packed row-major (10 entries),
-// with the reference's 1e-12 floor on the pivots.
-__device__ __forceinline__ void chol4(const float G[NU][NU], float l[NU][NU]) {
+// Lower Cholesky factor of an NU x NU SPD matrix, with the reference's 1e-12
+// floor on the pivots (at NU = 1, a square root).
+template <int NU>
+__device__ __forceinline__ void chol(const float G[NU][NU], float l[NU][NU]) {
   for (int j = 0; j < NU; ++j) {
     float s = G[j][j];
     for (int k = 0; k < j; ++k) s -= l[j][k] * l[j][k];
@@ -172,7 +181,8 @@ __device__ __forceinline__ void chol4(const float G[NU][NU], float l[NU][NU]) {
 }
 
 // Solve L L^T x = b in place.
-__device__ __forceinline__ void chol4_solve(const float l[NU][NU], float b[NU]) {
+template <int NU>
+__device__ __forceinline__ void chol_solve(const float l[NU][NU], float b[NU]) {
   float y[NU];
   for (int i = 0; i < NU; ++i) {
     float s = b[i];
@@ -190,7 +200,8 @@ __device__ __forceinline__ void chol4_solve(const float l[NU][NU], float b[NU]) 
 // is the Mehrotra corrector: it reuses K, P r, the Cholesky factors and Gxu of
 // the affine sweep and updates only the vector recursion. Writes the state and
 // input directions to (ddx_o, ddu_o).
-__device__ void newton(const Ip& ip, int mode, float cent, bool matrix, const LaneView& ddx_o,
+template <int NX, int NU>
+__device__ void newton(const Ip<NX, NU>& ip, int mode, float cent, bool matrix, const LaneView& ddx_o,
                        const LaneView& ddu_o) {
   const int T = ip.T;
   float p[NX];
@@ -249,7 +260,7 @@ __device__ void newton(const Ip& ip, int mode, float cent, bool matrix, const La
       for (int i = 0; i < NX; ++i) ip.P(i, i) += ip.qdiag[k * NX + i] + sigx(ip, k * NX + i);
       for (int u = 0; u < NU; ++u) Guu[u][u] += ip.rdiag[k * NU + u] + sigu(ip, k * NU + u);
       float l[NU][NU];
-      chol4(Guu, l);
+      chol<NU>(Guu, l);
       if (ip.mehrotra) {
         for (int i = 0; i < NU; ++i)
           for (int j = 0; j < NU; ++j) ip.lchol[(k * NU + i) * NU + j] = j <= i ? l[i][j] : 0.0f;
@@ -260,11 +271,11 @@ __device__ void newton(const Ip& ip, int mode, float cent, bool matrix, const La
       for (int j = 0; j < NX; ++j) {
         float b[NU];
         for (int u = 0; u < NU; ++u) b[u] = Gxu[j][u];
-        chol4_solve(l, b);
+        chol_solve<NU>(l, b);
         for (int u = 0; u < NU; ++u) ip.K[(k * NU + u) * NX + j] = -b[u];
       }
       for (int u = 0; u < NU; ++u) kf[u] = gu[u];
-      chol4_solve(l, kf);
+      chol_solve<NU>(l, kf);
       for (int u = 0; u < NU; ++u) kf[u] = -kf[u];
       // P = Gxx + Gxu K, symmetrized
       for (int i = 0; i < NX; ++i)
@@ -295,7 +306,7 @@ __device__ void newton(const Ip& ip, int mode, float cent, bool matrix, const La
       for (int i = 0; i < NU; ++i)
         for (int j = 0; j < NU; ++j) l[i][j] = ip.lchol[(k * NU + i) * NU + j];
       for (int u = 0; u < NU; ++u) kf[u] = gu[u];
-      chol4_solve(l, kf);
+      chol_solve<NU>(l, kf);
       for (int u = 0; u < NU; ++u) kf[u] = -kf[u];
       for (int i = 0; i < NX; ++i)
         for (int u = 0; u < NU; ++u) Gxu[i][u] = ip.Gxu[(k * NX + i) * NU + u];
@@ -353,7 +364,8 @@ __device__ __forceinline__ PairDir pair_dir(const Pair& p, float dd) {
 }
 
 // Per-scenario fraction-to-boundary step lengths over every stage and dim.
-__device__ void step_lengths(const Ip& ip, int mode, float cent, const LaneView& ddx_d,
+template <int NX, int NU>
+__device__ void step_lengths(const Ip<NX, NU>& ip, int mode, float cent, const LaneView& ddx_d,
                              const LaneView& ddu_d, float t, float& a_p, float& a_d) {
   float ap = CUDART_INF_F, ad = CUDART_INF_F;
   for (int idx = 0; idx < (ip.T + 1) * NX; ++idx) {
@@ -372,7 +384,8 @@ __device__ void step_lengths(const Ip& ip, int mode, float cent, const LaneView&
   a_d = fminf(1.0f, ad);
 }
 
-__device__ float gap_sum(const Ip& ip) {
+template <int NX, int NU>
+__device__ float gap_sum(const Ip<NX, NU>& ip) {
   float g_lx = 0.0f, g_ux = 0.0f, g_lu = 0.0f, g_uu = 0.0f;
   for (int idx = 0; idx < (ip.T + 1) * NX; ++idx) {
     g_lx += ip.slx[idx] * ip.llx[idx];
@@ -386,7 +399,8 @@ __device__ float gap_sum(const Ip& ip) {
 }
 
 // One interior-point iteration; returns the next centering parameter.
-__device__ float ip_iteration(const Ip& ip, float mu, float sigma, float tau, float m_total) {
+template <int NX, int NU>
+__device__ float ip_iteration(const Ip<NX, NU>& ip, float mu, float sigma, float tau, float m_total) {
   const int T = ip.T;
   // dynamics residual r_dyn_k = A dx_k + B du_k + r - dx_{k+1}
   for (int k = 0; k < T; ++k)
@@ -454,6 +468,7 @@ __device__ float ip_iteration(const Ip& ip, float mu, float sigma, float tau, fl
   return fmaxf(sigma * (gap_sum(ip) / m_total), 1e-12f);
 }
 
+template <int NX, int NU>
 __global__ void ocp_ip_kernel(const float* A, const float* B, const float* r, const float* qdiag,
                               const float* qx, const float* rdiag, const float* ru,
                               const float* lx, const float* ux, const float* lu,
@@ -463,11 +478,11 @@ __global__ void ocp_ip_kernel(const float* A, const float* B, const float* r, co
   extern __shared__ float smem[];
   const int lane = threadIdx.x;
   const long nxs = (long)(T + 1) * NX, nus = (long)T * NU;
-  const WsLayout w = ws_layout(T);
+  const WsLayout w = ws_layout<NX, NU>(T);
   LaneView wsl = gpmpc::lane_view(ws, w.total, L);
   auto sub = [&](long off) { return LaneView{wsl.base + off * L, L}; };
 
-  Ip ip;
+  Ip<NX, NU> ip;
   ip.T = T;
   ip.L = L;
   ip.mehrotra = mehrotra;
@@ -535,20 +550,30 @@ __global__ void ocp_ip_kernel(const float* A, const float* B, const float* r, co
 
 }  // namespace
 
-extern "C" long ocp_ip_workspace_floats(int T) { return ws_layout(T).total; }
+extern "C" long ocp_ip_workspace_floats(int T, int nx, int nu) {
+  long n = gpmpc::kUnsupported;
+  gpmpc::dispatch_nx_nu(nx, nu, [&](auto nx_c, auto nu_c) {
+    n = ws_layout<decltype(nx_c)::value, decltype(nu_c)::value>(T).total;
+    return 0;
+  });
+  return n;
+}
 
 extern "C" int ocp_ip_launch(const float* A, const float* B, const float* r, const float* qdiag,
                              const float* qx, const float* rdiag, const float* ru,
                              const float* lx, const float* ux, const float* lu, const float* uu,
                              float* dx, float* du, float* gap, float* ws, int n_tiles, int T,
-                             int L, int n_ip, float mu0, float sigma, float tau,
+                             int L, int nx, int nu, int n_ip, float mu0, float sigma, float tau,
                              float adaptive_tol, int mehrotra, void* stream) {
-  const size_t smem = sizeof(float) * (size_t)(NX * NX + NX * (NX + NU)) * L;
-  cudaError_t err = cudaFuncSetAttribute(
-      ocp_ip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ocp_ip_kernel<<<n_tiles, L, smem, static_cast<cudaStream_t>(stream)>>>(
-      A, B, r, qdiag, qx, rdiag, ru, lx, ux, lu, uu, dx, du, gap, ws, T, L, n_ip, mu0, sigma, tau,
-      adaptive_tol, mehrotra != 0);
-  return (int)cudaGetLastError();
+  return gpmpc::dispatch_nx_nu(nx, nu, [&](auto nx_c, auto nu_c) {
+    constexpr int NX = decltype(nx_c)::value, NU = decltype(nu_c)::value;
+    const size_t smem = sizeof(float) * (size_t)(NX * NX + NX * (NX + NU)) * L;
+    cudaError_t err = cudaFuncSetAttribute(
+        ocp_ip_kernel<NX, NU>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    ocp_ip_kernel<NX, NU><<<n_tiles, L, smem, static_cast<cudaStream_t>(stream)>>>(
+        A, B, r, qdiag, qx, rdiag, ru, lx, ux, lu, uu, dx, du, gap, ws, T, L, n_ip, mu0, sigma,
+        tau, adaptive_tol, mehrotra != 0);
+    return (int)cudaGetLastError();
+  });
 }

@@ -9,23 +9,24 @@
 // which is what this kernel computes (half the products of the expanded form;
 // the two differ only in float32 rounding).
 //
-// What bounds it on an H100: the dependent chain of T small 12x12 products per
-// scenario (~3.5k FMAs per stage) and on-chip memory traffic; device-memory
-// traffic is only D and the outputs (~0.5 KB per scenario-stage).
+// What bounds it on an H100: the dependent chain of T small NX x NX products
+// per scenario (~3.5k FMAs per stage at NX = 12) and on-chip memory traffic;
+// device-memory traffic is only D and the outputs (~0.5 KB per scenario-stage
+// at NX = 12).
 //
-// Design: one block per L-scenario tile, one thread per scenario. The shared
+// Design: one block per L-scenario tile, one thread per scenario, templated on
+// (NX, NU) and instantiated for (12, 4), (4, 1) and (4, 2). The shared
 // A + B K, K and Bd (identical for every scenario) are built once per block in
-// shared memory and read as broadcasts. Each scenario's 12x12 covariance and
+// shared memory and read as broadcasts. Each scenario's NX x NX covariance and
 // the product (A + B K) cov live in shared memory, lane-interleaved
-// (entry e of lane l at e * L + l, conflict-free), 2 * 144 * L floats: 147 KB
-// at L = 128. Keeping them in registers would need ~300 per thread.
+// (entry e of lane l at e * L + l, conflict-free), 2 * NX * NX * L floats:
+// 147 KB at NX = 12, 16 KB at NX = 4, for L = 128. Keeping them in registers
+// would need ~300 per thread at NX = 12.
 #include "lanes.cuh"
 
 namespace {
 
-using gpmpc::NX;
-using gpmpc::NU;
-
+template <int NX, int NU>
 __global__ void tighten_kernel(const float* __restrict__ covdn,  // (n_tiles, T, nd, L)
                                const float* __restrict__ A,      // (NX, NX)
                                const float* __restrict__ B,      // (NX, NU)
@@ -95,13 +96,16 @@ __global__ void tighten_kernel(const float* __restrict__ covdn,  // (n_tiles, T,
 
 extern "C" int tighten_launch(const float* covdn, const float* A, const float* B, const float* K,
                               const float* Bd, const float* ppf, int n_tiles, int T, int nd,
-                              int L, float* tx, float* tu, void* stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)NX * NX + NU * NX + (size_t)NX * nd + 2ull * NX * NX * L);
-  cudaError_t err = cudaFuncSetAttribute(
-      tighten_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  tighten_kernel<<<n_tiles, L, smem, static_cast<cudaStream_t>(stream)>>>(
-      covdn, A, B, K, Bd, ppf, T, nd, L, tx, tu);
-  return (int)cudaGetLastError();
+                              int L, int nx, int nu, float* tx, float* tu, void* stream) {
+  return gpmpc::dispatch_nx_nu(nx, nu, [&](auto nx_c, auto nu_c) {
+    constexpr int NX = decltype(nx_c)::value, NU = decltype(nu_c)::value;
+    const size_t smem =
+        sizeof(float) * ((size_t)NX * NX + NU * NX + (size_t)NX * nd + 2ull * NX * NX * L);
+    cudaError_t err = cudaFuncSetAttribute(
+        tighten_kernel<NX, NU>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    tighten_kernel<NX, NU><<<n_tiles, L, smem, static_cast<cudaStream_t>(stream)>>>(
+        covdn, A, B, K, Bd, ppf, T, nd, L, tx, tu);
+    return (int)cudaGetLastError();
+  });
 }

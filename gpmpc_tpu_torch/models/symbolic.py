@@ -1,12 +1,14 @@
-"""The model object the controller is written against. Port of the quadrotor
-part of `gpmpc_tpu/models/symbolic.py`; `df_func` uses `torch.func.jacfwd`
-in float64 (it only runs once, at controller setup)."""
+"""The model object the controller is written against. Port of
+`gpmpc_tpu/models/symbolic.py`; `df_func` uses `torch.func.jacfwd` in float64
+(it only runs once, at controller setup). `symbolic_attitude` builds the
+quadrotor; `models/cartpole.py::symbolic_cartpole` and
+`models/twolink.py::symbolic_twolink` build the other two families."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from functools import partial
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -21,7 +23,7 @@ class SymbolicModel:
     nx: int
     nu: int
     dt: float
-    params: QuadrotorParams
+    params: NamedTuple  # the family's parameters (QuadrotorParams, CartpoleParams, ...)
     fc_func: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = field(repr=False)
     u_eq: np.ndarray | None = field(default=None, repr=False)
     x_eq: np.ndarray | None = field(default=None, repr=False)

@@ -7,6 +7,18 @@ from __future__ import annotations
 
 import torch
 
+# (nx, nu) pairs csrc/tighten.cu and csrc/ocp_ip.cu are instantiated for
+# (lanes.cuh dispatch_nx_nu): quadrotor, cartpole, two-link arm.
+KERNEL_SHAPES = ((12, 4), (4, 1), (4, 2))
+
+
+def check_widths(kernel: str, nx: int, nu: int) -> None:
+    """Raise unless the kernel has an instantiation for (nx, nu)."""
+    if (nx, nu) not in KERNEL_SHAPES:
+        raise ValueError(
+            f"{kernel} kernel is instantiated for (nx, nu) in {KERNEL_SHAPES}, got ({nx}, {nu})"
+        )
+
 
 def check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
     """Raise unless `t` is a contiguous float32 tensor of `shape` on `device`

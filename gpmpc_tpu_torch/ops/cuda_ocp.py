@@ -3,7 +3,8 @@
 Port of `gpmpc_tpu/ops/pallas_ocp.py::solve_ocp_qp_lanes`, the resident
 kernel, in its hard-bound modes (plain centering or Mehrotra, fixed count or
 the tile-wide adaptive exit). Soft state bounds and the streamed tiers are not
-ported yet (ROADMAP.md Queue 2). The CUDA kernel is `csrc/ocp_ip.cu`;
+ported yet (ROADMAP.md Queue 2). The CUDA kernel is `csrc/ocp_ip.cu`,
+instantiated for the (nx, nu) pairs in `_wrap.KERNEL_SHAPES`;
 `solve_ocp_qp_lanes_plain` is the same algorithm in plain PyTorch, which the
 wrapper runs for CPU tensors. Unlike the reference, which takes one tile per
 call, both take every tile at once: arrays lead with n_tiles.
@@ -16,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from gpmpc_tpu_torch import _build
-from gpmpc_tpu_torch.ops._wrap import check, route
+from gpmpc_tpu_torch.ops._wrap import check, check_widths, route
 
 
 class LanesQp(NamedTuple):
@@ -310,21 +311,22 @@ def solve_ocp_qp_lanes(
     if route(dev) == "plain":
         return solve_ocp_qp_lanes_plain(qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra)
 
+    check_widths("ocp_ip", nx, nu)
     smem = 4 * (nx * nx + nx * (nx + nu)) * L
-    if (nx, nu) != (12, 4) or n == 0 or T == 0 or smem > 232448:
+    if n == 0 or T == 0 or smem > 232448 or L > 1024:
         raise ValueError(
-            f"ocp_ip kernel is built for nx=12, nu=4, T > 0 and L <= 172 (got nx={nx}, "
-            f"nu={nu}, T={T}, L={L})"
+            f"ocp_ip kernel needs n_tiles > 0, T > 0 and {smem} <= 232448 bytes of shared "
+            f"memory per block (n_tiles={n}, T={T}, nx={nx}, nu={nu}, L={L})"
         )
     lib = _build.load_library()
-    ws = torch.empty(n, lib.ocp_ip_workspace_floats(T), L, dtype=torch.float32, device=dev)
+    ws = torch.empty(n, lib.ocp_ip_workspace_floats(T, nx, nu), L, dtype=torch.float32, device=dev)
     dx = torch.empty(n, T + 1, nx, L, dtype=torch.float32, device=dev)
     du = torch.empty(n, T, nu, L, dtype=torch.float32, device=dev)
     gap = torch.empty(n, L, dtype=torch.float32, device=dev)
     p = _build.ptr
     _build.launch(
         "ocp_ip_launch", *(p(t) for t in qp), p(dx), p(du), p(gap), p(ws),
-        n, T, L, int(n_ip), float(mu0), float(sigma), float(tau),
+        n, T, L, nx, nu, int(n_ip), float(mu0), float(sigma), float(tau),
         -1.0 if adaptive_tol is None else float(adaptive_tol), int(mehrotra),
         _build.stream_handle(dev),
     )

@@ -1,7 +1,8 @@
 """Chance-constraint covariance recursion: kernel 2 of the port.
 
 Port of `gpmpc_tpu/ops/pallas_tighten.py::tighten_lanes`. The CUDA kernel is
-`csrc/tighten.cu` (one thread per scenario, lane tiles of width `lanes`);
+`csrc/tighten.cu` (one thread per scenario, lane tiles of width `lanes`,
+instantiated for the (nx, nu) pairs in `_wrap.KERNEL_SHAPES`);
 `tighten_lanes_plain` is the recursion in plain PyTorch, batched over B, which
 the wrapper runs for CPU tensors.
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from gpmpc_tpu_torch import _build
-from gpmpc_tpu_torch.ops._wrap import check, route
+from gpmpc_tpu_torch.ops._wrap import check, check_widths, route
 
 LANES = 128
 
@@ -72,8 +73,9 @@ def tighten_lanes(
     if route(dev) == "plain":
         return tighten_lanes_plain(cov_dn, Ad, Bd_in, lqr_gain, Bd, inverse_cdf, lanes)
 
-    if (nx, nu) != (12, 4) or B == 0:
-        raise ValueError(f"tighten kernel is built for nx=12, nu=4 and B > 0 (got {nx}, {nu}, B={B})")
+    check_widths("tighten", nx, nu)
+    if B == 0:
+        raise ValueError("tighten kernel needs B > 0")
     smem = 4 * (nx * nx + nu * nx + nx * nd + 2 * nx * nx * lanes)
     if smem > 232448 or lanes > 1024:
         raise ValueError(f"lanes={lanes} needs {smem} bytes of shared memory per block")
@@ -86,7 +88,7 @@ def tighten_lanes(
     p = _build.ptr
     _build.launch(
         "tighten_launch", p(tiles), p(Ad), p(Bd_in), p(lqr_gain), p(Bd), p(inverse_cdf),
-        n_tiles, T, nd, lanes, p(tx), p(tu), _build.stream_handle(dev),
+        n_tiles, T, nd, lanes, nx, nu, p(tx), p(tu), _build.stream_handle(dev),
     )
     tighten_lanes.launches += 1
     tx = tx.permute(0, 3, 1, 2).reshape(B_pad, T + 1, nx)[:B]

@@ -85,14 +85,15 @@ def _kkt_residuals_lanes(A, Bm, defect, qx, ru, U, lu, uu):
 
 
 class LanesLinearizer(NamedTuple):
-    """Inputs of the linearize kernel: the quadrotor's plant coefficients and
+    """Inputs of the linearize kernel: the family's plant coefficients and
     the GP mean data in kernel-ready form."""
 
-    params8: torch.Tensor  # (8,)
+    params8: torch.Tensor  # (8,) ResidualSpec.kernel_params packing
     hyp: torch.Tensor  # (G, 1+D) per GP [sf2, 1/ell^2 per dim]
     Zs: torch.Tensor  # (G, Ms, D)
     alpha: torch.Tensor  # (G, Ms)
     use_gp: bool
+    family: str = "quadrotor"  # key into ops/cuda_linearize.py::FAMILIES
 
 
 def sqp_solve_batch_lanes_fused(
@@ -150,7 +151,8 @@ def sqp_solve_batch_lanes_fused(
         Xi = X.clone()
         Xi[:, 0] = x0_l
         fnext, A, Bm = linearize_ocp_lanes(
-            lin.params8, lin.hyp, lin.Zs, lin.alpha, Xi, U, dt=dt, use_gp=lin.use_gp
+            lin.params8, lin.hyp, lin.Zs, lin.alpha, Xi, U, dt=dt, use_gp=lin.use_gp,
+            family=lin.family,
         )
         defect = fnext - Xi[:, 1:]
         qx = qdiag_l * (Xi - xref_l)

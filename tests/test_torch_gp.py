@@ -7,7 +7,9 @@ import numpy as np
 import pytest
 import torch
 
+from gpmpc_tpu.control.gpmpc import GpModel as JGpModel
 from gpmpc_tpu.control.gpmpc import batched_variances as j_batched_variances
+from gpmpc_tpu.gp.exact_gp import GPHypers as JGPHypers
 from gpmpc_tpu.ops.pallas_gp import gp_mean_var_reference
 from gpmpc_tpu.utils.benchkit import synthetic_gp_model
 from gpmpc_tpu_torch import convert
@@ -40,8 +42,10 @@ def make_problem(n=70, m=128, d=3, seed=0, ell=0.9):
 @pytest.mark.parametrize("n", [70, 130])  # 130: not a multiple of the 128-query tile
 @pytest.mark.parametrize("ard", [False, True])
 @pytest.mark.parametrize("include_noise", [False, True])
-def test_plain_matches_jax_reference(n, ard, include_noise):
-    args = make_problem(n=n, seed=3 if ard else 0, ell=[0.7, 1.1, 1.6] if ard else 0.9)
+@pytest.mark.parametrize("d", [3, 6])  # the quadrotor's and cartpole's GPs, the two-link arm's
+def test_plain_matches_jax_reference(n, ard, include_noise, d):
+    ell = np.linspace(0.7, 1.6, d).tolist() if ard else 0.9
+    args = make_problem(n=n, d=d, seed=3 if ard else 0, ell=ell)
     mean_j, var_j = gp_mean_var_reference(*(jnp.asarray(a) for a in args),
                                           include_noise=include_noise)
     t_args = [torch.as_tensor(a) for a in args]
@@ -70,6 +74,29 @@ def test_batched_variances_matches_jax_xla(sparse):
     v_t = t_batched_variances(convert.gp_model_from_numpy(flat), torch.as_tensor(z))
     assert v_t.shape == (3, 4, 5)
     np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j, F32), rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("family", ["cartpole", "twolink"])
+def test_batched_variances_of_family_bench_gp_matches_jax_xla(family):
+    """The families' bench GPs (the committed fixtures): G = 2 at D = 3 and 6."""
+    with np.load(convert.bench_gp_path(family)) as d:
+        flat = dict(d)
+    leaf = lambda k: jnp.asarray(flat[k])  # noqa: E731
+    gp_j = JGpModel(
+        Z=leaf("Z"), y=leaf("y"), mask=leaf("mask"),
+        hypers=JGPHypers(leaf("raw_lengthscale"), leaf("raw_outputscale"), leaf("raw_noise")),
+        Zs=leaf("Zs"), alpha_s=leaf("alpha_s"), var_Z=leaf("var_Z"), var_mat=leaf("var_mat"),
+        var_mask=leaf("var_mask"), trained=jnp.asarray(True),
+    )
+    gp_t = convert.gp_model_from_numpy(flat)
+    G, _, D = gp_t.Zs.shape
+    z = np.random.default_rng(1).normal(0, 0.5, (G, 4, 5, D)).astype(F32)
+    v_j = j_batched_variances(gp_j, jnp.asarray(z), backend="xla")
+    v_t = t_batched_variances(gp_t, torch.as_tensor(z))
+    # these GPs sit at their noise floor: W's entries ~1/noise cancel to
+    # variances ~1e-2, so two float32 summation orders differ by ~1e-5; the
+    # bar is the repo's Pallas GP test's (1e-4 on var)
+    np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j, F32), atol=1e-4)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

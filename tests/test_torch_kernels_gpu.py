@@ -37,17 +37,23 @@ def _maxdiff(a, b):
     return float((a - b).abs().max())
 
 
-@pytest.mark.parametrize("n,ard", [(300, False), (25_600, False), (1000, True)])
-def test_gp_kernel_matches_plain(dev, n, ard):
+@pytest.mark.parametrize(
+    "n,ard,family",
+    [(300, False, "quadrotor"), (25_600, False, "quadrotor"), (1000, True, "quadrotor"),
+     (25_600, False, "cartpole"), (25_600, False, "twolink"), (1000, True, "twolink")],
+)
+def test_gp_kernel_matches_plain(dev, n, ard, family):
+    """D = 3 (quadrotor, cartpole) and D = 6 (two-link arm) queries."""
     rng = np.random.default_rng(n)
-    gp = convert.load_bench_gp(dev)
+    gp = convert.load_bench_gp(dev, family)
+    D = gp.var_Z.shape[2]
     pad = 128 - gp.var_Z.shape[1]
     F = torch.nn.functional
     ell = softplus(gp.hypers.raw_lengthscale[0])
     if ard:
-        ell = _t([0.7, 1.1, 1.6], dev)
+        ell = _t(np.linspace(0.7, 1.6, D), dev)
     args = (
-        _t(rng.normal(0, 0.4, (n, 3)), dev), F.pad(gp.var_Z[0], (0, 0, 0, pad)),
+        _t(rng.normal(0, 0.4, (n, D)), dev), F.pad(gp.var_Z[0], (0, 0, 0, pad)),
         F.pad(gp.alpha_s[0], (0, pad)), F.pad(gp.var_mat[0], (0, pad, 0, pad)),
         ell, softplus(gp.hypers.raw_outputscale[0]), softplus(gp.hypers.raw_noise[0]),
         F.pad(gp.var_mask[0], (0, pad)),
@@ -61,54 +67,86 @@ def test_gp_kernel_matches_plain(dev, n, ard):
     assert _maxdiff(var_k, var_p) <= 1e-4
 
 
+# (nx, nu, uncertain rows) of the quadrotor, the cartpole and the two-link arm
+WIDTHS = [(12, 4, [1, 3, 5, 9, 10]), (4, 1, [1, 3]), (4, 2, [2, 3])]
+
+
+@pytest.mark.parametrize("nx,nu,unc", WIDTHS)
 @pytest.mark.parametrize("B,T", [(5, 7), (1024, 25)])
-def test_tighten_kernel_matches_plain(dev, B, T):
+def test_tighten_kernel_matches_plain(dev, B, T, nx, nu, unc):
     rng = np.random.default_rng(B)
-    A = np.eye(12) + 0.02 * rng.normal(size=(12, 12))
+    A = np.eye(nx) + 0.02 * rng.normal(size=(nx, nx))
     args = (
-        _t(rng.uniform(1e-6, 4e-4, (B, T, 5)), dev), _t(A, dev),
-        _t(0.05 * rng.normal(size=(12, 4)), dev), _t(0.3 * rng.normal(size=(4, 12)), dev),
-        _t(np.eye(12)[:, [1, 3, 5, 9, 10]], dev), _t(1.7, dev),
+        _t(rng.uniform(1e-6, 4e-4, (B, T, len(unc))), dev), _t(A, dev),
+        _t(0.05 * rng.normal(size=(nx, nu)), dev), _t(0.3 * rng.normal(size=(nu, nx)), dev),
+        _t(np.eye(nx)[:, unc], dev), _t(1.7, dev),
     )
     tx_k, tu_k = cuda_tighten.tighten_lanes(*args)
     tx_p, tu_p = cuda_tighten.tighten_lanes_plain(*args)
-    assert tx_k.shape == (B, T + 1, 12) and tu_k.shape == (B, T, 4)
+    assert tx_k.shape == (B, T + 1, nx) and tu_k.shape == (B, T, nu)
     assert _maxdiff(tx_k, tx_p) <= 1e-5 * max(1.0, float(tx_p.abs().max()))
     assert _maxdiff(tu_k, tu_p) <= 1e-5 * max(1.0, float(tu_p.abs().max()))
 
 
+PAR8 = {
+    "quadrotor": [12.1432, 1.8118, -72.08, -7.5755, 39.8653, -72.08, -7.5755, 39.8653],
+    "cartpole": [1.0, 0.1, 0.5, 0, 0, 0, 0, 0],
+    "twolink": [1.0, 1.0, 1.0, 1.0, 0, 0, 0, 0],
+}
+
+
+def _states_inputs(family, rng, n_tiles, T):
+    """States and inputs in each family's operating range (as the reference's
+    tests/test_pallas_linearize.py draws them)."""
+    x_shape, u_shape = (n_tiles, T + 1, LANES), (n_tiles, T, LANES)
+    if family == "quadrotor":
+        X = rng.normal(0, 0.3, (n_tiles, T + 1, 12, LANES))
+        U = np.stack([rng.uniform(0.15, 0.55, u_shape)]
+                     + [rng.uniform(-0.3, 0.3, u_shape) for _ in range(3)], axis=2)
+    elif family == "cartpole":
+        X = rng.normal(0, 0.3, (n_tiles, T + 1, 4, LANES))
+        U = rng.uniform(-5.0, 5.0, (n_tiles, T, 1, LANES))
+    else:
+        X = np.stack([rng.uniform(-2.0, 0.2, x_shape), rng.uniform(-0.4, 1.8, x_shape),
+                      rng.normal(0, 0.8, x_shape), rng.normal(0, 0.8, x_shape)], axis=2)
+        U = rng.uniform(-12.0, 12.0, (n_tiles, T, 2, LANES))
+    return X, U
+
+
+@pytest.mark.parametrize("family", ["quadrotor", "cartpole", "twolink"])
 @pytest.mark.parametrize("n_tiles,T,use_gp", [(1, 5, True), (1, 5, False), (8, 25, True)])
-def test_linearize_kernel_matches_plain(dev, n_tiles, T, use_gp):
+def test_linearize_kernel_matches_plain(dev, n_tiles, T, use_gp, family):
     rng = np.random.default_rng(T)
-    gp = convert.load_bench_gp(dev)
-    X = _t(rng.normal(0, 0.3, (n_tiles, T + 1, 12, LANES)), dev)
-    U = _t(np.stack([rng.uniform(0.15, 0.55, (n_tiles, T, LANES))]
-                    + [rng.uniform(-0.3, 0.3, (n_tiles, T, LANES)) for _ in range(3)], axis=2), dev)
+    gp = convert.load_bench_gp(dev, family)
+    G, _, D = gp.Zs.shape
+    X, U = _states_inputs(family, rng, n_tiles, T)
     ell = softplus(gp.hypers.raw_lengthscale)
     hyp = torch.cat([softplus(gp.hypers.raw_outputscale)[:, None],
-                     (1.0 / ell**2)[:, None].expand(3, 3)], dim=1).contiguous()
-    par8 = _t([12.1432, 1.8118, -72.08, -7.5755, 39.8653, -72.08, -7.5755, 39.8653], dev)
-    args = (par8, hyp, gp.Zs, gp.alpha_s, X, U)
-    f_k, A_k, B_k = cuda_linearize.linearize_ocp_lanes(*args, dt=0.02, use_gp=use_gp)
-    f_p, A_p, B_p = cuda_linearize.linearize_ocp_lanes_plain(*args, dt=0.02, use_gp=use_gp)
+                     (1.0 / ell**2)[:, None].expand(G, D)], dim=1).contiguous()
+    args = (_t(PAR8[family], dev), hyp, gp.Zs, gp.alpha_s, _t(X, dev), _t(U, dev))
+    kw = dict(dt=0.02, use_gp=use_gp, family=family)
+    before = cuda_linearize.linearize_ocp_lanes.launches
+    f_k, A_k, B_k = cuda_linearize.linearize_ocp_lanes(*args, **kw)
+    f_p, A_p, B_p = cuda_linearize.linearize_ocp_lanes_plain(*args, **kw)
+    assert cuda_linearize.linearize_ocp_lanes.launches == before + 1
     assert _maxdiff(f_k, f_p) <= 2e-5
     assert _maxdiff(A_k, A_p) <= 2e-4
     assert _maxdiff(B_k, B_p) <= 2e-4
 
 
-def _qp(dev, n_tiles, T, seed):
+def _qp(dev, n_tiles, T, seed, nx=12, nu=4):
     rng = np.random.default_rng(seed)
     shp = lambda *s: (n_tiles, T) + s + (LANES,)  # noqa: E731
-    lx = np.full((n_tiles, T + 1, 12, LANES), -1.5, np.float32)
+    lx = np.full((n_tiles, T + 1, nx, LANES), -1.5, np.float32)
     lx[:, 0] = -1e8
     return cuda_ocp.LanesQp(
-        A=_t(np.eye(12)[None, None, :, :, None] + 0.1 * rng.normal(size=shp(12, 12)), dev),
-        B=_t(0.4 * rng.normal(size=shp(12, 4)), dev), r=_t(0.05 * rng.normal(size=shp(12)), dev),
-        qdiag=_t(rng.uniform(0.5, 2.0, (n_tiles, T + 1, 12, LANES)), dev),
-        qx=_t(0.5 * rng.normal(size=(n_tiles, T + 1, 12, LANES)), dev),
-        rdiag=_t(rng.uniform(0.5, 2.0, shp(4)), dev), ru=_t(0.5 * rng.normal(size=shp(4)), dev),
-        lx=_t(lx, dev), ux=_t(-lx, dev), lu=_t(np.full(shp(4), -0.3), dev),
-        uu=_t(np.full(shp(4), 0.3), dev),
+        A=_t(np.eye(nx)[None, None, :, :, None] + 0.1 * rng.normal(size=shp(nx, nx)), dev),
+        B=_t(0.4 * rng.normal(size=shp(nx, nu)), dev), r=_t(0.05 * rng.normal(size=shp(nx)), dev),
+        qdiag=_t(rng.uniform(0.5, 2.0, (n_tiles, T + 1, nx, LANES)), dev),
+        qx=_t(0.5 * rng.normal(size=(n_tiles, T + 1, nx, LANES)), dev),
+        rdiag=_t(rng.uniform(0.5, 2.0, shp(nu)), dev), ru=_t(0.5 * rng.normal(size=shp(nu)), dev),
+        lx=_t(lx, dev), ux=_t(-lx, dev), lu=_t(np.full(shp(nu), -0.3), dev),
+        uu=_t(np.full(shp(nu), 0.3), dev),
     )
 
 
@@ -121,11 +159,22 @@ def _qp(dev, n_tiles, T, seed):
         (8, 25, dict(n_ip=10)),
     ],
 )
-def test_ocp_kernel_matches_plain(dev, n_tiles, T, kw):
-    qp = _qp(dev, n_tiles, T, seed=T)
+@pytest.mark.parametrize("nx,nu", [(12, 4), (4, 1), (4, 2)])
+def test_ocp_kernel_matches_plain(dev, n_tiles, T, kw, nx, nu):
+    qp = _qp(dev, n_tiles, T, seed=T, nx=nx, nu=nu)
     dx_k, du_k, gap_k = cuda_ocp.solve_ocp_qp_lanes(qp, **kw)
     dx_p, du_p, gap_p = cuda_ocp.solve_ocp_qp_lanes_plain(qp, **kw)
     assert bool(torch.isfinite(gap_k).all())
     assert _maxdiff(du_k, du_p) <= 5e-4
     assert _maxdiff(dx_k, dx_p) <= 5e-4
     assert float(du_k.abs().max()) <= 0.3 + 1e-4
+
+
+def test_kernels_refuse_widths_they_are_not_built_for(dev):
+    """A CUDA tensor of another (nx, nu) raises; it never takes the plain route."""
+    with pytest.raises(ValueError, match="instantiated for"):
+        cuda_ocp.solve_ocp_qp_lanes(_qp(dev, 1, 3, seed=0, nx=4, nu=3), n_ip=2)
+    args = (_t(np.ones((3, 3, 2)), dev), _t(np.eye(6), dev), _t(np.zeros((6, 3)), dev),
+            _t(np.zeros((3, 6)), dev), _t(np.eye(6)[:, :2], dev), _t(1.7, dev))
+    with pytest.raises(ValueError, match="instantiated for"):
+        cuda_tighten.tighten_lanes(*args)

@@ -1,7 +1,9 @@
 """Port lanes IP solver (kernel 4's plain version, via its wrapper on CPU
 tensors) against the JAX package: the XLA box-QP solver scenario by scenario,
 and the Pallas resident kernel (interpret mode) with Mehrotra and the
-tile-wide adaptive exit. QP data as in tests/test_pallas_ocp.py."""
+tile-wide adaptive exit. QP data as in tests/test_pallas_ocp.py, at the
+quadrotor's (nx, nu) = (12, 4), the cartpole's (4, 1) and the two-link arm's
+(4, 2)."""
 
 import jax
 import jax.numpy as jnp
@@ -16,11 +18,12 @@ from gpmpc_tpu_torch.ops import cuda_ocp
 from gpmpc_tpu_torch.ops.sqp import SqpConfig
 from gpmpc_tpu_torch.ops.sqp_lanes import MAX_LANES_HORIZON, _solve_qp_lanes
 
-T, NX, NU, L = 5, 12, 4, 8
+T, L = 5, 8
 F32 = np.float32
+WIDTHS = [(12, 4), (4, 1), (4, 2)]
 
 
-def make_batch(seed=0, t=T):
+def make_batch(seed=0, t=T, NX=12, NU=4):
     """tests/test_pallas_ocp.py::make_batch: (L, ...) batch-leading numpy data."""
     rng = np.random.default_rng(seed)
     A = np.tile(np.eye(NX, dtype=F32), (L, t, 1, 1)) + 0.1 * rng.normal(size=(L, t, NX, NX)).astype(F32)
@@ -47,8 +50,10 @@ def to_port(batches):
     })
 
 
-def test_plain_centering_matches_xla_boxqp_per_scenario():
-    d = make_batch(0)
+@pytest.mark.parametrize("nx,nu", WIDTHS)
+def test_plain_centering_matches_xla_boxqp_per_scenario(nx, nu):
+    NX, NU = nx, nu
+    d = make_batch(0, NX=nx, NU=nu)
     n_iter = 12
     dx, du, gap = cuda_ocp.solve_ocp_qp_lanes(to_port([d]), n_ip=n_iter)
     assert bool((gap < 1e-4).all())
@@ -67,14 +72,16 @@ def test_plain_centering_matches_xla_boxqp_per_scenario():
     np.testing.assert_allclose(dx, np.asarray(sol.dx, F32), atol=2e-4)
 
 
-def test_mehrotra_adaptive_exit_matches_pallas_kernel_per_tile():
-    """Two tiles that converge at different IP iterations (the second has 5x
-    larger gradients): each tile's tile-wide exit must match the reference
-    kernel run on that tile alone."""
-    hard = make_batch(5)
-    hard["qx"] *= 5
-    hard["ru"] *= 5
-    batches = [make_batch(2), hard]
+@pytest.mark.parametrize("nx,nu,scale", [(12, 4, 5), (4, 1, 50)])
+def test_mehrotra_adaptive_exit_matches_pallas_kernel_per_tile(nx, nu, scale):
+    """Two tiles that converge at different IP iterations (the second has
+    `scale` times larger gradients: it exits at iteration 7 at 12x4, 6 at
+    4x1): each tile's tile-wide exit must match the reference kernel run on
+    that tile alone."""
+    hard = make_batch(5, NX=nx, NU=nu)
+    hard["qx"] *= scale
+    hard["ru"] *= scale
+    batches = [make_batch(2, NX=nx, NU=nu), hard]
     kw = dict(n_ip=10, adaptive_tol=1e-6, mehrotra=True)
     qp = to_port(batches)
     dx, du, gap = cuda_ocp.solve_ocp_qp_lanes(qp, **kw)

@@ -1,10 +1,13 @@
 """The port's slice as a whole: `batched_gpmpc_step` on the lanes-fused path
 (plain versions on the CPU) against the JAX package's vmapped `select_action`,
-closed loop. The JAX controller drives the JAX plant; the port solves the same
-observation at every step from its own warm starts. Configuration: bench.py's
-defaults at a reduced horizon and batch, with the benchmark's GP (the committed
-fixture) on both sides. Bars: u within 5e-4 at every step and control RMSE
-<= 1e-3 (BASELINE.md)."""
+closed loop, for each model family. The JAX controller drives the JAX plant;
+the port solves the same observation at every step from its own warm starts.
+Configuration: bench.py's for the family (`BENCH_MODEL`) at a reduced horizon
+and batch, with the family's benchmark GP (the committed fixture) on both
+sides. Bars: u within 5e-4 at every step and control RMSE <= 1e-3
+(BASELINE.md)."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -14,21 +17,27 @@ import torch
 
 from gpmpc_tpu.control import gpmpc as j_gpmpc
 from gpmpc_tpu.control import mpc as j_mpc
+from gpmpc_tpu.envs import cartpole_env as j_cart_env
 from gpmpc_tpu.envs import drone as j_drone
+from gpmpc_tpu.envs import twolink_env as j_twolink_env
+from gpmpc_tpu.models import cartpole as j_cart
+from gpmpc_tpu.models import twolink as j_twolink
 from gpmpc_tpu.gp.exact_gp import GPHypers as JGPHypers
 from gpmpc_tpu.models.symbolic import symbolic_attitude as j_sym
 from gpmpc_tpu.utils.benchkit import Q_MPC, R_MPC, reference_prior_dict
 from gpmpc_tpu_torch import convert
 from gpmpc_tpu_torch.control import gpmpc as t_gpmpc
 from gpmpc_tpu_torch.control import mpc as t_mpc
+from gpmpc_tpu_torch.models import cartpole as t_cart
+from gpmpc_tpu_torch.models import twolink as t_twolink
 from gpmpc_tpu_torch.models.symbolic import symbolic_attitude as t_sym
 from gpmpc_tpu_torch.parallel.batch import batched_gpmpc_step
 
 F32 = np.float32
 
 
-def _jax_bench_gp():
-    with np.load(convert.BENCH_GP_PATH) as d:
+def _jax_bench_gp(family="quadrotor"):
+    with np.load(convert.bench_gp_path(family)) as d:
         d = dict(d)
     leaf = lambda k: jnp.asarray(d[k])  # noqa: E731
     return j_gpmpc.GpModel(
@@ -39,32 +48,49 @@ def _jax_bench_gp():
     )
 
 
-def run_closed_loop(T, B, n_steps):
-    """Per-step actions (n_steps, B, 4) of the JAX reference and the port."""
-    prior = reference_prior_dict()
-    env_p = j_drone.EnvParams.default()
-    traj = j_drone.make_trajectory(env_p)
+def _family(family):
+    """bench.py:94-145 for the family: (JAX model, JAX plant module, port
+    model, prior params, q_mpc, r_mpc, JAX boxes, port boxes, lm_reg)."""
+    if family == "quadrotor":
+        prior = reference_prior_dict()
+        return (j_sym(dt=0.02, params=prior), j_drone, t_sym(dt=0.02, params=prior), prior,
+                Q_MPC, R_MPC, None, None, 0.0)
+    if family == "cartpole":
+        return (j_cart.symbolic_cartpole(0.02), j_cart_env, t_cart.symbolic_cartpole(0.02), None,
+                [5.0, 0.1, 20.0, 0.5], [0.05], (j_cart.state_bounds(), j_cart.input_bounds()),
+                (t_cart.state_bounds(), t_cart.input_bounds()), 0.0)
+    return (j_twolink.symbolic_twolink(0.02), j_twolink_env, t_twolink.symbolic_twolink(0.02),
+            None, [20.0, 20.0, 0.5, 0.5], [0.1, 0.1],
+            (j_twolink.state_bounds(), j_twolink.input_bounds()),
+            (t_twolink.state_bounds(), t_twolink.input_bounds()), 0.5)
+
+
+def run_closed_loop(T, B, n_steps, family="quadrotor"):
+    """Per-step actions (n_steps, B, nu) of the JAX reference and the port."""
+    model_j, env_mod, model_t, prior, q, r, bounds_j, bounds_t, lm = _family(family)
+    env_p = env_mod.EnvParams.default()
+    traj = env_mod.make_trajectory(env_p)
     jc = j_gpmpc.GPMPC(
-        j_sym(dt=0.02, params=prior), traj, prior, horizon=T, q_mpc=Q_MPC, r_mpc=R_MPC,
+        model_j, traj, prior, horizon=T, q_mpc=q, r_mpc=r,
         sparse_gp=True, prob=0.95, max_gp_samples=40, seed=1, max_gp_points=128,
-        sqp_iters=6, qp_iters=10,
+        sqp_iters=6, qp_iters=10, bounds=bounds_j, lm_reg=lm,
     )
     cfg_j = jc.cfg._replace(qp_tol=1e-6, kernel_linearize=True, qp_mehrotra=True)
-    gp_j = _jax_bench_gp()
+    gp_j = _jax_bench_gp(family)
     step_j = jax.jit(jax.vmap(
         lambda s, o: j_gpmpc.select_action(jc.model, cfg_j, jc.consts, gp_j, s, o)))
-    plant = jax.jit(jax.vmap(lambda s, a: j_drone.env_step(env_p, s, a)))
+    plant = jax.jit(jax.vmap(lambda s, a: env_mod.env_step(env_p, s, a)))
 
-    model_t = t_sym(dt=0.02, params=prior)
-    tc = t_gpmpc.GPMPC(model_t, np.asarray(traj), prior, horizon=T, q_mpc=Q_MPC, r_mpc=R_MPC,
-                       prob=0.95, sqp_iters=6, qp_iters=10)
+    tc = t_gpmpc.GPMPC(model_t, np.asarray(traj), prior, horizon=T, q_mpc=q, r_mpc=r,
+                       prob=0.95, sqp_iters=6, qp_iters=10, bounds=bounds_t, lm_reg=lm)
     cfg_t = tc.cfg._replace(qp_tol=1e-6, kernel_linearize=True, qp_mehrotra=True)
-    gp_t = convert.load_bench_gp()
+    gp_t = convert.load_bench_gp(family=family)
 
-    es, obs = jax.vmap(lambda k: j_drone.env_reset(env_p, k))(
+    es, obs = jax.vmap(lambda k: env_mod.env_reset(env_p, k))(
         jax.random.split(jax.random.PRNGKey(0), B))
-    st_j = jax.vmap(lambda _: j_mpc.init_state(T, 12, 4))(jnp.arange(B))
-    st_t = t_mpc.init_state(B, T)
+    nx, nu = model_t.nx, model_t.nu
+    st_j = jax.vmap(lambda _: j_mpc.init_state(T, nx, nu))(jnp.arange(B))
+    st_t = t_mpc.init_state(B, T, nx, nu)
     u_j, u_t = [], []
     for _ in range(n_steps):
         obs32 = np.asarray(obs, F32)
@@ -78,8 +104,9 @@ def run_closed_loop(T, B, n_steps):
     return np.stack(u_j), np.stack(u_t), info
 
 
-def test_fused_step_matches_jax_select_action_closed_loop():
-    u_j, u_t, info = run_closed_loop(T=8, B=5, n_steps=10)  # B=5: padded inside one tile
+@pytest.mark.parametrize("family", ["quadrotor", "cartpole", "twolink"])
+def test_fused_step_matches_jax_select_action_closed_loop(family):
+    u_j, u_t, info = run_closed_loop(T=8, B=5, n_steps=10, family=family)  # B=5: padded in one tile
     for k in range(len(u_j)):
         np.testing.assert_allclose(u_t[k], u_j[k], atol=5e-4, err_msg=f"step {k}")
     rmse = float(np.sqrt(np.mean((u_t - u_j) ** 2)))
@@ -88,13 +115,14 @@ def test_fused_step_matches_jax_select_action_closed_loop():
 
 
 @pytest.mark.slow
-def test_fused_step_matches_jax_at_slice_horizon_after_transient():
+@pytest.mark.parametrize("family", ["quadrotor", "cartpole", "twolink"])
+def test_fused_step_matches_jax_at_slice_horizon_after_transient(family):
     """B=128 (one full tile), T=25, 60 steps; checked from step 15 on."""
-    u_j, u_t, _ = run_closed_loop(T=25, B=128, n_steps=60)
+    u_j, u_t, _ = run_closed_loop(T=25, B=128, n_steps=60, family=family)
     window = slice(15, None)
     err = u_t[window] - u_j[window]
     rmse = float(np.sqrt(np.mean(err**2)))
-    print(f"T=25 B=128 steps 15-59: control RMSE {rmse:.3e}, max abs {np.abs(err).max():.3e}; "
+    print(f"{family} T=25 B=128 steps 15-59: control RMSE {rmse:.3e}, max abs {np.abs(err).max():.3e}; "
           f"all 60 steps: RMSE {float(np.sqrt(np.mean((u_t - u_j) ** 2))):.3e}")
     for k in range(15, len(u_j)):
         np.testing.assert_allclose(u_t[k], u_j[k], atol=5e-4, err_msg=f"step {k}")
@@ -118,3 +146,9 @@ def test_other_dispatch_paths_raise_instead_of_falling_back():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         batched_gpmpc_step(model_t, tc.cfg._replace(kernel_linearize=True, soft_x_penalty=50.0),
                            tc.consts, gp_t, st, obs)
+    # a family with no kernel linearizer closure: the reference's jacfwd
+    # 'lanes' path, not ported
+    spec = dataclasses.replace(model_t.residual_spec, name="unicycle", supports_kernel_linearize=False)
+    with pytest.raises(t_gpmpc.UnsupportedPathError, match="no kernel linearizer"):
+        batched_gpmpc_step(dataclasses.replace(model_t, residual_spec=spec),
+                           tc.cfg._replace(kernel_linearize=True), tc.consts, gp_t, st, obs)

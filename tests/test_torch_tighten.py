@@ -10,12 +10,18 @@ import torch
 from gpmpc_tpu.control import gpmpc as j_gpmpc
 from gpmpc_tpu.control import mpc as j_mpc
 from gpmpc_tpu.control.gpmpc import GPMPC as JGPMPC
+from gpmpc_tpu.envs import cartpole_env as j_cart_env
+from gpmpc_tpu.envs import twolink_env as j_twolink_env
 from gpmpc_tpu.envs.drone import DroneFigureEightEnv
+from gpmpc_tpu.models import cartpole as j_cart
+from gpmpc_tpu.models import twolink as j_twolink
 from gpmpc_tpu.models.symbolic import symbolic_attitude as j_sym
 from gpmpc_tpu.utils.benchkit import Q_MPC, R_MPC, reference_prior_dict
 from gpmpc_tpu_torch import convert
 from gpmpc_tpu_torch.control import gpmpc as t_gpmpc
 from gpmpc_tpu_torch.control.mpc import MpcState
+from gpmpc_tpu_torch.models import cartpole as t_cart
+from gpmpc_tpu_torch.models import twolink as t_twolink
 from gpmpc_tpu_torch.models.symbolic import symbolic_attitude as t_sym
 from gpmpc_tpu_torch.ops import cuda_tighten
 
@@ -46,29 +52,61 @@ def _gp_t(gp):
     return convert.gp_model_from_numpy(flat)
 
 
-def test_tightening_matches_jax_tightening_from_variances():
+def _family_setup(family):
+    """(JAX controller, port spec, port consts) of the cartpole or the two-link
+    arm at bench.py's weights and boxes (untrained GP: only its noise enters
+    the tightening)."""
+    j_mod, j_env, t_mod = {
+        "cartpole": (j_cart, j_cart_env, t_cart), "twolink": (j_twolink, j_twolink_env, t_twolink),
+    }[family]
+    q, r, lm = {"cartpole": ([5.0, 0.1, 20.0, 0.5], [0.05], 0.0),
+                "twolink": ([20.0, 20.0, 0.5, 0.5], [0.1, 0.1], 0.5)}[family]
+    model_j = j_cart.symbolic_cartpole(0.02) if family == "cartpole" else j_twolink.symbolic_twolink(0.02)
+    jc = JGPMPC(
+        model_j, j_env.make_trajectory(j_env.EnvParams.default()), None, horizon=T, q_mpc=q,
+        r_mpc=r, sparse_gp=False, seed=0, max_gp_points=16, sqp_iters=2, qp_iters=6,
+        bounds=(j_mod.state_bounds(), j_mod.input_bounds()), lm_reg=lm,
+    )
+    d = {k: np.asarray(v) for k, v in jc.consts._asdict().items() if k != "mpc"}
+    d["mpc"] = {k: np.asarray(v) for k, v in jc.consts.mpc._asdict().items()}
+    model_t = t_mod.symbolic_cartpole(0.02) if family == "cartpole" else t_mod.symbolic_twolink(0.02)
+    return jc, model_t.residual_spec, convert.consts_from_numpy(d)
+
+
+@pytest.mark.parametrize("family", ["quadrotor", "cartpole", "twolink"])
+def test_tightening_matches_jax_tightening_from_variances(family):
     """Disturbance diagonals + covariance recursion for B=5 scenarios (B < one
-    lane tile) against the reference's per-scenario scan."""
-    env, jc, model_t, consts_t = _setup()
+    lane tile) against the reference's per-scenario scan: the quadrotor at
+    (nx, nu) = (12, 4) with a trained GP, the cartpole at (4, 1) and the
+    two-link arm at (4, 2)."""
     B = 5
     rng = np.random.default_rng(0)
-    zq = np.concatenate([rng.uniform(0.2, 0.5, (B, T, 1)), rng.normal(0, 0.3, (B, T, 6))],
-                        axis=2).astype(F32)
-    covs = rng.uniform(1e-3, 5e-2, (3, B, T)).astype(F32)
+    if family == "quadrotor":
+        _, jc, _, consts_t = _setup()
+        spec_t = t_gpmpc.QUADROTOR_SPEC
+        zq = np.concatenate([rng.uniform(0.2, 0.5, (B, T, 1)), rng.normal(0, 0.3, (B, T, 6))], axis=2)
+    else:
+        jc, spec_t, consts_t = _family_setup(family)
+        zq = rng.normal(0, 0.5, (B, T, spec_t.z_dim))
+    zq = zq.astype(F32)
+    nx, nu = consts_t.Bd_in.shape
+    covs = rng.uniform(1e-3, 5e-2, (spec_t.num_gps, B, T)).astype(F32)
     tx_j, tu_j = jax.jit(jax.vmap(
-        lambda z, c: j_gpmpc.tightening_from_variances(jc.consts, jc.gp_model, z, c)
+        lambda z, c: j_gpmpc.tightening_from_variances(jc.consts, jc.gp_model, z, c, jc.spec)
     ))(jnp.asarray(zq), jnp.moveaxis(jnp.asarray(covs), 1, 0))
 
     gp_t = _gp_t(jc.gp_model)
-    cov_dn = t_gpmpc._gp_disturbance_batch(consts_t, gp_t, torch.as_tensor(zq), torch.as_tensor(covs))
+    cov_dn = t_gpmpc._gp_disturbance_batch(
+        consts_t, gp_t, torch.as_tensor(zq), torch.as_tensor(covs), spec_t
+    )
     c = consts_t
     tx_t, tu_t = cuda_tighten.tighten_lanes(
         cov_dn, c.Ad, c.Bd_in, c.lqr_gain, c.Bd, c.inverse_cdf
     )
-    assert tx_t.shape == (B, T + 1, 12) and tu_t.shape == (B, T, 4)
+    assert tx_t.shape == (B, T + 1, nx) and tu_t.shape == (B, T, nu)
     np.testing.assert_allclose(tx_t.numpy(), np.asarray(tx_j, F32), atol=1e-6)
     np.testing.assert_allclose(tu_t.numpy(), np.asarray(tu_j, F32), atol=1e-6)
-    assert tx_t[:, 1:, 1].min() > 0  # variance reaches the velocity rows
+    assert tx_t[:, 1:, spec_t.uncertain_dim[0]].min() > 0  # variance reaches the uncertain rows
 
 
 @pytest.mark.parametrize(

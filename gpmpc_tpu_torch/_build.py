@@ -41,10 +41,18 @@ SIGNATURES = {
     "tighten_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # family, nx, nu, par8, hyp, X, U, Zs, alpha, n_tiles, T, L, Ms, use_gp, dt, fnext, A, B, stream
     "linearize_launch": [_I, _I, _I] + [_P] * 6 + [_I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
-    # A, B, r, qdiag, qx, rdiag, ru, lx, ux, lu, uu, dx, du, gap, ws,
-    # n_tiles, T, L, nx, nu, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, stream
-    "ocp_ip_launch": [_P] * 15 + [_I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P],
 }
+# The interior-point kernels: resident, tier-1 and tier-2 streamed, each with
+# hard and with L1-soft state bounds, one source and one pair of entry points
+# each (csrc/ocp_ip.cuh).
+OCP_IP_KERNELS = (
+    "ocp_ip", "ocp_ip_soft", "ocp_ip_streamed", "ocp_ip_streamed_soft",
+    "ocp_ip_streamed2", "ocp_ip_streamed2_soft",
+)
+for _name in OCP_IP_KERNELS:
+    # A, B, r, qdiag, qx, rdiag, ru, lx, ux, lu, uu, dx, du, gap, n_iters, ws, n_tiles, T, L,
+    # nx, nu, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, stream
+    SIGNATURES[_name + "_launch"] = [_P] * 16 + [_I] * 6 + [_F] * 4 + [_I, _F, _P]
 
 
 class KernelBuildError(RuntimeError):
@@ -158,8 +166,10 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.cudaGetErrorString_wrapper.argtypes = [ctypes.c_int]
     lib.cudaGetErrorString_wrapper.restype = ctypes.c_char_p
-    lib.ocp_ip_workspace_floats.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.ocp_ip_workspace_floats.restype = ctypes.c_long
+    for name in OCP_IP_KERNELS:  # (T, nx, nu) -> floats of workspace per scenario
+        fn = getattr(lib, name + "_workspace_floats")
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_long
     return lib
 
 

@@ -6,14 +6,15 @@ Port of the `lanes-fused` slice of `gpmpc_tpu/control/gpmpc.py`: `GpModel`,
 `batched_variances`, `_gp_disturbance_batch` (which is also the reference's
 per-scenario `disturbance_diagonals`, batched),
 `_bounds_from_tightening`, `batched_prepare_step` and the fused branch of
-`batched_select_action_lanes`. GP training, the XLA/jacfwd branches and the
-stateful controller API are not ported yet (ROADMAP.md Queue 1). All state
-carries a leading scenario axis B.
+`batched_select_action_lanes`, with hard or L1-soft state bounds. GP
+training, the XLA/jacfwd branches and the stateful controller API are not
+ported yet (ROADMAP.md Queue 1). All state carries a leading scenario axis B.
 """
 
 from __future__ import annotations
 
 import statistics
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -21,6 +22,7 @@ import torch
 
 from gpmpc_tpu_torch.control import mpc as mpc_mod
 from gpmpc_tpu_torch.control.mpc import MpcConsts, MpcInfo, MpcState
+from gpmpc_tpu_torch.device import resolve
 from gpmpc_tpu_torch.models.residual import QUADROTOR_SPEC, ResidualSpec
 from gpmpc_tpu_torch.ops.cuda_gp import gp_mean_var
 from gpmpc_tpu_torch.ops.cuda_tighten import tighten_lanes
@@ -30,6 +32,7 @@ from gpmpc_tpu_torch.ops.sqp_lanes import (
     LANES,
     MAX_FUSED_HORIZON,
     LanesLinearizer,
+    lanes_horizon_cap,
     sqp_solve_batch_lanes_fused,
 )
 
@@ -138,10 +141,14 @@ def _bounds_from_tightening(
     obs: torch.Tensor,  # (B, nx)
     t_x: torch.Tensor,  # (B, T+1, nx)
     t_u: torch.Tensor,  # (B, T, nu)
+    soft: bool = False,
 ):
     """Gate and clamp the tightening, build the tightened boxes, the
     reference windows and the warm starts. (xref, bounds, X_init, U_init,
-    clamp_frac (B,))."""
+    clamp_frac (B,)). With `soft` state bounds the state tightening is kept in
+    full (even crossed boxes are well-posed for the L1-penalized QP, and the
+    degradation shows in MpcInfo.soft_viol); input bounds are actuator limits
+    and are always clamped."""
     c = consts.mpc
     T = c.uref.shape[0]
     # no previous rollout, or an untrained GP -> no tightening
@@ -151,9 +158,11 @@ def _bounds_from_tightening(
     # never consume more than 45% of a box from each side; count every clamp
     cap_x = 0.45 * (c.ux - c.lx)
     cap_u = 0.45 * (c.uu - c.lu)
-    n_clamped = (t_u > cap_u).sum(dim=(1, 2)) + (t_x > cap_x).sum(dim=(1, 2))
+    n_clamped = (t_u > cap_u).sum(dim=(1, 2))
+    if not soft:
+        n_clamped = n_clamped + (t_x > cap_x).sum(dim=(1, 2))
+        t_x = torch.minimum(t_x, cap_x)
     clamp_frac = n_clamped.to(F32) / float(t_x[0].numel() + t_u[0].numel())
-    t_x = torch.minimum(t_x, cap_x)
     t_u = torch.minimum(t_u, cap_u)
     bounds = OcpBounds(lx=c.lx + t_x, ux=c.ux - t_x, lu=c.lu + t_u, uu=c.uu - t_u)
 
@@ -165,7 +174,8 @@ def _bounds_from_tightening(
 
 
 def batched_prepare_step(
-    model, consts: GpMpcConsts, gp: GpModel, states: MpcState, obs: torch.Tensor
+    model, consts: GpMpcConsts, gp: GpModel, states: MpcState, obs: torch.Tensor,
+    soft: bool = False,
 ):
     """GP variances along the previous solutions (kernel 1), disturbance
     diagonals, the covariance recursion (kernel 2), then the tightened boxes
@@ -178,7 +188,7 @@ def batched_prepare_step(
         cov_dn.contiguous(), consts.Ad, consts.Bd_in, consts.lqr_gain, consts.Bd,
         consts.inverse_cdf,
     )
-    return _bounds_from_tightening(consts, gp, states, obs, t_x, t_u)
+    return _bounds_from_tightening(consts, gp, states, obs, t_x, t_u, soft=soft)
 
 
 def state_bound_violation(X: torch.Tensor, bounds: OcpBounds) -> torch.Tensor:
@@ -206,13 +216,25 @@ def batched_select_action_lanes(
     any configuration that would leave it raises `UnsupportedPathError`."""
     spec = model_spec(model)
     T = consts.mpc.uref.shape[0]
+    # Soft state bounds live in all three QP kernels up to the soft cap; past
+    # it, hard bounds with the feasibility clamp, and a warning.
+    if cfg.soft_x_penalty is not None and T > lanes_horizon_cap(cfg):
+        warnings.warn(
+            f"soft_constraints requested but T={T} exceeds the lanes soft horizon cap "
+            f"({lanes_horizon_cap(cfg)}); falling back to hard bounds with the 45% "
+            "feasibility clamp for this controller",
+            stacklevel=2,
+        )
+        cfg = cfg._replace(soft_x_penalty=None)
     if not (cfg.kernel_linearize and spec.supports_kernel_linearize and gp.Zs.dim() == 3
             and T <= MAX_FUSED_HORIZON):
         raise UnsupportedPathError(
             "only the fused lanes branch (kernel_linearize, a family with a kernel "
             f"linearizer, shared GP, T <= {MAX_FUSED_HORIZON}) is ported; see ROADMAP.md Queue 1"
         )
-    xref, bounds, X_init, U_init, clamp_frac = batched_prepare_step(model, consts, gp, states, obs)
+    xref, bounds, X_init, U_init, clamp_frac = batched_prepare_step(
+        model, consts, gp, states, obs, soft=cfg.soft_x_penalty is not None
+    )
     if cfg.warm_shift:
         X_init = torch.cat([X_init[:, 1:], X_init[:, -1:]], dim=1)
         U_init = torch.cat([U_init[:, 1:], U_init[:, -1:]], dim=1)
@@ -245,7 +267,9 @@ class GPMPC:
     """Controller setup (the setup half of the reference's `GPMPC.__init__`):
     `consts` (GpMpcConsts on `device`) and `cfg` (SqpConfig). `bounds`
     (((lx, ux), (lu, uu)), default the quadrotor's boxes) and `lm_reg` are the
-    reference's. The stateful select_action / train_gp API is not ported yet."""
+    reference's, as is `soft_constraints`: the L1 penalty weight that makes
+    the chance-tightened state bounds soft (None keeps them hard). The
+    stateful select_action / train_gp API is not ported yet."""
 
     def __init__(
         self,
@@ -258,10 +282,12 @@ class GPMPC:
         prob: float = 0.955,
         sqp_iters: int = 25,
         qp_iters: int = 15,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         bounds: tuple | None = None,
         lm_reg: float = 0.0,
+        soft_constraints: float | None = None,
     ):
+        device = resolve(device)
         self.spec = model_spec(model)
         # only the quadrotor's thrust map consumes the prior's a and b
         if self.spec.name == "quadrotor" and (
@@ -290,4 +316,6 @@ class GPMPC:
             Ad=t(Ad), Bd_in=t(Bd_in), lqr_gain=t(lqr_K), Bd=t(Bd_mat),
             inverse_cdf=t(inverse_cdf), dt=t(model.dt),
         )
-        self.cfg = SqpConfig(sqp_iters=sqp_iters, qp_iters=qp_iters, lm_reg=lm_reg)
+        self.cfg = SqpConfig(
+            sqp_iters=sqp_iters, qp_iters=qp_iters, soft_x_penalty=soft_constraints, lm_reg=lm_reg
+        )

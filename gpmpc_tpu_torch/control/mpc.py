@@ -9,6 +9,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gpmpc_tpu_torch.device import resolve
 from gpmpc_tpu_torch.models import quadrotor
 
 F32 = torch.float32
@@ -48,11 +49,12 @@ class MpcInfo(NamedTuple):
 
 
 def make_consts(
-    model, traj, q_mpc, r_mpc, horizon: int, device="cpu", bounds=None, u_eq=None
+    model, traj, q_mpc, r_mpc, horizon: int, device=None, bounds=None, u_eq=None
 ) -> MpcConsts:
     """The MPC constants. Defaults keep the reference's quadrotor contract (the
     quadrotor's boxes); other families pass `bounds=((lx, ux), (lu, uu))`. The
     input reference is `u_eq`, else the model's own trim, else zero."""
+    device = resolve(device)
     if len(q_mpc) != model.nx or len(r_mpc) != model.nu:
         raise ValueError(f"q_mpc/r_mpc need {model.nx}/{model.nu} entries, got {len(q_mpc)}/{len(r_mpc)}")
     if bounds is None:
@@ -74,20 +76,22 @@ def make_consts(
     )
 
 
-def default_u_eq(nu: int, device="cpu") -> torch.Tensor:
+def default_u_eq(nu: int, device=None) -> torch.Tensor:
     """The reference's warm-start input when none is given: the quadrotor's
     hover trim for nu = 4, zeros otherwise (the first step replaces it with
     the consts' input reference)."""
+    device = resolve(device)
     if nu == quadrotor.NU:
         return torch.as_tensor(quadrotor.U_EQ, device=device)
     return torch.zeros(nu, dtype=F32, device=device)
 
 
 def init_state(
-    batch: int, horizon: int, nx: int = 12, nu: int = 4, device="cpu", u_eq=None
+    batch: int, horizon: int, nx: int = 12, nu: int = 4, device=None, u_eq=None
 ) -> MpcState:
     """B fresh controller states: step 0, zero state guess, `u_eq` (default
     `default_u_eq(nu)`) as the input guess."""
+    device = resolve(device)
     u_eq = default_u_eq(nu, device) if u_eq is None else torch.as_tensor(u_eq, dtype=F32, device=device)
     return MpcState(
         traj_step=torch.zeros(batch, dtype=torch.int32, device=device),

@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from gpmpc_tpu_torch.device import resolve
 from gpmpc_tpu_torch.models import cartpole
 from gpmpc_tpu_torch.models.cartpole import CartpoleParams
 
@@ -55,8 +56,9 @@ class EnvState(NamedTuple):
     t: torch.Tensor  # (B,) int32
 
 
-def make_trajectory(p: EnvParams, device="cpu") -> torch.Tensor:
+def make_trajectory(p: EnvParams, device=None) -> torch.Tensor:
     """(n_steps, 4): sinusoidal cart position with its velocity, pole upright."""
+    device = resolve(device)
     period = p.traj_period_steps if p.traj_period_steps is not None else p.n_steps
     t = torch.arange(p.n_steps, dtype=F32, device=device) * p.dt
     omega = 2.0 * math.pi / (period * p.dt)
@@ -69,10 +71,11 @@ def make_trajectory(p: EnvParams, device="cpu") -> torch.Tensor:
 
 
 def env_reset(
-    p: EnvParams, batch: int, generator: torch.Generator, device="cpu"
+    p: EnvParams, batch: int, generator: torch.Generator, device=None
 ) -> tuple[EnvState, torch.Tensor]:
     """B resets at the trajectory start plus `init_noise` Gaussian perturbations
     drawn from `generator` (which must live on `device`)."""
+    device = resolve(device)
     traj0 = make_trajectory(p, device)[0]
     noise = torch.randn(batch, cartpole.NX, generator=generator, dtype=F32, device=device)
     x0 = traj0[None] + p.init_noise * noise

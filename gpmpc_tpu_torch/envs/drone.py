@@ -10,6 +10,7 @@ from typing import NamedTuple
 
 import torch
 
+from gpmpc_tpu_torch.device import resolve
 from gpmpc_tpu_torch.models import quadrotor
 from gpmpc_tpu_torch.models.quadrotor import QuadrotorParams
 from gpmpc_tpu_torch.models.trajectory import figure_eight_trajectory
@@ -49,23 +50,25 @@ class EnvState(NamedTuple):
     u_queue: torch.Tensor  # (B, delay_steps, 4) in-flight delayed commands
 
 
-def make_trajectory(p: EnvParams, device="cpu") -> torch.Tensor:
+def make_trajectory(p: EnvParams, device=None) -> torch.Tensor:
     return figure_eight_trajectory(
         n_steps=p.n_steps, dt=p.dt, amplitude=p.traj_amplitude, height=p.traj_height,
         device=device,
     )
 
 
-def hover_input(params: QuadrotorParams, device="cpu") -> torch.Tensor:
+def hover_input(params: QuadrotorParams, device=None) -> torch.Tensor:
+    device = resolve(device)
     t_hover = (quadrotor.GRAVITY - params.b) / params.a
     return torch.tensor([t_hover, 0.0, 0.0, 0.0], dtype=F32, device=device)
 
 
 def env_reset(
-    p: EnvParams, batch: int, generator: torch.Generator, device="cpu"
+    p: EnvParams, batch: int, generator: torch.Generator, device=None
 ) -> tuple[EnvState, torch.Tensor]:
     """B resets at the trajectory start plus `init_noise` Gaussian perturbations
     drawn from `generator` (which must live on `device`)."""
+    device = resolve(device)
     traj0 = make_trajectory(p, device)[0]
     noise = torch.randn(batch, traj0.shape[0], generator=generator, dtype=F32, device=device)
     x0 = traj0[None] + p.init_noise * noise

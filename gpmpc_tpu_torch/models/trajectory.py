@@ -6,6 +6,8 @@ import math
 
 import torch
 
+from gpmpc_tpu_torch.device import resolve
+
 
 def figure_eight_trajectory(
     n_steps: int = 300,
@@ -13,9 +15,10 @@ def figure_eight_trajectory(
     amplitude: float = 0.8,
     height: float = 1.0,
     n_periods: int = 1,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """Periodic figure-eight reference in the X-Y plane, (n_steps, 12) float32."""
+    device = resolve(device)
     t = torch.arange(n_steps, dtype=torch.float32, device=device) * dt
     w = 2.0 * math.pi * n_periods / (n_steps * dt)
     x = amplitude * torch.sin(w * t)

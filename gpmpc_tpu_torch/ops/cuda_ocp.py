@@ -1,13 +1,19 @@
-"""Box-constrained OCP-QP interior point in lanes layout: kernel 4 of the port.
+"""Box-constrained OCP-QP interior point in lanes layout: kernels 4, 5 and 6
+of the port.
 
-Port of `gpmpc_tpu/ops/pallas_ocp.py::solve_ocp_qp_lanes`, the resident
-kernel, in its hard-bound modes (plain centering or Mehrotra, fixed count or
-the tile-wide adaptive exit). Soft state bounds and the streamed tiers are not
-ported yet (ROADMAP.md Queue 2). The CUDA kernel is `csrc/ocp_ip.cu`,
-instantiated for the (nx, nu) pairs in `_wrap.KERNEL_SHAPES`;
-`solve_ocp_qp_lanes_plain` is the same algorithm in plain PyTorch, which the
-wrapper runs for CPU tensors. Unlike the reference, which takes one tile per
-call, both take every tile at once: arrays lead with n_tiles.
+Port of `gpmpc_tpu/ops/pallas_ocp.py`'s three solvers: `solve_ocp_qp_lanes`
+(the resident kernel), `solve_ocp_qp_lanes_streamed` (tier 1) and
+`solve_ocp_qp_lanes_streamed2` (tier 2), each with plain centering or
+Mehrotra, a fixed iteration count or the tile-wide adaptive exit, and hard or
+L1-soft state bounds (`soft_rho`). The CUDA kernels share
+`csrc/ocp_ip.cuh`; each of the six variants (three tiers, hard and soft) has
+its own source and entry points, instantiated for the (nx, nu) pairs in
+`_wrap.KERNEL_SHAPES`. Beside each wrapper stands the same algorithm in
+plain PyTorch (`*_plain`), which the wrapper runs for CPU tensors: the
+streamed tiers keep no factorization between the two sweeps of a Mehrotra
+iteration, so their corrector repeats the matrix sweep. Unlike the reference,
+which takes one tile per call, all of them take every tile at once: arrays
+lead with n_tiles.
 """
 
 from __future__ import annotations
@@ -117,36 +123,49 @@ def _lane_sum(a):
     return torch.sum(a, dim=(1, 2))
 
 
-def solve_ocp_qp_lanes_plain(
-    qp: LanesQp,
-    n_ip: int = 15,
-    mu0: float = 1e-1,
-    sigma: float = 0.2,
-    tau: float = 0.995,
-    adaptive_tol: float | None = None,
-    mehrotra: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dx (n,T+1,nx,L), du (n,T,nu,L), gap (n,L)). With `adaptive_tol`, a tile
-    stops iterating once every lane in it has mu <= adaptive_tol."""
+def _ip_plain(qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, refactor):
+    """The interior point of all three kernels. `refactor` is the streamed
+    kernels' arithmetic: the Mehrotra corrector repeats the full matrix sweep
+    instead of reusing the affine sweep's factorization."""
     A, Bm = qp.A, qp.B
     n, T, nx, _, L = A.shape
     nu = Bm.shape[3]
     dev, f32 = A.device, torch.float32
+    soft = soft_rho is not None
+    if soft:
+        # float32 validity floor of the soft mode: the adaptive exit doubles as
+        # the numerical stop, so it is always on
+        adaptive_tol = max(adaptive_tol or 0.0, 1e-8)
     s_min = 1e-2
     eye_x = torch.eye(nx, dtype=f32, device=dev)[None, :, :, None]
     eye_u = torch.eye(nu, dtype=f32, device=dev)[None, :, :, None]
-    m_total = 2.0 * ((T + 1) * nx + T * nu)
+    m_total = 2.0 * ((T + 1) * nx + T * nu) + (2.0 * (T + 1) * nx if soft else 0.0)
+    target_floor, mu_floor = (1e-8, 1e-8) if soft else (1e-14, 1e-12)
 
-    slx = torch.clamp_min(-qp.lx, s_min)
-    sux = torch.clamp_min(qp.ux, s_min)
     slu = torch.clamp_min(-qp.lu, s_min)
     suu = torch.clamp_min(qp.uu, s_min)
     st = dict(
         dx=torch.zeros(n, T + 1, nx, L, dtype=f32, device=dev),
         du=torch.zeros(n, T, nu, L, dtype=f32, device=dev),
-        slx=slx, sux=sux, slu=slu, suu=suu,
-        llx=mu0 / slx, lux=mu0 / sux, llu=mu0 / slu, luu=mu0 / suu,
+        slu=slu, suu=suu, llu=mu0 / slu, luu=mu0 / suu,
     )
+    if soft:
+        # L1-soft state bounds in the bounded-multiplier form: s = dx + e - lx,
+        # multipliers in (0, rho), one more pair e * nu = mu per bound, with
+        # nu = rho - lam kept as state (rho - lam rounds to 0 once lam -> rho)
+        slx = torch.clamp_min(s_min - qp.lx, s_min)
+        sux = torch.clamp_min(qp.ux + s_min, s_min)
+        llx = torch.clamp_max(mu0 / slx, 0.49 * soft_rho)
+        lux = torch.clamp_max(mu0 / sux, 0.49 * soft_rho)
+        st.update(
+            slx=slx, sux=sux, llx=llx, lux=lux,
+            elx=torch.full_like(slx, s_min), eux=torch.full_like(slx, s_min),
+            nulx=soft_rho - llx, nuux=soft_rho - lux,
+        )
+    else:
+        slx = torch.clamp_min(-qp.lx, s_min)
+        sux = torch.clamp_min(qp.ux, s_min)
+        st.update(slx=slx, sux=sux, llx=mu0 / slx, lux=mu0 / sux)
 
     def solve_newton(s, rdyn, sigx, sigu, corr_x, corr_u, stores=None):
         """Riccati sweep + rollout. `stores` (K, Pr, lchol, Gxu) from an earlier
@@ -195,59 +214,102 @@ def solve_ocp_qp_lanes_plain(
         return torch.stack(ddx, dim=1), torch.stack(ddu, dim=1), stores
 
     def ip_iter(s, mu):
-        r_slx = s["dx"] - qp.lx - s["slx"]
-        r_sux = qp.ux - s["dx"] - s["sux"]
-        r_slu = s["du"] - qp.lu - s["slu"]
-        r_suu = qp.uu - s["du"] - s["suu"]
-        sigx = s["llx"] / s["slx"] + s["lux"] / s["sux"]
-        sigu = s["llu"] / s["slu"] + s["luu"] / s["suu"]
+        sl = (s["slx"], s["sux"], s["slu"], s["suu"])
+        ll = (s["llx"], s["lux"], s["llu"], s["luu"])
+        r_slx = s["dx"] - qp.lx - sl[0]
+        r_sux = qp.ux - s["dx"] - sl[1]
+        r_slu = s["du"] - qp.lu - sl[2]
+        r_suu = qp.uu - s["du"] - sl[3]
+        if soft:
+            el, nl = (s["elx"], s["eux"]), (s["nulx"], s["nuux"])
+            r_slx = r_slx + el[0]
+            r_sux = r_sux + el[1]
+            # fused barrier weight w = lam nu / den, den = s nu + e lam: never
+            # divides by a multiplier that may have underflowed; the floor on
+            # den caps w at 1e6
+            den = tuple(
+                torch.maximum(sl[i] * nl[i] + el[i] * ll[i], ll[i] * nl[i] * 1e-6) for i in range(2)
+            )
+            w = tuple(ll[i] * nl[i] / den[i] for i in range(2))
+        else:
+            w = (ll[0] / sl[0], ll[1] / sl[1])
+        sigx = w[0] + w[1]
+        sigu = ll[2] / sl[2] + ll[3] / sl[3]
         rdyn = (
             _mv(A.flatten(0, 1), s["dx"][:, :T].flatten(0, 1)).unflatten(0, (n, T))
             + _mv(Bm.flatten(0, 1), s["du"].flatten(0, 1)).unflatten(0, (n, T))
             + qp.r - s["dx"][:, 1:]
         )
-        sl = (s["slx"], s["sux"], s["slu"], s["suu"])
-        ll = (s["llx"], s["lux"], s["llu"], s["luu"])
 
-        def directions(rc, stores=None):
-            corr_x = (rc[0] + ll[0] * r_slx) / sl[0] - (rc[1] + ll[1] * r_sux) / sl[1]
+        def directions(rc, re, stores=None):
+            """Newton directions for complementarity right-hand sides rc (the
+            four box pairs) and re (the two soft pairs e * nu, else None)."""
+            if soft:
+                cg_l = (ll[0] * nl[0] * r_slx + nl[0] * rc[0] - ll[0] * re[0]) / den[0]
+                cg_u = (ll[1] * nl[1] * r_sux + nl[1] * rc[1] - ll[1] * re[1]) / den[1]
+                corr_x = cg_l - cg_u
+            else:
+                corr_x = (rc[0] + ll[0] * r_slx) / sl[0] - (rc[1] + ll[1] * r_sux) / sl[1]
             corr_u = (rc[2] + ll[2] * r_slu) / sl[2] - (rc[3] + ll[3] * r_suu) / sl[3]
             ddx, ddu, stores = solve_newton(s, rdyn, sigx, sigu, corr_x, corr_u, stores)
-            ds = (ddx + r_slx, r_sux - ddx, ddu + r_slu, r_suu - ddu)
-            dl = tuple(-(rc[i] + ll[i] * ds[i]) / sl[i] for i in range(4))
-            return ddx, ddu, ds, dl, stores
+            ds_lu, ds_uu = ddu + r_slu, r_suu - ddu
+            dl_lu = -(rc[2] + ll[2] * ds_lu) / sl[2]
+            dl_uu = -(rc[3] + ll[3] * ds_uu) / sl[3]
+            if soft:
+                dl_lx = -(w[0] * ddx + cg_l)
+                dl_ux = w[1] * ddx - cg_u
+                de = ((-re[0] + el[0] * dl_lx) / nl[0], (-re[1] + el[1] * dl_ux) / nl[1])
+                ds_lx = ddx + de[0] + r_slx
+                ds_ux = -ddx + de[1] + r_sux
+            else:
+                ds_lx, ds_ux = ddx + r_slx, r_sux - ddx
+                dl_lx = -(rc[0] + ll[0] * ds_lx) / sl[0]
+                dl_ux = -(rc[1] + ll[1] * ds_ux) / sl[1]
+                de = None
+            return ddx, ddu, (ds_lx, ds_ux, ds_lu, ds_uu), (dl_lx, dl_ux, dl_lu, dl_uu), de, stores
 
-        def steps(ds, dl, t):
-            a_p = torch.clamp_max(torch.stack(
-                [_lane_min(_ratio(sl[i], ds[i], t)) for i in range(4)]).amin(0), 1.0)
-            a_d = torch.clamp_max(torch.stack(
-                [_lane_min(_ratio(ll[i], dl[i], t)) for i in range(4)]).amin(0), 1.0)
-            return a_p, a_d
+        def steps(ds, dl, de, t):
+            a_p = torch.stack([_lane_min(_ratio(sl[i], ds[i], t)) for i in range(4)]).amin(0)
+            a_d = torch.stack([_lane_min(_ratio(ll[i], dl[i], t)) for i in range(4)]).amin(0)
+            if soft:  # e stays positive (primal), nu = rho - lam positive (dual)
+                for i in range(2):
+                    a_p = torch.minimum(a_p, _lane_min(_ratio(el[i], de[i], t)))
+                    a_d = torch.minimum(a_d, _lane_min(_ratio(nl[i], -dl[i], t)))
+            return torch.clamp_max(a_p, 1.0), torch.clamp_max(a_d, 1.0)
 
-        def gap_of(sl_, ll_):
+        def gap_of(sl_, ll_, el_=None, nl_=None):
             g = _lane_sum(sl_[0] * ll_[0]) + _lane_sum(sl_[1] * ll_[1])
             g = g + _lane_sum(sl_[2] * ll_[2]) + _lane_sum(sl_[3] * ll_[3])
+            if soft:
+                g = g + _lane_sum(el_[0] * nl_[0]) + _lane_sum(el_[1] * nl_[1])
             return g / m_total
 
+        prod = tuple(sl[i] * ll[i] for i in range(4))
+        prod_e = tuple(el[i] * nl[i] for i in range(2)) if soft else None
         if mehrotra:
-            gap_now = gap_of(sl, ll)
-            rc_a = tuple(sl[i] * ll[i] for i in range(4))
-            _, _, ds_a, dl_a, stores = directions(rc_a)
-            ap_a, ad_a = steps(ds_a, dl_a, 1.0)
+            gap_now = gap_of(sl, ll, *((el, nl) if soft else ()))
+            _, _, ds_a, dl_a, de_a, stores = directions(prod, prod_e)
+            ap_a, ad_a = steps(ds_a, dl_a, de_a, 1.0)
             ap_, ad_ = ap_a[:, None, None, :], ad_a[:, None, None, :]
             gap_aff = gap_of(
                 tuple(sl[i] + ap_ * ds_a[i] for i in range(4)),
                 tuple(ll[i] + ad_ * dl_a[i] for i in range(4)),
+                *((tuple(el[i] + ap_ * de_a[i] for i in range(2)),
+                   tuple(nl[i] - ad_ * dl_a[i] for i in range(2))) if soft else ()),
             )
             sig = torch.clamp((gap_aff / torch.clamp_min(gap_now, 1e-16)) ** 3, 1e-4, 1.0)
-            target = torch.clamp_min(sig * gap_now, 1e-14)[:, None, None, :]
-            rc = tuple(sl[i] * ll[i] + ds_a[i] * dl_a[i] - target for i in range(4))
-            ddx, ddu, ds, dl, _ = directions(rc, stores)
+            target = torch.clamp_min(sig * gap_now, target_floor)[:, None, None, :]
+            rc = tuple(prod[i] + ds_a[i] * dl_a[i] - target for i in range(4))
+            # d(e) d(nu) = -de_aff dlam_aff for the soft pairs
+            re = tuple(prod_e[i] - de_a[i] * dl_a[i] - target for i in range(2)) if soft else None
+            ddx, ddu, ds, dl, de, _ = directions(rc, re, None if refactor else stores)
         else:
             mu_b = mu[:, None, None, :]
-            ddx, ddu, ds, dl, _ = directions(tuple(sl[i] * ll[i] - mu_b for i in range(4)))
+            ddx, ddu, ds, dl, de, _ = directions(
+                tuple(c - mu_b for c in prod), tuple(c - mu_b for c in prod_e) if soft else None
+            )
 
-        a_p, a_d = steps(ds, dl, tau)
+        a_p, a_d = steps(ds, dl, de, tau)
         ap_, ad_ = a_p[:, None, None, :], a_d[:, None, None, :]
         new = dict(
             dx=s["dx"] + ap_ * ddx, du=s["du"] + ap_ * ddu,
@@ -256,11 +318,21 @@ def solve_ocp_qp_lanes_plain(
             llx=ll[0] + ad_ * dl[0], lux=ll[1] + ad_ * dl[1],
             llu=ll[2] + ad_ * dl[2], luu=ll[3] + ad_ * dl[3],
         )
-        gap = gap_of(
-            (new["slx"], new["sux"], new["slu"], new["suu"]),
-            (new["llx"], new["lux"], new["llu"], new["luu"]),
+        if soft:
+            new.update(
+                elx=el[0] + ap_ * de[0], eux=el[1] + ap_ * de[1],
+                nulx=nl[0] - ad_ * dl[0], nuux=nl[1] - ad_ * dl[1],
+            )
+        return new, torch.clamp_min(sigma * final_gap(new), mu_floor)
+
+    def final_gap(s):
+        g = (
+            _lane_sum(s["slx"] * s["llx"]) + _lane_sum(s["sux"] * s["lux"])
+            + _lane_sum(s["slu"] * s["llu"]) + _lane_sum(s["suu"] * s["luu"])
         )
-        return new, torch.clamp_min(sigma * gap, 1e-12)
+        if soft:
+            g = g + _lane_sum(s["elx"] * s["nulx"]) + _lane_sum(s["eux"] * s["nuux"])
+        return g / m_total
 
     mu = torch.full((n, L), mu0, dtype=f32, device=dev)
     for _ in range(n_ip):
@@ -274,19 +346,10 @@ def solve_ocp_qp_lanes_plain(
         act = active[:, None, None, None]
         st = {k: torch.where(act, new[k], v) for k, v in st.items()}
         mu = torch.where(active[:, None], new_mu, mu)
-
-    gap = (
-        _lane_sum(st["slx"] * st["llx"]) + _lane_sum(st["sux"] * st["lux"])
-        + _lane_sum(st["slu"] * st["llu"]) + _lane_sum(st["suu"] * st["luu"])
-    ) / m_total
-    return st["dx"], st["du"], gap
+    return st["dx"], st["du"], final_gap(st)
 
 
-_QP_FIELDS_X1 = ("qdiag", "qx", "lx", "ux")  # (n, T+1, nx, L)
-_QP_FIELDS_U = ("rdiag", "ru", "lu", "uu")  # (n, T, nu, L)
-
-
-def solve_ocp_qp_lanes(
+def solve_ocp_qp_lanes_plain(
     qp: LanesQp,
     n_ip: int = 15,
     mu0: float = 1e-1,
@@ -294,10 +357,56 @@ def solve_ocp_qp_lanes(
     tau: float = 0.995,
     adaptive_tol: float | None = None,
     mehrotra: bool = False,
+    soft_rho: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel wrapper with `solve_ocp_qp_lanes_plain`'s signature. CPU tensors
-    take the plain version; CUDA tensors launch `ocp_ip_kernel`, one block per
-    tile, with the per-scenario workspace allocated here."""
+    """(dx (n,T+1,nx,L), du (n,T,nu,L), gap (n,L)). With `adaptive_tol`, a tile
+    stops iterating once every lane in it has mu <= adaptive_tol. `soft_rho`
+    is the L1 penalty weight that makes the state bounds soft; it floors
+    `adaptive_tol` at 1e-8, so the tile-wide exit is then always on."""
+    return _ip_plain(qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, refactor=False)
+
+
+def solve_ocp_qp_lanes_streamed_plain(
+    qp: LanesQp,
+    n_ip: int = 15,
+    mu0: float = 1e-1,
+    sigma: float = 0.2,
+    tau: float = 0.995,
+    adaptive_tol: float | None = None,
+    mehrotra: bool = False,
+    soft_rho: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the tier-1 streamed kernel: the resident interior
+    point without factorization stores (two matrix sweeps per Mehrotra
+    iteration)."""
+    return _ip_plain(qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, refactor=True)
+
+
+def solve_ocp_qp_lanes_streamed2_plain(
+    qp: LanesQp,
+    n_ip: int = 15,
+    mu0: float = 1e-1,
+    sigma: float = 0.2,
+    tau: float = 0.995,
+    adaptive_tol: float | None = None,
+    mehrotra: bool = False,
+    soft_rho: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the tier-2 streamed kernel; its arithmetic is tier 1's."""
+    return _ip_plain(qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, refactor=True)
+
+
+_QP_FIELDS_X1 = ("qdiag", "qx", "lx", "ux")  # (n, T+1, nx, L)
+_QP_FIELDS_U = ("rdiag", "ru", "lu", "uu")  # (n, T, nu, L)
+
+
+def _solve_on_card(wrapper, kernel, plain, qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra,
+                   soft_rho, check_free=False):
+    """Shared body of the three wrappers: checks, the plain route for CPU
+    tensors, workspace and outputs, the launch, the wrapper's count and the
+    iterations each tile ran. The workspace's size is the library's
+    (`csrc/ocp_ip.cuh::workspace_floats`); with `check_free` it is held
+    against the card's free memory before anything is allocated."""
     dev = qp.A.device
     n, T, nx, _, L = qp.A.shape
     nu = qp.B.shape[3]
@@ -308,30 +417,108 @@ def solve_ocp_qp_lanes(
         check(f, getattr(qp, f), (n, T + 1, nx, L), dev)
     for f in _QP_FIELDS_U:
         check(f, getattr(qp, f), (n, T, nu, L), dev)
+    if soft_rho is not None and not soft_rho > 0:
+        raise ValueError(f"soft_rho must be positive, got {soft_rho}")
     if route(dev) == "plain":
-        return solve_ocp_qp_lanes_plain(qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra)
+        return plain(qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho)
 
-    check_widths("ocp_ip", nx, nu)
+    check_widths(kernel, nx, nu)
     smem = 4 * (nx * nx + nx * (nx + nu)) * L
     if n == 0 or T == 0 or smem > 232448 or L > 1024:
         raise ValueError(
-            f"ocp_ip kernel needs n_tiles > 0, T > 0 and {smem} <= 232448 bytes of shared "
+            f"{kernel} kernel needs n_tiles > 0, T > 0 and {smem} <= 232448 bytes of shared "
             f"memory per block (n_tiles={n}, T={T}, nx={nx}, nu={nu}, L={L})"
         )
+    soft = soft_rho is not None
+    if soft:
+        adaptive_tol = max(adaptive_tol or 0.0, 1e-8)
+    name = kernel + ("_soft" if soft else "")
     lib = _build.load_library()
-    ws = torch.empty(n, lib.ocp_ip_workspace_floats(T, nx, nu), L, dtype=torch.float32, device=dev)
+    ws_floats = getattr(lib, name + "_workspace_floats")(T, nx, nu)
+    if check_free:
+        ws_bytes, free = 4 * n * ws_floats * L, torch.cuda.mem_get_info(dev)[0]
+        if ws_bytes > free:
+            raise ValueError(
+                f"{name}: the workspace of {n} tiles at T={T} takes {ws_bytes} bytes, the card "
+                f"has {free} free; solve fewer scenarios per call"
+            )
+    ws = torch.empty(n, ws_floats, L, dtype=torch.float32, device=dev)
     dx = torch.empty(n, T + 1, nx, L, dtype=torch.float32, device=dev)
     du = torch.empty(n, T, nu, L, dtype=torch.float32, device=dev)
     gap = torch.empty(n, L, dtype=torch.float32, device=dev)
+    n_iters = torch.empty(n, dtype=torch.int32, device=dev)
     p = _build.ptr
     _build.launch(
-        "ocp_ip_launch", *(p(t) for t in qp), p(dx), p(du), p(gap), p(ws),
+        name + "_launch", *(p(t) for t in qp), p(dx), p(du), p(gap), p(n_iters), p(ws),
         n, T, L, nx, nu, int(n_ip), float(mu0), float(sigma), float(tau),
         -1.0 if adaptive_tol is None else float(adaptive_tol), int(mehrotra),
-        _build.stream_handle(dev),
+        float(soft_rho) if soft else 0.0, _build.stream_handle(dev),
     )
-    solve_ocp_qp_lanes.launches += 1
+    wrapper.launches += 1
+    wrapper.last_iterations = n_iters
     return dx, du, gap
 
 
-solve_ocp_qp_lanes.launches = 0
+def solve_ocp_qp_lanes(
+    qp: LanesQp,
+    n_ip: int = 15,
+    mu0: float = 1e-1,
+    sigma: float = 0.2,
+    tau: float = 0.995,
+    adaptive_tol: float | None = None,
+    mehrotra: bool = False,
+    soft_rho: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Resident kernel, with `solve_ocp_qp_lanes_plain`'s signature. CPU
+    tensors take the plain version; CUDA tensors launch `csrc/ocp_ip.cu`
+    (`csrc/ocp_ip_soft.cu` with `soft_rho`), one block per tile, with the
+    per-scenario workspace allocated here."""
+    return _solve_on_card(
+        solve_ocp_qp_lanes, "ocp_ip", solve_ocp_qp_lanes_plain,
+        qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho,
+    )
+
+
+def solve_ocp_qp_lanes_streamed(
+    qp: LanesQp,
+    n_ip: int = 15,
+    mu0: float = 1e-1,
+    sigma: float = 0.2,
+    tau: float = 0.995,
+    adaptive_tol: float | None = None,
+    mehrotra: bool = False,
+    soft_rho: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Tier-1 streamed kernel (`csrc/ocp_ip_streamed.cu`, `..._soft.cu`): the
+    same interior point with no factorization stores and a smaller workspace,
+    for horizons past the resident cap."""
+    return _solve_on_card(
+        solve_ocp_qp_lanes_streamed, "ocp_ip_streamed", solve_ocp_qp_lanes_streamed_plain,
+        qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho,
+    )
+
+
+def solve_ocp_qp_lanes_streamed2(
+    qp: LanesQp,
+    n_ip: int = 15,
+    mu0: float = 1e-1,
+    sigma: float = 0.2,
+    tau: float = 0.995,
+    adaptive_tol: float | None = None,
+    mehrotra: bool = False,
+    soft_rho: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Tier-2 streamed kernel (`csrc/ocp_ip_streamed2.cu`, `..._soft.cu`), for
+    the longest horizons of the lanes path. Its workspace is the largest a
+    wrapper allocates, so it is checked against the card's free memory first."""
+    return _solve_on_card(
+        solve_ocp_qp_lanes_streamed2, "ocp_ip_streamed2", solve_ocp_qp_lanes_streamed2_plain,
+        qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, check_free=True,
+    )
+
+
+# launches: kernel launches so far. last_iterations: (n_tiles,) int32 on the
+# card, the interior-point iterations each tile of the last launch ran.
+for _w in (solve_ocp_qp_lanes, solve_ocp_qp_lanes_streamed, solve_ocp_qp_lanes_streamed2):
+    _w.launches = 0
+    _w.last_iterations = None

@@ -1,11 +1,12 @@
-"""Whole-SQP lanes path: the fused linearize kernel and the lanes IP kernel,
+"""Whole-SQP lanes path: the fused linearize kernel and the lanes IP kernels,
 with X and U kept in lanes layout across SQP iterations.
 
-Port of `gpmpc_tpu/ops/sqp_lanes.py`: `sqp_solve_batch_lanes_fused`, the
-resident branch of `_solve_qp_lanes`, `_kkt_residuals_lanes` (plain torch, as
-it is XLA code in the reference) and the lane-tile packing. The streamed QP
-tiers and the jacfwd-linearized `sqp_solve_batch_lanes` are not ported yet
-(ROADMAP.md Queues 1 and 2).
+Port of `gpmpc_tpu/ops/sqp_lanes.py`: `sqp_solve_batch_lanes_fused`,
+`_solve_qp_lanes` with its three tiers (resident, tier-1 and tier-2 streamed
+kernel, hard or L1-soft state bounds), `_kkt_residuals_lanes` (plain torch, as
+it is XLA code in the reference) and the lane-tile packing. The
+jacfwd-linearized `sqp_solve_batch_lanes` is not ported yet (ROADMAP.md
+Queue 1).
 """
 
 from __future__ import annotations
@@ -15,18 +16,36 @@ from typing import NamedTuple
 import torch
 
 from gpmpc_tpu_torch.ops.cuda_linearize import linearize_ocp_lanes
-from gpmpc_tpu_torch.ops.cuda_ocp import LanesQp, solve_ocp_qp_lanes
+from gpmpc_tpu_torch.ops.cuda_ocp import (
+    LanesQp,
+    solve_ocp_qp_lanes,
+    solve_ocp_qp_lanes_streamed,
+    solve_ocp_qp_lanes_streamed2,
+)
 from gpmpc_tpu_torch.ops.sqp import BOUND_INF, OcpBounds, OcpCost, SqpConfig, SqpSolution
 
 LANES = 128  # default scenario tile width
-MAX_LANES_HORIZON = 50  # resident-kernel cap, as in the reference
-MAX_FUSED_HORIZON = 400  # fused-path cap of the reference (its tier-1 streamed cap)
-MAX_STREAM2_HORIZON = 1024
+# Horizon caps of the three QP kernels. They are the reference's numbers, kept
+# so that both packages send a horizon to the same tier and refuse the same
+# ones; on this card they are a dispatch table, not memory limits (the tier-2
+# wrapper checks its workspace against the card's free memory).
+MAX_LANES_HORIZON = 50  # resident kernel
+MAX_LANES_HORIZON_MEHROTRA = 50
+MAX_STREAM_HORIZON = 400  # tier-1 streamed kernel
+MAX_STREAM_HORIZON_SOFT = 320
+MAX_STREAM2_HORIZON = 1024  # tier-2 streamed kernel
 MAX_STREAM2_HORIZON_SOFT = 768
+MAX_FUSED_HORIZON = MAX_STREAM_HORIZON  # the fused path's own cap
+
+
+def lanes_resident_cap(cfg: SqpConfig) -> int:
+    """Largest horizon the resident kernel serves for this config."""
+    return MAX_LANES_HORIZON_MEHROTRA if cfg.qp_mehrotra else MAX_LANES_HORIZON
 
 
 def lanes_horizon_cap(cfg: SqpConfig) -> int:
-    """Largest horizon the reference's lanes backend serves for this config."""
+    """Largest horizon the lanes backend serves for this config (soft state
+    bounds lower the caps)."""
     return MAX_STREAM2_HORIZON_SOFT if cfg.soft_x_penalty is not None else MAX_STREAM2_HORIZON
 
 
@@ -35,23 +54,24 @@ def lanes_serves(cfg: SqpConfig, T: int) -> bool:
 
 
 def _solve_qp_lanes(qp: LanesQp, cfg: SqpConfig):
-    """The resident IP kernel; the reference's streamed tiers and soft state
-    bounds are not ported."""
+    """Send the tiles to the resident, the tier-1 or the tier-2 streamed IP
+    kernel by horizon; past the last cap raise."""
     T = qp.A.shape[1]
-    if cfg.soft_x_penalty is not None:
-        raise NotImplementedError(
-            "soft state bounds (SqpConfig.soft_x_penalty) are not ported to the lanes "
-            "QP yet: see ROADMAP.md Queue 1 item 5"
-        )
-    if T > MAX_LANES_HORIZON:
-        raise NotImplementedError(
-            f"horizon T={T} needs the streamed QP kernels (resident cap "
-            f"MAX_LANES_HORIZON={MAX_LANES_HORIZON}), not ported yet: see ROADMAP.md "
-            "Queue 1 item 5 and Queue 2"
-        )
-    return solve_ocp_qp_lanes(
-        qp, n_ip=cfg.qp_iters, adaptive_tol=cfg.qp_tol, mehrotra=cfg.qp_mehrotra
+    kw = dict(
+        n_ip=cfg.qp_iters, adaptive_tol=cfg.qp_tol, mehrotra=cfg.qp_mehrotra,
+        soft_rho=cfg.soft_x_penalty,
     )
+    if T <= lanes_resident_cap(cfg):
+        return solve_ocp_qp_lanes(qp, **kw)
+    soft = cfg.soft_x_penalty is not None
+    if T <= (MAX_STREAM_HORIZON_SOFT if soft else MAX_STREAM_HORIZON):
+        return solve_ocp_qp_lanes_streamed(qp, **kw)
+    if T > lanes_horizon_cap(cfg):
+        raise ValueError(
+            f"lanes backend serves horizons up to T={lanes_horizon_cap(cfg)} "
+            f"{'with soft state bounds ' if soft else ''}(got {T}); use the xla backend"
+        )
+    return solve_ocp_qp_lanes_streamed2(qp, **kw)
 
 
 def _to_lane_tiles(x: torch.Tensor, n_tiles: int, lanes: int) -> torch.Tensor:

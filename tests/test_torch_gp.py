@@ -71,7 +71,7 @@ def test_batched_variances_matches_jax_xla(sparse):
     flat.update({k: np.asarray(v) for k, v in gp.hypers._asdict().items()})
     z = np.random.default_rng(0).normal(0, 0.4, (3, 4, 5, 3)).astype(F32)
     v_j = j_batched_variances(gp, jnp.asarray(z), backend="xla")
-    v_t = t_batched_variances(convert.gp_model_from_numpy(flat), torch.as_tensor(z))
+    v_t = t_batched_variances(convert.gp_model_from_numpy(flat, device="cpu"), torch.as_tensor(z))
     assert v_t.shape == (3, 4, 5)
     np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j, F32), rtol=2e-4, atol=1e-6)
 
@@ -88,7 +88,7 @@ def test_batched_variances_of_family_bench_gp_matches_jax_xla(family):
         Zs=leaf("Zs"), alpha_s=leaf("alpha_s"), var_Z=leaf("var_Z"), var_mat=leaf("var_mat"),
         var_mask=leaf("var_mask"), trained=jnp.asarray(True),
     )
-    gp_t = convert.gp_model_from_numpy(flat)
+    gp_t = convert.gp_model_from_numpy(flat, device="cpu")
     G, _, D = gp_t.Zs.shape
     z = np.random.default_rng(1).normal(0, 0.5, (G, 4, 5, D)).astype(F32)
     v_j = j_batched_variances(gp_j, jnp.asarray(z), backend="xla")

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from gpmpc_tpu_torch import convert
+from gpmpc_tpu_torch import _build, convert
 from gpmpc_tpu_torch.control.gpmpc import softplus
 from gpmpc_tpu_torch.ops import cuda_gp, cuda_linearize, cuda_ocp, cuda_tighten
 
@@ -134,13 +134,16 @@ def test_linearize_kernel_matches_plain(dev, n_tiles, T, use_gp, family):
     assert _maxdiff(B_k, B_p) <= 2e-4
 
 
-def _qp(dev, n_tiles, T, seed, nx=12, nu=4):
+def _qp(dev, n_tiles, T, seed, nx=12, nu=4, box=1.5, scale=1.0):
+    """tests/test_pallas_ocp.py::make_batch in lanes layout: `scale` contracts
+    the dynamics perturbation (long horizons), `box` bounds stages 1..T."""
     rng = np.random.default_rng(seed)
     shp = lambda *s: (n_tiles, T) + s + (LANES,)  # noqa: E731
-    lx = np.full((n_tiles, T + 1, nx, LANES), -1.5, np.float32)
+    lx = np.full((n_tiles, T + 1, nx, LANES), -box, np.float32)
     lx[:, 0] = -1e8
+    A = np.eye(nx)[None, None, :, :, None] + 0.1 * scale * rng.normal(size=shp(nx, nx))
     return cuda_ocp.LanesQp(
-        A=_t(np.eye(nx)[None, None, :, :, None] + 0.1 * rng.normal(size=shp(nx, nx)), dev),
+        A=_t(A, dev),
         B=_t(0.4 * rng.normal(size=shp(nx, nu)), dev), r=_t(0.05 * rng.normal(size=shp(nx)), dev),
         qdiag=_t(rng.uniform(0.5, 2.0, (n_tiles, T + 1, nx, LANES)), dev),
         qx=_t(0.5 * rng.normal(size=(n_tiles, T + 1, nx, LANES)), dev),
@@ -168,6 +171,72 @@ def test_ocp_kernel_matches_plain(dev, n_tiles, T, kw, nx, nu):
     assert _maxdiff(du_k, du_p) <= 5e-4
     assert _maxdiff(dx_k, dx_p) <= 5e-4
     assert float(du_k.abs().max()) <= 0.3 + 1e-4
+
+
+TIERS = {
+    "resident": (cuda_ocp.solve_ocp_qp_lanes, cuda_ocp.solve_ocp_qp_lanes_plain, 25, 1.0),
+    "streamed": (cuda_ocp.solve_ocp_qp_lanes_streamed, cuda_ocp.solve_ocp_qp_lanes_streamed_plain,
+                 60, 0.3),
+    "streamed2": (cuda_ocp.solve_ocp_qp_lanes_streamed2,
+                  cuda_ocp.solve_ocp_qp_lanes_streamed2_plain, 60, 0.3),
+}
+
+
+@pytest.mark.parametrize("kw", [dict(n_ip=15), dict(n_ip=10, mehrotra=True, adaptive_tol=1e-6)],
+                         ids=["plain", "mehrotra-exit"])
+@pytest.mark.parametrize("nx,nu", [(12, 4), (4, 1), (4, 2)])
+@pytest.mark.parametrize("tier", list(TIERS))
+def test_soft_ocp_kernels_match_plain(dev, tier, nx, nu, kw):
+    """L1-soft state bounds in all three kernels, boxes of +-0.15 with a
+    penalty below the hard multipliers, so the optimum violates them. 5e-4 as
+    for the hard kernels: the barrier weights reach 1e6 before the exit and
+    amplify float32 rounding differences on weakly determined states, so the
+    soft differences lie nearer the bar than the hard ones."""
+    fn, plain, T, scale = TIERS[tier]
+    qp = _qp(dev, 2, T, seed=T, nx=nx, nu=nu, box=0.15, scale=scale)
+    rho = 2.0 if nx == 12 else 0.5
+    before = fn.launches
+    dx_k, du_k, gap_k = fn(qp, soft_rho=rho, **kw)
+    dx_p, du_p, _ = plain(qp, soft_rho=rho, **kw)
+    assert fn.launches == before + 1 and fn.last_iterations.shape == (2,)
+    assert bool(torch.isfinite(gap_k).all())
+    assert float(dx_k[:, 1:].abs().max()) > 0.15 + 1e-3  # violates its boxes
+    worst = max(_maxdiff(du_k, du_p), _maxdiff(dx_k, dx_p))
+    print(f"soft {tier} {nx}x{nu}: max|kernel - plain| = {worst:.3e}")
+    assert worst <= 5e-4
+
+
+@pytest.mark.parametrize("kw", [dict(n_ip=12), dict(n_ip=10, mehrotra=True, adaptive_tol=1e-6)],
+                         ids=["plain", "mehrotra-exit"])
+@pytest.mark.parametrize("nx,nu", [(12, 4), (4, 1), (4, 2)])
+@pytest.mark.parametrize("tier", ["streamed", "streamed2"])
+def test_streamed_ocp_kernels_match_plain(dev, tier, nx, nu, kw):
+    fn, plain, T, scale = TIERS[tier]
+    qp = _qp(dev, 2, T, seed=T, nx=nx, nu=nu, scale=scale)
+    dx_k, du_k, _ = fn(qp, **kw)
+    dx_p, du_p, _ = plain(qp, **kw)
+    assert _maxdiff(du_k, du_p) <= 5e-4
+    assert _maxdiff(dx_k, dx_p) <= 5e-4
+    assert float(du_k.abs().max()) <= 0.3 + 1e-4
+
+
+def test_streamed_kernel_matches_resident_at_T100(dev):
+    """The tiers are the same interior point: on one QP they agree."""
+    qp = _qp(dev, 2, 100, seed=1, scale=0.3)
+    kw = dict(n_ip=10, mehrotra=True, adaptive_tol=1e-6)
+    dx_r, du_r, _ = cuda_ocp.solve_ocp_qp_lanes(qp, **kw)
+    dx_s, du_s, _ = cuda_ocp.solve_ocp_qp_lanes_streamed(qp, **kw)
+    assert _maxdiff(du_r, du_s) <= 5e-4 and _maxdiff(dx_r, dx_s) <= 5e-4
+
+
+def test_workspace_past_the_card_raises(dev, monkeypatch):
+    """A tier-2 call whose workspace does not fit the card's free memory
+    raises before it allocates."""
+    qp = _qp(dev, 1, 100, seed=0, scale=0.3)
+    need = 4 * LANES * _build.load_library().ocp_ip_streamed2_workspace_floats(100, 12, 4)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d=None: (need - 1, 80 << 30))
+    with pytest.raises(ValueError, match="workspace of 1 tiles at T=100"):
+        cuda_ocp.solve_ocp_qp_lanes_streamed2(qp, n_ip=1)
 
 
 def test_kernels_refuse_widths_they_are_not_built_for(dev):

@@ -42,7 +42,7 @@ def test_linearize_matches_jax_augmented_fd_and_jacfwd(use_gp, ard):
     gp = synthetic_gp_model(max_points=32, max_inducing=12, n_data=24, n_train=10, ard=ard)
     flat = {k: np.asarray(v) for k, v in gp._asdict().items() if k != "hypers"}
     flat.update({k: np.asarray(v) for k, v in gp.hypers._asdict().items()})
-    gp_t = convert.gp_model_from_numpy(flat)
+    gp_t = convert.gp_model_from_numpy(flat, device="cpu")
     X, U = _inputs(1 if ard else 0)
 
     ell = softplus(gp_t.hypers.raw_lengthscale)  # (3,) or (3, 3)
@@ -93,7 +93,7 @@ def test_family_closure_matches_pallas_kernel(family, use_gp):
     draw exercises per-dimension hyperparameters. Bars of
     tests/test_pallas_linearize.py: 2e-5 on fnext, 2e-4 on A and B."""
     rng = np.random.default_rng(7)
-    gp_t = convert.load_bench_gp(family=family)
+    gp_t = convert.load_bench_gp("cpu", family=family)
     G, _, D = gp_t.Zs.shape
     par8, X, U = _family_case(family, rng)
     for inv_ell2 in (
@@ -113,7 +113,7 @@ def test_family_closure_matches_pallas_kernel(family, use_gp):
 
 
 def test_unknown_family_raises():
-    gp_t = convert.load_bench_gp(family="cartpole")
+    gp_t = convert.load_bench_gp("cpu", family="cartpole")
     par8, X, U = _family_case("cartpole", np.random.default_rng(0))
     with pytest.raises(ValueError, match="hand-derived kernel linearizer"):
         linearize_ocp_lanes(par8, torch.ones(2, 4), gp_t.Zs, gp_t.alpha_s, torch.as_tensor(X[None]),

@@ -115,7 +115,7 @@ def test_bounds_and_constants_match_jax(family):
 @pytest.mark.parametrize("n_steps,amplitude", [(300, 0.8), (64, 0.1)])
 def test_trajectory_matches_jax(n_steps, amplitude):
     tj = j_traj(n_steps=n_steps, dt=0.02, amplitude=amplitude)
-    tt = t_traj(n_steps=n_steps, dt=0.02, amplitude=amplitude)
+    tt = t_traj(n_steps=n_steps, dt=0.02, amplitude=amplitude, device="cpu")
     np.testing.assert_allclose(tt.numpy(), np.asarray(tj, F32), atol=ATOL)
 
 
@@ -150,7 +150,7 @@ def test_env_step_matches_jax_default_plant():
     pj, pt = j_drone.EnvParams.default(), t_drone.EnvParams.default()
     x0 = (np.asarray(j_drone.make_trajectory(pj))[0] + 0.02 * rng.normal(size=(B, 12))).astype(F32)
     u_h = np.asarray(j_drone.hover_input(pj.params), F32)
-    np.testing.assert_allclose(t_drone.hover_input(pt.params).numpy(), u_h, atol=0)
+    np.testing.assert_allclose(t_drone.hover_input(pt.params, device="cpu").numpy(), u_h, atol=0)
     actions = (u_h + np.concatenate([0.05 * rng.normal(size=(6, B, 1)),
                                      0.1 * rng.normal(size=(6, B, 3))], axis=2)).astype(F32)
 
@@ -184,7 +184,7 @@ def test_family_plant_matches_jax(family):
     je, te = FAMILY_MODULES[family][2:4]
     pj, pt = je.EnvParams.default(), te.EnvParams.default()
     assert tuple(pj.params) == tuple(pt.params) and pj._fields == pt._fields
-    np.testing.assert_allclose(te.make_trajectory(pt).numpy(), np.asarray(je.make_trajectory(pj), F32),
+    np.testing.assert_allclose(te.make_trajectory(pt, device="cpu").numpy(), np.asarray(je.make_trajectory(pj), F32),
                                atol=ATOL)
     rng = np.random.default_rng(3)
     B = 16
@@ -212,9 +212,9 @@ def test_family_env_reset_starts_at_trajectory(family):
     init_noise * N(0, 1) from the caller's generator, reproducible."""
     te = FAMILY_MODULES[family][3]
     p = te.EnvParams.default()
-    st, obs = te.env_reset(p, 64, torch.Generator().manual_seed(0))
+    st, obs = te.env_reset(p, 64, torch.Generator().manual_seed(0), device="cpu")
     noise = torch.randn(64, 4, generator=torch.Generator().manual_seed(0))
-    np.testing.assert_allclose(obs.numpy(), (te.make_trajectory(p)[0] + p.init_noise * noise).numpy(),
+    np.testing.assert_allclose(obs.numpy(), (te.make_trajectory(p, device="cpu")[0] + p.init_noise * noise).numpy(),
                                atol=1e-7)
     np.testing.assert_array_equal(st.x.numpy(), obs.numpy())
     assert st.t.dtype == torch.int32 and int(st.t.abs().max()) == 0
@@ -223,10 +223,10 @@ def test_family_env_reset_starts_at_trajectory(family):
 def test_env_reset_starts_at_trajectory_with_hover_actuators():
     p = t_drone.EnvParams.default()
     gen = torch.Generator().manual_seed(0)
-    st, obs = t_drone.env_reset(p, 32, gen)
-    traj0 = t_drone.make_trajectory(p)[0]
+    st, obs = t_drone.env_reset(p, 32, gen, device="cpu")
+    traj0 = t_drone.make_trajectory(p, device="cpu")[0]
     dev = (obs - traj0).std().item()
     assert obs.shape == (32, 12) and abs(dev - p.init_noise) < 0.3 * p.init_noise
     np.testing.assert_allclose(st.u_queue[:, 0].numpy(), st.u_act.numpy(), atol=0)
     gen2 = torch.Generator().manual_seed(0)
-    np.testing.assert_array_equal(t_drone.env_reset(p, 32, gen2)[1].numpy(), obs.numpy())
+    np.testing.assert_array_equal(t_drone.env_reset(p, 32, gen2, device="cpu")[1].numpy(), obs.numpy())

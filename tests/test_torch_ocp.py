@@ -16,7 +16,7 @@ from gpmpc_tpu.ops.pallas_ocp import LanesQp as JLanesQp
 from gpmpc_tpu.ops.pallas_ocp import solve_ocp_qp_lanes as j_solve_lanes
 from gpmpc_tpu_torch.ops import cuda_ocp
 from gpmpc_tpu_torch.ops.sqp import SqpConfig
-from gpmpc_tpu_torch.ops.sqp_lanes import MAX_LANES_HORIZON, _solve_qp_lanes
+from gpmpc_tpu_torch.ops.sqp_lanes import MAX_LANES_HORIZON, MAX_STREAM2_HORIZON, _solve_qp_lanes
 
 T, L = 5, 8
 F32 = np.float32
@@ -98,11 +98,16 @@ def test_mehrotra_adaptive_exit_matches_pallas_kernel_per_tile(nx, nu, scale):
 
 
 def test_soft_bounds_are_not_ported_and_say_so():
-    """The SQP's QP dispatch refuses what the resident kernel does not serve:
-    soft state bounds, and horizons past MAX_LANES_HORIZON."""
+    """(Named for the earlier slices, which refused both.) The SQP's QP
+    dispatch now serves soft state bounds and horizons past the resident cap,
+    and still refuses, by name, what no lanes kernel serves: a horizon past
+    the last cap, as the reference does."""
     cfg = SqpConfig(qp_iters=2)
-    with pytest.raises(NotImplementedError, match="soft_x_penalty.*ROADMAP.md"):
-        _solve_qp_lanes(to_port([make_batch(0)]), cfg._replace(soft_x_penalty=2.0))
-    long_qp = to_port([make_batch(0, t=MAX_LANES_HORIZON + 1)])
-    with pytest.raises(NotImplementedError, match="MAX_LANES_HORIZON.*ROADMAP.md"):
-        _solve_qp_lanes(long_qp, cfg)
+    dx, du, gap = _solve_qp_lanes(to_port([make_batch(0)]), cfg._replace(soft_x_penalty=2.0))
+    assert dx.shape == (1, T + 1, 12, L) and bool(torch.isfinite(du).all())
+    dx, _, _ = _solve_qp_lanes(to_port([make_batch(0, t=MAX_LANES_HORIZON + 1)]), cfg)
+    assert dx.shape == (1, MAX_LANES_HORIZON + 2, 12, L) and bool(torch.isfinite(dx).all())
+    past = cuda_ocp.LanesQp(*(torch.zeros((1, MAX_STREAM2_HORIZON + 1) + (1,) * 3)
+                              for _ in cuda_ocp.LanesQp._fields))
+    with pytest.raises(ValueError, match=f"up to T={MAX_STREAM2_HORIZON} .got"):
+        _solve_qp_lanes(past, cfg)

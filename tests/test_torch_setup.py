@@ -63,7 +63,7 @@ def _controllers(family="quadrotor"):
     )
     tc = t_gpmpc.GPMPC(
         model_t(), np.asarray(traj), prior, horizon=T, q_mpc=q, r_mpc=r, prob=0.95,
-        sqp_iters=6, qp_iters=10, bounds=bounds_t, lm_reg=lm,
+        sqp_iters=6, qp_iters=10, bounds=bounds_t, lm_reg=lm, device="cpu",
     )
     return jc, tc
 
@@ -90,7 +90,7 @@ def test_gpmpc_consts_match_jax(family):
 def test_init_state_and_reference_window_match_jax():
     jc, tc = _controllers()
     sj = j_mpc.init_state(T, 12, 4)
-    st = t_mpc.init_state(3, T)
+    st = t_mpc.init_state(3, T, device="cpu")
     for name in ("X_warm", "U_warm"):
         for b in range(3):
             np.testing.assert_array_equal(getattr(st, name)[b].numpy(), np.asarray(getattr(sj, name)))
@@ -109,7 +109,7 @@ def _flat_gp(gp) -> dict:
 
 def test_convert_round_trips_jax_pytrees():
     gp = synthetic_gp_model(max_points=32, max_inducing=12, n_data=24, n_train=5, seed=2)
-    tg = convert.gp_model_from_numpy(_flat_gp(gp))
+    tg = convert.gp_model_from_numpy(_flat_gp(gp), device="cpu")
     for name in ("Z", "y", "mask", "Zs", "alpha_s", "var_Z", "var_mat", "var_mask"):
         np.testing.assert_array_equal(getattr(tg, name).numpy(), np.asarray(getattr(gp, name)))
     for name in tg.hypers._fields:
@@ -120,13 +120,13 @@ def test_convert_round_trips_jax_pytrees():
     jc, _ = _controllers()
     d = {k: np.asarray(v) for k, v in jc.consts._asdict().items() if k != "mpc"}
     d["mpc"] = {k: np.asarray(v) for k, v in jc.consts.mpc._asdict().items()}
-    tcon = convert.consts_from_numpy(d)
+    tcon = convert.consts_from_numpy(d, device="cpu")
     for name in ("Ad", "lqr_gain", "inverse_cdf"):
         np.testing.assert_array_equal(getattr(tcon, name).numpy(), np.asarray(getattr(jc.consts, name)))
     np.testing.assert_array_equal(tcon.mpc.traj.numpy(), np.asarray(jc.consts.mpc.traj))
 
     states = jax.vmap(lambda _: j_mpc.init_state(T, 12, 4))(jnp.arange(4))
-    ts = convert.state_from_numpy({k: np.asarray(v) for k, v in states._asdict().items()})
+    ts = convert.state_from_numpy({k: np.asarray(v) for k, v in states._asdict().items()}, device="cpu")
     assert ts.traj_step.dtype == torch.int32 and ts.X_warm.shape == (4, T + 1, 12)
     np.testing.assert_array_equal(ts.U_warm.numpy(), np.asarray(states.U_warm))
 
@@ -146,7 +146,7 @@ def test_bench_gp_fixture_matches_regenerated_model(family, G, D):
         assert sorted(committed.files) == sorted(fresh)
         for k, v in fresh.items():
             np.testing.assert_allclose(committed[k], v, rtol=1e-4, atol=1e-6, err_msg=k)
-    gp = convert.load_bench_gp(family=family)
+    gp = convert.load_bench_gp("cpu", family=family)
     assert gp.Zs.shape == (G, 40, D) and gp.var_mat.shape == (G, 40, 40)
     assert gp.Z.shape == (G, 128, D) and bool(gp.trained)
 
@@ -156,11 +156,12 @@ def test_prior_params_are_required_only_for_the_quadrotor():
     reads them; bench.py passes None for the other families."""
     _, _, model_t, _, q, r, _, bounds_t, _ = family_config("cartpole")
     traj = np.zeros((10, 4), np.float32)
-    ctrl = t_gpmpc.GPMPC(model_t(), traj, None, horizon=5, q_mpc=q, r_mpc=r, bounds=bounds_t)
+    ctrl = t_gpmpc.GPMPC(model_t(), traj, None, horizon=5, q_mpc=q, r_mpc=r, bounds=bounds_t,
+                         device="cpu")
     assert ctrl.consts.Ad.shape == (4, 4)
     with pytest.raises(ValueError, match="'a' and 'b'"):
         t_gpmpc.GPMPC(t_sym(dt=0.02), np.zeros((10, 12), np.float32), {"a": 1.0}, horizon=5,
-                      q_mpc=Q_MPC, r_mpc=R_MPC)
+                      q_mpc=Q_MPC, r_mpc=R_MPC, device="cpu")
 
 
 def test_make_consts_bounds_u_eq_and_lm_reg_match_jax():
@@ -172,16 +173,16 @@ def test_make_consts_bounds_u_eq_and_lm_reg_match_jax():
     for kw_j, kw_t in (({}, {}), (dict(bounds=bounds_j), dict(bounds=bounds_t)),
                        (dict(bounds=bounds_j, u_eq=u_eq), dict(bounds=bounds_t, u_eq=u_eq))):
         cj = j_mpc.make_consts(model_j, jnp.asarray(traj), q, r, T, **kw_j)
-        ct = t_mpc.make_consts(model_t(), traj, q, r, T, **kw_t)
+        ct = t_mpc.make_consts(model_t(), traj, q, r, T, device="cpu", **kw_t)
         for name in t_mpc.MpcConsts._fields:
             np.testing.assert_array_equal(getattr(ct, name).numpy(),
                                           np.asarray(getattr(cj, name), np.float32), err_msg=name)
     sj = j_mpc.init_state(T, 4, 2, u_eq=jnp.asarray(u_eq))
-    st = t_mpc.init_state(2, T, 4, 2, u_eq=u_eq)
+    st = t_mpc.init_state(2, T, 4, 2, u_eq=u_eq, device="cpu")
     np.testing.assert_array_equal(st.U_warm[1].numpy(), np.asarray(sj.U_warm))
-    np.testing.assert_array_equal(t_mpc.init_state(1, T, 4, 2).U_warm[0].numpy(),
+    np.testing.assert_array_equal(t_mpc.init_state(1, T, 4, 2, device="cpu").U_warm[0].numpy(),
                                   np.asarray(j_mpc.init_state(T, 4, 2).U_warm))
     ctrl = t_gpmpc.GPMPC(model_t(), traj, None, horizon=T, q_mpc=q, r_mpc=r, bounds=bounds_t,
-                         lm_reg=0.5)
+                         lm_reg=0.5, device="cpu")
     assert ctrl.cfg.lm_reg == 0.5
     np.testing.assert_array_equal(ctrl.consts.mpc.ux.numpy(), bounds_t[0][1])

@@ -82,15 +82,16 @@ def run_closed_loop(T, B, n_steps, family="quadrotor"):
     plant = jax.jit(jax.vmap(lambda s, a: env_mod.env_step(env_p, s, a)))
 
     tc = t_gpmpc.GPMPC(model_t, np.asarray(traj), prior, horizon=T, q_mpc=q, r_mpc=r,
-                       prob=0.95, sqp_iters=6, qp_iters=10, bounds=bounds_t, lm_reg=lm)
+                       prob=0.95, sqp_iters=6, qp_iters=10, bounds=bounds_t, lm_reg=lm,
+                       device="cpu")
     cfg_t = tc.cfg._replace(qp_tol=1e-6, kernel_linearize=True, qp_mehrotra=True)
-    gp_t = convert.load_bench_gp(family=family)
+    gp_t = convert.load_bench_gp("cpu", family=family)
 
     es, obs = jax.vmap(lambda k: env_mod.env_reset(env_p, k))(
         jax.random.split(jax.random.PRNGKey(0), B))
     nx, nu = model_t.nx, model_t.nu
     st_j = jax.vmap(lambda _: j_mpc.init_state(T, nx, nu))(jnp.arange(B))
-    st_t = t_mpc.init_state(B, T, nx, nu)
+    st_t = t_mpc.init_state(B, T, nx, nu, device="cpu")
     u_j, u_t = [], []
     for _ in range(n_steps):
         obs32 = np.asarray(obs, F32)
@@ -133,9 +134,10 @@ def test_other_dispatch_paths_raise_instead_of_falling_back():
     prior = reference_prior_dict()
     model_t = t_sym(dt=0.02, params=prior)
     traj = np.asarray(j_drone.make_trajectory(j_drone.EnvParams.default()))
-    tc = t_gpmpc.GPMPC(model_t, traj, prior, horizon=6, q_mpc=Q_MPC, r_mpc=R_MPC)
-    gp_t = convert.load_bench_gp()
-    st = t_mpc.init_state(2, 6)
+    tc = t_gpmpc.GPMPC(model_t, traj, prior, horizon=6, q_mpc=Q_MPC, r_mpc=R_MPC,
+                       device="cpu")
+    gp_t = convert.load_bench_gp("cpu")
+    st = t_mpc.init_state(2, 6, device="cpu")
     obs = torch.as_tensor(traj[:2])
     for cfg, kw in (
         (tc.cfg, {}),  # kernel_linearize off -> the jacfwd 'lanes' path
@@ -143,9 +145,11 @@ def test_other_dispatch_paths_raise_instead_of_falling_back():
     ):
         with pytest.raises(t_gpmpc.UnsupportedPathError, match="not ported"):
             batched_gpmpc_step(model_t, cfg, tc.consts, gp_t, st, obs, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        batched_gpmpc_step(model_t, tc.cfg._replace(kernel_linearize=True, soft_x_penalty=50.0),
-                           tc.consts, gp_t, st, obs)
+    # a horizon past the fused path's cap: the reference's jacfwd 'lanes' path
+    long = t_gpmpc.GPMPC(model_t, traj, prior, horizon=401, q_mpc=Q_MPC, r_mpc=R_MPC, device="cpu")
+    with pytest.raises(t_gpmpc.UnsupportedPathError, match="exceeds the fused-path cap"):
+        batched_gpmpc_step(model_t, tc.cfg._replace(kernel_linearize=True), long.consts, gp_t,
+                           t_mpc.init_state(2, 401, device="cpu"), obs)
     # a family with no kernel linearizer closure: the reference's jacfwd
     # 'lanes' path, not ported
     spec = dataclasses.replace(model_t.residual_spec, name="unicycle", supports_kernel_linearize=False)

@@ -43,13 +43,13 @@ def _setup(train=True):
     d = {k: np.asarray(v) for k, v in jc.consts._asdict().items() if k != "mpc"}
     d["mpc"] = {k: np.asarray(v) for k, v in jc.consts.mpc._asdict().items()}
     model_t = t_sym(dt=0.02, params=prior)
-    return env, jc, model_t, convert.consts_from_numpy(d)
+    return env, jc, model_t, convert.consts_from_numpy(d, device="cpu")
 
 
 def _gp_t(gp):
     flat = {k: np.asarray(v) for k, v in gp._asdict().items() if k != "hypers"}
     flat.update({k: np.asarray(v) for k, v in gp.hypers._asdict().items()})
-    return convert.gp_model_from_numpy(flat)
+    return convert.gp_model_from_numpy(flat, device="cpu")
 
 
 def _family_setup(family):
@@ -70,7 +70,7 @@ def _family_setup(family):
     d = {k: np.asarray(v) for k, v in jc.consts._asdict().items() if k != "mpc"}
     d["mpc"] = {k: np.asarray(v) for k, v in jc.consts.mpc._asdict().items()}
     model_t = t_mod.symbolic_cartpole(0.02) if family == "cartpole" else t_mod.symbolic_twolink(0.02)
-    return jc, model_t.residual_spec, convert.consts_from_numpy(d)
+    return jc, model_t.residual_spec, convert.consts_from_numpy(d, device="cpu")
 
 
 @pytest.mark.parametrize("family", ["quadrotor", "cartpole", "twolink"])

@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py [--profile]
 
-Needs one CUDA card and `nvcc`; there is no CPU path. It drives the
-`lanes-fused` closed loop on six paths (`PATHS`): each model family at
+Needs one CUDA card and `nvcc`; there is no CPU path. It drives the roofline
+probe (`gpmpc_tpu_torch/roofline.py`: the three lane-chain kernels beside two
+library mappings) and the closed loop on nine paths (`PATHS`), six on the
+`lanes-fused` dispatch path and three on `lanes`: each model family at
 `bench.py`'s configuration for it (`BENCH_MODEL=quadrotor|cartpole|twolink`:
 T=25, B=1024, the family's GPs with capacity 128 and 40 FITC inducing points,
 prob 0.95, 6 SQP / 10 Mehrotra IP iterations, IP exit at gap 1e-6, in-kernel
@@ -11,8 +13,16 @@ linearization, the family's cost weights, boxes and `lm_reg`, the plant on the
 card), and the quadrotor with soft state bounds (`quadrotor-soft`,
 soft_constraints=50: the resident QP kernel's soft mode), at T=100, B=256
 (`quadrotor-T100`: the tier-1 streamed QP kernel) and at T=360, B=256 with
-soft bounds (`quadrotor-soft-T360`: the tier-2 streamed QP kernel, soft).
-Phases, each printing its own lines:
+soft bounds (`quadrotor-soft-T360`: the tier-2 streamed QP kernel, soft); then,
+linearized in plain torch with only the QP, the tightening and (for a shared
+GP) the GP variances in kernels, the quadrotor with `kernel_linearize=False`
+(`quadrotor-jacfwd`, bench.py's BENCH_KERNEL_LIN=0, followed by a short run
+with `analytic_jac=True`, BENCH_ANALYTIC_JAC=1, whose actions must agree
+within 1e-4), at T=512, B=256 past the fused path's cap (`quadrotor-T512`:
+the tier-2 streamed QP kernel with hard bounds, one dispatch warning) and with
+a per-scenario GP population (`quadrotor-population`: the benchmark GP per
+scenario with `alpha_s` and the raw hyperparameters perturbed from a seeded
+generator). Phases, each printing its own lines:
 
   0. the card's name and power limit (nvidia-smi), then the kernel build:
      one nvcc per source in parallel, each source's time and ptxas's
@@ -23,7 +33,12 @@ Phases, each printing its own lines:
      on seeded random inputs at the path's shapes (soft QPs with boxes tight
      enough to force violations): max abs difference beside the stated
      tolerance, the median time of each (CUDA events) and the least time the
-     card could take (`bound_ms`, see `Bound`). Then the QP instantiations no
+     card could take (`bound_ms`, see `Bound`). First of all the three chain
+     kernels against their plain versions on the reference's data after 4
+     rounds (the chain leaves float32 after some ten) and, after 200 rounds, in
+     where they are non-finite; the five roofline rows as their JSON lines;
+     each chain kernel's time beside its bound, its plain version and one
+     `torch.matmul` a round on the same data. Then the QP instantiations no
      path of this script reaches, on random inputs: the narrow widths (4, 1)
      and (4, 2) of every new kernel, the four horizon caps at 12x4 (tier 1 at
      T=400 and at T=320 soft, tier 2 at T=1024 and at T=768 soft), kernels
@@ -31,7 +46,9 @@ Phases, each printing its own lines:
      beside the streamed one;
   2. per path, the closed loop: warm-up and timed steps with every kernel's
      launch count (counts set to 0 just before the path's run and read just
-     after: the path's QP wrapper must have launched, the other two not),
+     after: the path's QP wrapper must have launched, the other two not; a
+     `lanes` path must not launch the linearize kernel, nor the population
+     path the GP kernel), the dispatch decision and its one-time warning,
      finite actions, clamp fraction, soft violation, SQP iterations and QP
      gaps; then five `quadrotor-soft` steps with the GP's raw_outputscale at
      30, which must report soft violations and stay finite;
@@ -44,7 +61,8 @@ and prints the card's busy time with the idle share against the profiled
 step and against phase 2's unprofiled steps.
 
 Prints a JSON line of per-kernel results (`kernels`: one entry per path and
-kernel, with the launches of that path's run; `kernel_level_only`: the
+kernel, with the launches of that path's run, and the three chain kernels
+with the launches of the roofline rows' run; `kernel_level_only`: the
 instantiations held in phase 1 alone), the nvidia-smi line, then as its last
 line {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -56,6 +74,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 from typing import NamedTuple
 
@@ -64,20 +83,29 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from gpmpc_tpu_torch import _build, convert  # noqa: E402
+from gpmpc_tpu_torch import _build, convert, roofline  # noqa: E402
 from gpmpc_tpu_torch.control import gpmpc as gpmpc_mod  # noqa: E402
 from gpmpc_tpu_torch.control import mpc as mpc_mod  # noqa: E402
 from gpmpc_tpu_torch.envs import cartpole_env, drone, twolink_env  # noqa: E402
 from gpmpc_tpu_torch.models import cartpole, twolink  # noqa: E402
 from gpmpc_tpu_torch.models.quadrotor import PRIOR_PARAMS  # noqa: E402
 from gpmpc_tpu_torch.models.symbolic import symbolic_attitude  # noqa: E402
-from gpmpc_tpu_torch.ops import cuda_gp, cuda_linearize, cuda_ocp, cuda_tighten, sqp_lanes  # noqa: E402
-from gpmpc_tpu_torch.parallel.batch import batched_gpmpc_step  # noqa: E402
+from gpmpc_tpu_torch.ops import (  # noqa: E402
+    cuda_chain,
+    cuda_gp,
+    cuda_linearize,
+    cuda_ocp,
+    cuda_tighten,
+    sqp_lanes,
+)
+from gpmpc_tpu_torch.parallel import batch as batch_mod  # noqa: E402
+from gpmpc_tpu_torch.parallel.batch import batched_gpmpc_step, dispatch_decision  # noqa: E402
 
 LANES = 128
 RMSE_BAR = 1e-3
 SOFT_PENALTY = 50.0  # tests/test_pallas_ocp.py's soft_constraints
 STRESS_OUTPUTSCALE = 30.0
+ANALYTIC_BAR = 1e-4  # actions of the analytic-Jacobian run against the forward-mode run's
 
 # bench.py:94-151: each family's controller configuration.
 FAMILIES = {
@@ -114,16 +142,34 @@ class SmokePath(NamedTuple):
     n_cpu: int
     cpu_steps: int
     tag: str | None  # suffix of the path's entries in the JSON line
+    dispatch: str = "lanes-fused"  # the decision `dispatch_decision` must take
+    degraded: bool = False  # whether that decision must warn (once)
+    kernel_linearize: bool = True
+    population: bool = False  # a per-scenario GP population
+
+    @property
+    def kernels(self) -> tuple:
+        """The kernels the path must launch ('qp' is the wrapper named by
+        `qp`); every other wrapper must stay at 0 launches."""
+        names = () if self.population else ("gp_posterior",)
+        names += ("tighten",) + (("linearize",) if self.dispatch == "lanes-fused" else ())
+        return names + ("qp",)
 
 
 PATHS = {
-    "quadrotor": SmokePath("quadrotor", 25, 1024, None, "ocp_ip", 2, 20, 128, 10, None),
-    "cartpole": SmokePath("cartpole", 25, 1024, None, "ocp_ip", 2, 20, 128, 10, None),
-    "twolink": SmokePath("twolink", 25, 1024, None, "ocp_ip", 2, 20, 128, 10, None),
-    "quadrotor-soft": SmokePath("quadrotor", 25, 1024, SOFT_PENALTY, "ocp_ip", 2, 20, 128, 10, "soft"),
+    "quadrotor": SmokePath("quadrotor", 25, 1024, None, "ocp_ip", 2, 10, 128, 5, None),
+    "cartpole": SmokePath("cartpole", 25, 1024, None, "ocp_ip", 2, 10, 128, 5, None),
+    "twolink": SmokePath("twolink", 25, 1024, None, "ocp_ip", 2, 10, 128, 5, None),
+    "quadrotor-soft": SmokePath("quadrotor", 25, 1024, SOFT_PENALTY, "ocp_ip", 2, 10, 128, 5, "soft"),
     "quadrotor-T100": SmokePath("quadrotor", 100, 256, None, "ocp_ip_streamed", 1, 5, 32, 3, "T100"),
     "quadrotor-soft-T360": SmokePath("quadrotor", 360, 256, SOFT_PENALTY, "ocp_ip_streamed2", 1, 2, 32,
                                  2, "soft-T360"),
+    "quadrotor-jacfwd": SmokePath("quadrotor", 25, 1024, None, "ocp_ip", 2, 10, 128, 5, "jacfwd",
+                                  dispatch="lanes", kernel_linearize=False),
+    "quadrotor-T512": SmokePath("quadrotor", 512, 256, None, "ocp_ip_streamed2", 1, 2, 32, 2, "T512",
+                                dispatch="lanes", degraded=True),
+    "quadrotor-population": SmokePath("quadrotor", 25, 1024, None, "ocp_ip", 2, 10, 128, 5,
+                                      "population", dispatch="lanes", degraded=True, population=True),
 }
 
 # Kernel-vs-plain tolerances. GP: the repo's Pallas GP test bar (float32 sums
@@ -137,6 +183,13 @@ PATHS = {
 # nearer the bar than the hard ones.
 TOL = {"gp": 1e-4, "tighten": 1e-5, "linearize_fnext": 2e-5, "linearize_jac": 2e-4, "ocp": 5e-4}
 TOL["ocp_soft"] = TOL["ocp"]
+# The chain kernels, relative to max(1, |plain|) after 4 rounds: float32 sums
+# with FMAs in another order than the plain version; in bf16 both round every
+# product and every partial sum in the same order, so they should agree
+# exactly, and 2 bf16 ulps (2^-8 each in [1, 2)) is the bar.
+TOL["chain"] = 1e-5
+TOL["chain_bf16"] = 2 * 2.0**-8
+CHAIN_ROUNDS = 4
 TOL_TEXT = {
     "gp_posterior": "1e-4 on mean and var",
     "tighten": "1e-5 x max(1, max|t|)",
@@ -167,6 +220,21 @@ KERNELS = {
 }
 LINEARIZE_CLOSURES = {"cartpole": "gpmpc_tpu/ops/pallas_linearize.py:170",
                       "twolink": "gpmpc_tpu/ops/pallas_linearize.py:235"}
+# chain kernel -> (wrapper, plain version, TPU kernel it replaces, roofline row,
+# scenarios per tile, stages, matrix width, dtype, peak operations/s)
+PEAK_FLOPS_BF16X2 = 133.8e12  # H100 SXM packed bf16 outside the tensor cores (NVIDIA H100
+# Tensor Core GPU Architecture white paper, "Peak BF16 TFLOPS (non-Tensor)")
+CHAINS = {
+    "lanes_chain": (cuda_chain.lanes_chain, cuda_chain.lanes_chain_plain,
+                    "scripts/bench_roofline.py:145", "cuda_lanes", 128, roofline.T, 12,
+                    torch.float32, 67e12),
+    "lanes_chain_bf16": (cuda_chain.lanes_chain_bf16, cuda_chain.lanes_chain_bf16_plain,
+                         "scripts/bench_roofline.py:184", "cuda_lanes_bf16_pair", 256, roofline.T,
+                         12, torch.bfloat16, PEAK_FLOPS_BF16X2),
+    "lanes_chain_16": (cuda_chain.lanes_chain_16, cuda_chain.lanes_chain_16_plain,
+                       "scripts/bench_roofline.py:222", "cuda_lanes_pad16", 128, roofline.T_PAD, 16,
+                       torch.float32, 67e12),
+}
 # The three earlier paths keep the entry names they had.
 OLD_NAMES = {
     ("quadrotor", "gp_posterior"): "gp_posterior", ("quadrotor", "tighten"): "tighten",
@@ -192,9 +260,9 @@ def entry_name(path_name: str, kernel: str) -> str:
     p = PATHS[path_name]
     if p.tag is None:
         return OLD_NAMES[(path_name, kernel)]
-    if kernel == "qp":
+    if kernel == "qp" and p.dispatch == "lanes-fused":
         return f"{p.qp}{'_soft' if p.soft else ''}"
-    return f"{kernel}[{p.tag}]"
+    return f"{p.qp if kernel == 'qp' else kernel}[{p.tag}]"
 
 
 # ---- the least time the card could take ----------------------------------------
@@ -294,7 +362,7 @@ def bound_ocp(qp, kw, out, iterations: torch.Tensor) -> Bound:
 class Problem:
     """One path's controller, GP and plant."""
 
-    def __init__(self, path_name: str, device, gp_edit=None):
+    def __init__(self, path_name: str, device, gp_edit=None, analytic_jac=False, batch=None):
         self.path_name, self.path = path_name, PATHS[path_name]
         p, c = self.path, FAMILIES[PATHS[path_name].family]
         self.family, self.env = p.family, c["env"]
@@ -306,11 +374,19 @@ class Problem:
             device=device, bounds=c["bounds"], lm_reg=c["lm_reg"], soft_constraints=p.soft,
         )
         self.consts = ctrl.consts
-        self.cfg = ctrl.cfg._replace(qp_tol=1e-6, kernel_linearize=True, qp_mehrotra=True)
+        self.cfg = ctrl.cfg._replace(qp_tol=1e-6, kernel_linearize=p.kernel_linearize,
+                                     qp_mehrotra=True, analytic_jac=analytic_jac)
         self.gp = convert.load_bench_gp(device, p.family)
         if gp_edit is not None:
             self.gp = gp_edit(self.gp)
+        if p.population:
+            self.gp = population_gp(self.gp, p.B, batch or p.B)
         self.device = device
+        self.rates = {}
+        self.decision = dispatch_decision(self.cfg, self.model.residual_spec, p.T, p.population)
+        if (self.decision.path, self.decision.degraded) != (p.dispatch, p.degraded):
+            raise RuntimeError(f"{path_name}: dispatch decision {self.decision}, expected "
+                               f"{p.dispatch} (degraded={p.degraded})")
 
     def reset(self, batch: int, seed: int):
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -321,6 +397,24 @@ class Problem:
     def step(self, st, obs, lanes=None):
         return batched_gpmpc_step(self.model, self.cfg, self.consts, self.gp, st, obs,
                                   lanes=lanes or LANES)
+
+
+def population_gp(gp, n_scenarios: int, n_keep: int, seed: int = 0):
+    """The first `n_keep` scenarios of a population of `n_scenarios` GPs on
+    `gp`'s device: every leaf gets a leading scenario axis, and each
+    scenario's `alpha_s` (x (1 + 0.1 n)) and raw hyperparameters (+ 0.02 n)
+    are perturbed from a seeded generator, so the scenarios differ. The
+    factors are drawn on the host (a few thousand numbers, the same for the
+    card's run and the CPU's), the leaves are expanded on the device."""
+    gen = torch.Generator().manual_seed(seed)
+    dev = gp.Zs.device
+    noise = lambda t, s: (s * torch.randn((n_scenarios,) + tuple(t.shape), generator=gen))[  # noqa: E731
+        :n_keep].to(dev)
+    rep = lambda t: t[None].expand((n_keep,) + tuple(t.shape)).contiguous()  # noqa: E731
+    alpha = rep(gp.alpha_s) * (1.0 + noise(gp.alpha_s, 0.1))
+    hypers = type(gp.hypers)(*[rep(h) + noise(h, 0.02) for h in gp.hypers])
+    leaves = {k: rep(v) for k, v in gp._asdict().items() if k != "hypers"}
+    return gp._replace(**dict(leaves, alpha_s=alpha), hypers=hypers)
 
 
 def timed(fn):
@@ -350,14 +444,15 @@ class Capture:
     """Records the arguments of the first call of each kernel wrapper while
     enabled, by wrapping the names the consumer modules call."""
 
-    def __init__(self, qp_name: str):
-        qp_attr = QP_WRAPPERS[qp_name][0].__name__
-        self.sites = [
-            (gpmpc_mod, "gp_mean_var", "gp_posterior"),
-            (gpmpc_mod, "tighten_lanes", "tighten"),
-            (sqp_lanes, "linearize_ocp_lanes", "linearize"),
-            (sqp_lanes, qp_attr, "qp"),
-        ]
+    def __init__(self, path: SmokePath):
+        qp_attr = QP_WRAPPERS[path.qp][0].__name__
+        sites = {
+            "gp_posterior": (gpmpc_mod, "gp_mean_var"),
+            "tighten": (gpmpc_mod, "tighten_lanes"),
+            "linearize": (sqp_lanes, "linearize_ocp_lanes"),
+            "qp": (sqp_lanes, qp_attr),
+        }
+        self.sites = [sites[name] + (name,) for name in path.kernels]
         self.args = {}
         self._orig = []
 
@@ -435,17 +530,26 @@ def random_qp_call(dev, n_tiles, T, nx, nu, soft: bool, seed=0):
 
 
 def random_inputs(prob: Problem, T: int):
-    """Seeded random inputs of kernels 1-3 and the path's QP kernel at the
-    path's shapes and horizon T (numpy, seed 0)."""
+    """Seeded random inputs of the path's kernels at the path's shapes and
+    horizon T (numpy, seed 0)."""
     rng = np.random.default_rng(0)
     dev, B = prob.device, prob.path.B
     t = lambda a: torch.as_tensor(np.array(a, np.float32, order="C"), device=dev)  # noqa: E731
     gp, consts, model = prob.gp, prob.consts, prob.model
     nx, nu = model.nx, model.nu
-    G, _, D = gp.Zs.shape
     n_tiles = B // LANES
     F = torch.nn.functional
     inputs = {}
+    # kernel 2: disturbance diagonals in the range a trained GP produces
+    inputs["tighten"] = (
+        (t(rng.uniform(1e-6, 4e-4, (B, T, consts.Bd.shape[1]))), consts.Ad, consts.Bd_in,
+         consts.lqr_gain, consts.Bd, consts.inverse_cdf),
+        {},
+    )
+    inputs["qp"] = random_qp_call(dev, n_tiles, T, nx, nu, prob.path.soft is not None)
+    if prob.path.population:
+        return inputs
+    G, _, D = gp.Zs.shape
     # kernel 1: N = B*T queries against GP 0's padded variance form
     pad = 128 - gp.var_Z.shape[1]
     inputs["gp_posterior"] = (
@@ -454,12 +558,6 @@ def random_inputs(prob: Problem, T: int):
          gpmpc_mod.softplus(gp.hypers.raw_lengthscale[0]),
          gpmpc_mod.softplus(gp.hypers.raw_outputscale[0]),
          gpmpc_mod.softplus(gp.hypers.raw_noise[0]) + 1e-6, F.pad(gp.var_mask[0], (0, pad))),
-        {},
-    )
-    # kernel 2: disturbance diagonals in the range a trained GP produces
-    inputs["tighten"] = (
-        (t(rng.uniform(1e-6, 4e-4, (B, T, consts.Bd.shape[1]))), consts.Ad, consts.Bd_in,
-         consts.lqr_gain, consts.Bd, consts.inverse_cdf),
         {},
     )
     # kernel 3: states and inputs as tests/test_pallas_linearize.py draws them
@@ -481,7 +579,6 @@ def random_inputs(prob: Problem, T: int):
     par8 = model.residual_spec.kernel_params(model.params).to(dev)
     inputs["linearize"] = ((par8, hyp, gp.Zs, gp.alpha_s, t(X), t(U)),
                            {"dt": 0.02, "use_gp": True, "family": prob.family})
-    inputs["qp"] = random_qp_call(dev, n_tiles, T, nx, nu, prob.path.soft is not None)
     return inputs
 
 
@@ -530,17 +627,17 @@ def check_kernels(prob: Problem, results: dict, captured: dict) -> None:
     es, obs, st = prob.reset(path.B, seed=0)
     u, st, _ = prob.step(st, obs)
     es, obs, *_ = prob.env.env_step(prob.env_p, es, u)
-    with Capture(path.qp) as cap:  # the first warm-started step
+    with Capture(path) as cap:  # the first warm-started step
         prob.step(st, obs)
     torch.cuda.synchronize()
-    missing = {"gp_posterior", "tighten", "linearize", "qp"} - set(cap.args)
+    missing = set(path.kernels) - set(cap.args)
     if missing:
         raise RuntimeError(f"{prob.path_name}: warm-started step launched no {sorted(missing)}")
     captured[prob.path_name] = cap.args
     soft = path.soft is not None
     random_Ts = (path.T, 400) if path.T == 360 else (path.T,)
     rand = {T: random_inputs(prob, T) for T in random_Ts}
-    for name in ("gp_posterior", "tighten", "linearize", "qp"):
+    for name in path.kernels:
         entry = entry_name(prob.path_name, name)
         if name == "qp":
             fn, plain, replaces = QP_WRAPPERS[path.qp]
@@ -554,12 +651,13 @@ def check_kernels(prob: Problem, results: dict, captured: dict) -> None:
         worst, ms_k, ms_p, out_k = compare(entry, "real step", kind, fn, plain, a, k)
         bnd = kernel_bound(name, fn, a, k, out_k)
         for T in random_Ts:
-            if name == "qp" and T != path.T:
-                continue  # the QP kernels' caps have their own checks
+            if name == "qp" and (T != path.T or path.T > sqp_lanes.MAX_FUSED_HORIZON):
+                continue  # the QP kernels' caps have their own checks (T=512: the T=1024 one)
             a_r, k_r = rand[T][name]
             label = "random" if T == path.T else f"random T={T}"
             worst = max(worst, compare(entry, label, kind, fn, plain, a_r, k_r, time_plain=False)[0])
         results[entry] = result_entry(entry, src, replaces, worst, ms_k, ms_p, bnd)
+        prob.rates[name] = bnd.flops / (1e-3 * ms_k)  # operations/s the kernel reached
 
 
 def check_kernel_level_only(dev, captured: dict, extra: list) -> None:
@@ -619,27 +717,39 @@ def closed_loop(prob: Problem, results: dict, stress=False):
         fn.launches = 0
     rec_obs, rec_u = [], []
     worst_viol = 0.0
-    for i in range(n_warmup + n_timed):
-        if i == n_warmup:
-            torch.cuda.synchronize()
-            t_start = time.perf_counter()
-        u, st, info = prob.step(st, obs)
-        if i < path.cpu_steps:
-            rec_obs.append(obs[:path.n_cpu].clone())
-            rec_u.append(u[:path.n_cpu].clone())
-        worst_viol = max(worst_viol, float(info.soft_viol.max()))
-        es, obs, *_ = prob.env.env_step(prob.env_p, es, u)
-    torch.cuda.synchronize()
+    batch_mod._DISPATCH_WARNED.clear()  # phase 1's steps have used the once-only warnings up
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i in range(n_warmup + n_timed):
+            if i == n_warmup:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            u, st, info = prob.step(st, obs)
+            if i < path.cpu_steps:
+                rec_obs.append(obs[:path.n_cpu].clone())
+                rec_u.append(u[:path.n_cpu].clone())
+            worst_viol = max(worst_viol, float(info.soft_viol.max()))
+            es, obs, *_ = prob.env.env_step(prob.env_p, es, u)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
     launches = {k: fn.launches for k, fn in wrappers.items()}
+    dispatch_warnings = [str(w.message) for w in caught if "gpmpc dispatch" in str(w.message)]
+    say(f"[phase 2] {name}: dispatch '{prob.decision.path}' (degraded={prob.decision.degraded}: "
+        f"{prob.decision.reason}); {len(dispatch_warnings)} dispatch warning(s) over the run; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    if len(dispatch_warnings) != int(path.degraded):
+        raise RuntimeError(f"{name}: expected {int(path.degraded)} dispatch warning(s), got "
+                           f"{dispatch_warnings}")
     say(f"[phase 2] {name}: {n_timed} timed steps at B={B}, T={T}: {n_timed / wall:.3f} steps/s, "
         f"{B * n_timed / wall:.1f} solves/s (wall {wall:.3f} s, {1e3 * wall / n_timed:.1f} ms/step, "
         "plant on the card)")
     say(f"[phase 2] {name}: kernel launches over {n_warmup + n_timed} steps: {launches}")
-    others = [k for k in QP_WRAPPERS if k != path.qp]
-    if min(launches[k] for k in (*KERNELS, path.qp)) <= 0 or any(launches[k] for k in others):
-        raise RuntimeError(f"{name}: expected every kernel of the path and of the QP wrappers "
-                           f"only {path.qp} to have launched: {launches}")
+    expected = {path.qp if k == "qp" else k for k in path.kernels}
+    if (min(launches[k] for k in expected) <= 0
+            or any(n for k, n in launches.items() if k not in expected)):
+        raise RuntimeError(f"{name}: expected exactly {sorted(expected)} to have launched: "
+                           f"{launches}")
     if not bool(torch.isfinite(u).all()) or not bool(torch.isfinite(st.X_warm).all()):
         raise RuntimeError(f"{name}: non-finite actions or trajectories")
     it = info.n_iters.float()
@@ -652,10 +762,9 @@ def closed_loop(prob: Problem, results: dict, stress=False):
         if not worst_viol > 0:
             raise RuntimeError(f"{name}: the stress GP produced no soft violation")
         return None
-    for k in ("gp_posterior", "tighten", "linearize"):
-        results[entry_name(prob.path_name, k)]["launches"] = launches[k]
+    for k in path.kernels:
+        results[entry_name(prob.path_name, k)]["launches"] = launches[path.qp if k == "qp" else k]
     qp_entry = results[entry_name(prob.path_name, "qp")]
-    qp_entry["launches"] = launches[path.qp]
     steps = n_warmup + n_timed
     prob.ms_per_step = 1e3 * wall / n_timed
     in_qp = qp_entry["ms"] * launches[path.qp] / steps
@@ -667,15 +776,17 @@ def closed_loop(prob: Problem, results: dict, stress=False):
 def cpu_parity(path_name: str, rec_obs, rec_u) -> None:
     """Phase 3 for one path: the plain path on the CPU, same observations."""
     cpu = torch.device("cpu")
-    prob = Problem(path_name, cpu)
-    path = prob.path
+    path = PATHS[path_name]
+    prob = Problem(path_name, cpu, batch=path.n_cpu)
     st = mpc_mod.init_state(path.n_cpu, path.T, prob.model.nx, prob.model.nu, device=cpu)
     u_cpu, u_card = [], []
     t0 = time.perf_counter()
-    for o, u_k in zip(rec_obs, rec_u):
-        u_c, st, _ = prob.step(st, o.cpu(), lanes=min(LANES, path.n_cpu))
-        u_cpu.append(u_c)
-        u_card.append(u_k.cpu())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the dispatch warnings were counted in phase 2
+        for o, u_k in zip(rec_obs, rec_u):
+            u_c, st, _ = prob.step(st, o.cpu(), lanes=min(LANES, path.n_cpu))
+            u_cpu.append(u_c)
+            u_card.append(u_k.cpu())
     err = torch.stack(u_cpu) - torch.stack(u_card)
     rmse = float(torch.sqrt(torch.mean(err**2)))
     say(f"[phase 3] {path_name}: {len(u_cpu)} steps x {path.n_cpu} scenarios, plain path on the CPU "
@@ -683,6 +794,113 @@ def cpu_parity(path_name: str, rec_obs, rec_u) -> None:
         f"(bar {RMSE_BAR}), max abs {float(err.abs().max()):.3e}")
     if not rmse <= RMSE_BAR:
         raise RuntimeError(f"{path_name}: control RMSE {rmse} exceeds {RMSE_BAR}")
+
+
+def analytic_jacobian_run(dev, rec_u) -> None:
+    """`quadrotor-jacfwd` once more with `analytic_jac=True`, from the same
+    seed: the first scenarios' actions of the first steps against the
+    forward-mode run's (`rec_u`), and its steps/s over five steps."""
+    prob = Problem("quadrotor-jacfwd", dev, analytic_jac=True)
+    path = prob.path
+    es, obs, st = prob.reset(path.B, seed=1)
+    worst, n_timed = 0.0, 5
+    for i in range(path.n_warmup + n_timed):
+        if i == path.n_warmup:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        u, st, _ = prob.step(st, obs)
+        if i < len(rec_u):
+            worst = max(worst, float((u[:path.n_cpu] - rec_u[i]).abs().max()))
+        es, obs, *_ = prob.env.env_step(prob.env_p, es, u)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    say(f"[phase 2] quadrotor-jacfwd with analytic_jac=True: {n_timed} timed steps: "
+        f"{n_timed / wall:.3f} steps/s ({1e3 * wall / n_timed:.1f} ms/step); max|u - forward-mode "
+        f"run's u| over {len(rec_u)} steps x {path.n_cpu} scenarios = {worst:.3e} "
+        f"(bar {ANALYTIC_BAR})")
+    if not worst <= ANALYTIC_BAR:
+        raise RuntimeError("the analytic-Jacobian run disagrees with the forward-mode run")
+
+
+def chain_inputs(dev):
+    """Each chain kernel's input at the reference's sizes and on its data,
+    in lanes layout and as (B, T, n, n) for the library call."""
+    mats = roofline.reference_mats()
+    by_width = {12: torch.as_tensor(mats, device=dev),
+                16: torch.as_tensor(roofline.pad16_mats(mats), device=dev)}
+    inputs = {}
+    for name, (_, _, _, _, lanes, stages, n, dtype, _) in CHAINS.items():
+        flat = by_width[n][:, :stages].to(dtype).contiguous()
+        inputs[name] = (roofline.to_lanes(flat, lanes), flat)
+    return inputs
+
+
+def check_chains(dev, results: dict) -> dict:
+    """Phase 1 for kernels 7-9 and the roofline rows. Returns the rows'
+    GFLOP/s by name."""
+    inputs = chain_inputs(dev)
+    for name, (fn, plain, *_rest) in CHAINS.items():
+        x, _ = inputs[name]
+        kind = "chain_bf16" if x.dtype == torch.bfloat16 else "chain"
+        out_k, out_p = fn(x, CHAIN_ROUNDS).float(), plain(x, CHAIN_ROUNDS).float()
+        rel = float(((out_k - out_p).abs() / out_p.abs().clamp_min(1.0)).max())
+        err = float((out_k - out_p).abs().max())
+        ok = bool(torch.isfinite(out_k).all()) and rel <= TOL[kind]
+        fin_k = torch.isfinite(fn(x, roofline.N_CHAIN).float())
+        fin_p = torch.isfinite(plain(x, roofline.N_CHAIN).float())
+        same = bool(torch.equal(fin_k, fin_p))
+        say(f"[phase 1] {name:28s} {CHAIN_ROUNDS} rounds, x {tuple(x.shape)} {x.dtype}: max|kernel - "
+            f"plain| = {err:.3e}, relative to max(1, |plain|) {rel:.3e} (tolerance {TOL[kind]:.3e}) "
+            f"{'ok' if ok else 'FAIL'}; after {roofline.N_CHAIN} rounds {float(fin_p.float().mean()):.4f}"
+            f" of the plain entries are finite, the kernel's pattern is "
+            f"{'the same' if same else 'DIFFERENT'}")
+        if not (ok and same):
+            raise RuntimeError(f"{name}: kernel disagrees with its plain version")
+        results[name] = dict(max_abs_err=err)
+    # the roofline entry point is these kernels' main path
+    for fn, *_rest in CHAINS.values():
+        fn.launches = 0
+    gflops = {}
+    for rec in roofline.iter_rows(dev):
+        say(json.dumps(rec))
+        gflops[rec["metric"].split("[")[1][:-1]] = rec["value"]
+    launches = {name: fn.launches for name, (fn, *_rest) in CHAINS.items()}  # of the rows' run alone
+    for name, (fn, plain, replaces, row, lanes, stages, n, dtype, peak) in CHAINS.items():
+        if launches[name] <= 0:
+            raise RuntimeError(f"{name}: the roofline rows did not launch it")
+        x, flat = inputs[name]
+        ms_k, runs_k, _ = timed(lambda: fn(x, roofline.N_CHAIN))
+        ms_p, runs_p, _ = timed(lambda: plain(x, roofline.N_CHAIN))
+        ms_l, runs_l, _ = timed(lambda: roofline.torch_batched_chain(flat, roofline.N_CHAIN))
+        flops = roofline.useful_flops(stages, roofline.N_CHAIN)
+        t_b, t_f = 2 * tensor_bytes(x) / PEAK_BYTES_PER_S, flops / peak
+        bnd = Bound(1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations",
+                    2 * tensor_bytes(x), int(flops))
+        say(f"[phase 1] {name:28s} {roofline.N_CHAIN} rounds: kernel {ms_k:.4f} ms (median of "
+            f"{runs_k}), plain {ms_p:.4f} ms (median of {runs_p}), one torch.matmul a round "
+            f"{ms_l:.4f} ms (median of {runs_l}); peak {peak / 1e12:.1f} TFLOP/s")
+        entry = result_entry(name, "gpmpc_tpu_torch/csrc/lanes_chain.cu", replaces,
+                             results[name]["max_abs_err"], ms_k, ms_p, bnd, launches=launches[name])
+        entry["library_ms"] = ms_l
+        results[name] = entry
+    return gflops
+
+
+def chain_share(prob: Problem, gflops: dict) -> None:
+    """What share of the measured lane-chain rate the resident QP kernel's
+    products reach, block for block: both kernels run one 128-thread block a
+    tile with one thread a scenario; the chain keeps every SM busy, the QP
+    kernel at B=1024 only 8 of them, so the rates are compared per resident
+    block (the chain's 250 blocks run in two waves of at most 132)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chain_blocks = (roofline.B // 128) * roofline.T
+    chain_resident = chain_blocks / -(-chain_blocks // sms)
+    chain_rate = gflops["cuda_lanes"] / chain_resident
+    qp_rate = prob.rates["qp"] / 1e9 / (prob.path.B // LANES)
+    say(f"[phase 1] per resident block: the lane chain reaches {chain_rate:.2f} GFLOP/s "
+        f"({gflops['cuda_lanes']:.1f} over {chain_resident:.0f} blocks at a time), the resident QP "
+        f"kernel on {prob.path_name} {qp_rate:.3f} GFLOP/s ({prob.rates['qp'] / 1e9:.2f} over "
+        f"{prob.path.B // LANES} blocks): {100 * qp_rate / chain_rate:.2f} % of the chain's rate")
 
 
 def profile_step(prob: Problem) -> None:
@@ -749,12 +967,17 @@ def main() -> int:
 
     results, extra, captured, problems = {}, [], {}, {}
     t_run = time.perf_counter()
+    gflops = check_chains(dev, results)  # phase 1, kernels 7-9 and the roofline rows
+    say(f"[time] roofline probe done at {time.perf_counter() - t_run:.0f} s")
     for path_name in PATHS:
         prob = problems[path_name] = Problem(path_name, dev)
         check_kernels(prob, results, captured)  # phase 1
         rec_obs, rec_u = closed_loop(prob, results)  # phase 2
+        if path_name == "quadrotor-jacfwd":
+            analytic_jacobian_run(dev, rec_u)
         cpu_parity(path_name, rec_obs, rec_u)  # phase 3
         say(f"[time] {path_name} done at {time.perf_counter() - t_run:.0f} s")
+    chain_share(problems["quadrotor"], gflops)
     stress = lambda gp: gp._replace(hypers=gp.hypers._replace(  # noqa: E731
         raw_outputscale=torch.full_like(gp.hypers.raw_outputscale, STRESS_OUTPUTSCALE)))
     closed_loop(Problem("quadrotor-soft", dev, gp_edit=stress), results, stress=True)
@@ -765,7 +988,7 @@ def main() -> int:
             if prob.family == "quadrotor":
                 profile_step(prob)
 
-    order = [entry_name(p, k) for p in PATHS for k in ("gp_posterior", "tighten", "linearize", "qp")]
+    order = [entry_name(p, k) for p, path in PATHS.items() for k in path.kernels] + list(CHAINS)
     print(json.dumps({"kernels": [results[e] for e in order], "kernel_level_only": extra}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -42,6 +42,10 @@ SIGNATURES = {
     # family, nx, nu, par8, hyp, X, U, Zs, alpha, n_tiles, T, L, Ms, use_gp, dt, fnext, A, B, stream
     "linearize_launch": [_I, _I, _I] + [_P] * 6 + [_I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
 }
+# The lane-wise matmul chains of the roofline probe (csrc/lanes_chain.cu).
+for _name in ("lanes_chain", "lanes_chain_bf16", "lanes_chain_16"):
+    # x, out, n_blocks, L, n_chain, stream
+    SIGNATURES[_name + "_launch"] = [_P, _P, _I, _I, _I, _P]
 # The interior-point kernels: resident, tier-1 and tier-2 streamed, each with
 # hard and with L1-soft state bounds, one source and one pair of entry points
 # each (csrc/ocp_ip.cuh).

@@ -1,20 +1,25 @@
-"""GP-MPC: setup, step preparation (GP variances and chance-constraint
-tightening) and the fused lanes step.
+"""GP-MPC: setup, the GP-augmented dynamics, step preparation (GP variances
+and chance-constraint tightening) and the lanes step.
 
-Port of the `lanes-fused` slice of `gpmpc_tpu/control/gpmpc.py`: `GpModel`,
-`GpMpcConsts`, the setup half of `GPMPC.__init__`, the kernel branch of
-`batched_variances`, `_gp_disturbance_batch` (which is also the reference's
-per-scenario `disturbance_diagonals`, batched),
-`_bounds_from_tightening`, `batched_prepare_step` and the fused branch of
-`batched_select_action_lanes`, with hard or L1-soft state bounds. GP
-training, the XLA/jacfwd branches and the stateful controller API are not
-ported yet (ROADMAP.md Queue 1). All state carries a leading scenario axis B.
+Port of the `lanes-fused` and `lanes` slices of `gpmpc_tpu/control/gpmpc.py`:
+`GpModel`, `GpMpcConsts`, the setup half of `GPMPC.__init__`, `gp_residual`,
+`augmented_fd`, `gp_variances`, both branches of `batched_variances` (the
+kernel for a shared GP, per-scenario quadratic forms for a population),
+`_gp_disturbance_batch` (which is also the reference's per-scenario
+`disturbance_diagonals`, batched), `_bounds_from_tightening`,
+`batched_prepare_step` and the three branches of
+`batched_select_action_lanes` (fused kernel linearization; jacfwd or analytic
+Jacobians; a per-scenario GP population), with hard or L1-soft state bounds.
+GP training, the vmapped `select_action` of the `xla` path and the stateful
+controller API are not ported yet (ROADMAP.md Queue 1). All state carries a
+leading scenario axis B; a GP population carries it on every GpModel leaf.
 """
 
 from __future__ import annotations
 
 import statistics
 import warnings
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -22,9 +27,11 @@ import torch
 
 from gpmpc_tpu_torch.control import mpc as mpc_mod
 from gpmpc_tpu_torch.control.mpc import MpcConsts, MpcInfo, MpcState
-from gpmpc_tpu_torch.device import resolve
+from gpmpc_tpu_torch.device import resolve, strict_float32
+from gpmpc_tpu_torch.models import quadrotor
+from gpmpc_tpu_torch.models.jacobians import make_augmented_fd_jac
 from gpmpc_tpu_torch.models.residual import QUADROTOR_SPEC, ResidualSpec
-from gpmpc_tpu_torch.ops.cuda_gp import gp_mean_var
+from gpmpc_tpu_torch.ops.cuda_gp import gp_mean_var, se_kernel
 from gpmpc_tpu_torch.ops.cuda_tighten import tighten_lanes
 from gpmpc_tpu_torch.ops.linalg import discretize_linear_system, lqr_gain_discrete
 from gpmpc_tpu_torch.ops.sqp import OcpBounds, OcpCost, SqpConfig
@@ -32,7 +39,9 @@ from gpmpc_tpu_torch.ops.sqp_lanes import (
     LANES,
     MAX_FUSED_HORIZON,
     LanesLinearizer,
+    jacfwd_linearize,
     lanes_horizon_cap,
+    sqp_solve_batch_lanes,
     sqp_solve_batch_lanes_fused,
 )
 
@@ -93,10 +102,73 @@ def slice_gp_inputs(xz: torch.Tensor, spec: ResidualSpec = QUADROTOR_SPEC) -> to
     return torch.stack(pads, dim=0)
 
 
+class UnsupportedPathError(NotImplementedError):
+    """The configuration needs a path of the reference that is not ported."""
+
+
+def gp_is_batched(gp: GpModel) -> bool:
+    """True if every GpModel leaf carries a leading scenario axis (a GP
+    population, one model per scenario)."""
+    return gp.Zs.dim() == 4
+
+
+def gp_residual(
+    gp: GpModel, x: torch.Tensor, u: torch.Tensor, spec: ResidualSpec = QUADROTOR_SPEC
+) -> torch.Tensor:
+    """Residual dynamics term (..., nx): the GP posterior means injected into
+    the model's uncertain rows through the spec's mean map. Built with
+    `torch.stack`, not an indexed write, so that `torch.func.jvp` under
+    `vmap` can differentiate it."""
+    z = spec.gp_input(x, u)  # (..., z_dim)
+    zs = slice_gp_inputs(z, spec)  # (G, ..., D)
+    ell = softplus(gp.hypers.raw_lengthscale)
+    sf2 = softplus(gp.hypers.raw_outputscale)
+    preds = []
+    for i in range(spec.num_gps):
+        k = se_kernel(zs[i][..., None, :], gp.Zs[i], ell[i], sf2[i])[..., 0, :]  # (..., Ms)
+        preds.append(torch.sum(k * gp.alpha_s[i], dim=-1))
+    rows = spec.mean_rows(torch.stack(preds, dim=-1), z)  # (..., n_unc)
+    zero = torch.zeros_like(x[..., 0])
+    row_of = {d: j for j, d in enumerate(spec.uncertain_dim)}
+    return torch.stack(
+        [rows[..., row_of[d]] if d in row_of else zero for d in range(x.shape[-1])], dim=-1
+    )
+
+
+def augmented_fd(model, gp: GpModel, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """RK4 discretization of prior + GP residual."""
+    spec = model_spec(model)
+    f = lambda x_, u_: model.fc_func(x_, u_) + gp_residual(gp, x_, u_, spec)  # noqa: E731
+    return quadrotor.rk4(f, x, u, model.dt)
+
+
+def gp_variances(gp: GpModel, z_slices: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """Predictive variance (G, ...) at per-GP query slices (G, ..., D) through
+    the var_mat quadratic form, in float32. The reference's `bf16` mode (the
+    quadratic form's product in bfloat16) is not ported."""
+    if bf16:
+        raise UnsupportedPathError("gp_variances(bf16=True) is not ported (ROADMAP.md Queue 1)")
+    G, D = z_slices.shape[0], z_slices.shape[-1]
+    batch_shape = z_slices.shape[1:-1]
+    z_flat = z_slices.reshape(G, -1, D)
+    ell = softplus(gp.hypers.raw_lengthscale)
+    sf2 = softplus(gp.hypers.raw_outputscale)
+    covs = []
+    for i in range(G):
+        k = se_kernel(z_flat[i], gp.var_Z[i], ell[i], sf2[i]) * gp.var_mask[i][None, :]  # (N, Mv)
+        covs.append(torch.clamp_min(sf2[i] - torch.sum((k @ gp.var_mat[i]) * k, dim=-1), 1e-12))
+    return torch.stack(covs, dim=0).reshape((G,) + tuple(batch_shape))
+
+
 def batched_variances(gp: GpModel, z_slices: torch.Tensor) -> torch.Tensor:
-    """Tightening variances (G, B, T) for z_slices (G, B, T, D): one
-    `gp_mean_var` launch per GP over all B*T queries, with the variance form
-    padded to a multiple of 128 (padded entries are masked out)."""
+    """Tightening variances (G, B, T) for z_slices (G, B, T, D). Shared GP:
+    one `gp_mean_var` launch per GP over all B*T queries, with the variance
+    form padded to a multiple of 128 (padded entries are masked out). GP
+    population: each scenario's own quadratic form in plain torch, as in the
+    reference (there is no shared Gram to stage once)."""
+    if gp_is_batched(gp):
+        per_scenario = torch.func.vmap(gp_variances)(gp, z_slices.movedim(1, 0))  # (B, G, T)
+        return per_scenario.movedim(0, 1)
     G, B, T, D = z_slices.shape
     Mv = gp.var_Z.shape[1]
     pad = (-Mv) % 128
@@ -126,8 +198,11 @@ def _gp_disturbance_batch(
 ) -> torch.Tensor:
     """(B, T, n_unc) disturbance-covariance diagonals: the GP variances and
     observation noise mapped onto the uncertain rows, times dt^2 (the
-    reference's per-scenario `disturbance_diagonals`, batched)."""
-    noise = softplus(gp.hypers.raw_noise) + 1e-6  # (G,)
+    reference's per-scenario `disturbance_diagonals`, batched; a population
+    brings each scenario's own noise)."""
+    noise = softplus(gp.hypers.raw_noise) + 1e-6  # (G,), (B, G) for a population
+    if gp_is_batched(gp):
+        noise = noise[:, None, None, :]
     F = spec.var_factors(zq)  # (B, T, n_unc, G)
     cov_d = torch.sum(F * covs.permute(1, 2, 0)[:, :, None, :], dim=-1)
     cov_n = torch.sum(F * noise, dim=-1)
@@ -151,7 +226,8 @@ def _bounds_from_tightening(
     and are always clamped."""
     c = consts.mpc
     T = c.uref.shape[0]
-    # no previous rollout, or an untrained GP -> no tightening
+    # no previous rollout, or an untrained GP -> no tightening (gp.trained is
+    # () for a shared GP and (B,) for a population)
     use = ((states.traj_step > 0) & gp.trained)[:, None, None]
     t_x = torch.where(use, t_x, torch.zeros_like(t_x))
     t_u = torch.where(use, t_u, torch.zeros_like(t_u))
@@ -198,10 +274,6 @@ def state_bound_violation(X: torch.Tensor, bounds: OcpBounds) -> torch.Tensor:
     return torch.clamp_min(torch.maximum(lo, hi), 0.0)
 
 
-class UnsupportedPathError(NotImplementedError):
-    """The configuration needs a path of the reference that is not ported."""
-
-
 def batched_select_action_lanes(
     model,
     cfg: SqpConfig,
@@ -211,10 +283,21 @@ def batched_select_action_lanes(
     obs: torch.Tensor,  # (B, nx)
     lanes: int = LANES,
 ) -> tuple[torch.Tensor, MpcState, MpcInfo]:
-    """One GP-MPC step for B scenarios on the fused lanes path: (u (B, nu),
-    next states, info). Only the fused branch of the reference is ported;
-    any configuration that would leave it raises `UnsupportedPathError`."""
+    """One GP-MPC step for B scenarios with the lanes QP kernels: (u (B, nu),
+    next states, info). The fused path (kernel linearization, X and U kept in
+    lanes layout) serves a shared GP on a family with a kernel linearizer up to
+    `MAX_FUSED_HORIZON`; otherwise the dynamics are linearized in plain torch
+    (forward-mode `torch.func`, or the quadrotor's analytic Jacobians under
+    `cfg.analytic_jac`) and only the QP rides the kernels. `gp` may be a
+    population (a leading scenario axis on every leaf): each scenario is then
+    linearized against its own GP."""
+    with strict_float32():
+        return _select_action_lanes(model, cfg, consts, gp, states, obs, lanes)
+
+
+def _select_action_lanes(model, cfg, consts, gp, states, obs, lanes):
     spec = model_spec(model)
+    gp_batched = gp_is_batched(gp)
     T = consts.mpc.uref.shape[0]
     # Soft state bounds live in all three QP kernels up to the soft cap; past
     # it, hard bounds with the feasibility clamp, and a warning.
@@ -223,15 +306,9 @@ def batched_select_action_lanes(
             f"soft_constraints requested but T={T} exceeds the lanes soft horizon cap "
             f"({lanes_horizon_cap(cfg)}); falling back to hard bounds with the 45% "
             "feasibility clamp for this controller",
-            stacklevel=2,
+            stacklevel=3,
         )
         cfg = cfg._replace(soft_x_penalty=None)
-    if not (cfg.kernel_linearize and spec.supports_kernel_linearize and gp.Zs.dim() == 3
-            and T <= MAX_FUSED_HORIZON):
-        raise UnsupportedPathError(
-            "only the fused lanes branch (kernel_linearize, a family with a kernel "
-            f"linearizer, shared GP, T <= {MAX_FUSED_HORIZON}) is ported; see ROADMAP.md Queue 1"
-        )
     xref, bounds, X_init, U_init, clamp_frac = batched_prepare_step(
         model, consts, gp, states, obs, soft=cfg.soft_x_penalty is not None
     )
@@ -241,18 +318,38 @@ def batched_select_action_lanes(
     c = consts.mpc
     cost = OcpCost(xref=xref, uref=c.uref, Q=c.Q, R=c.R, Qe=c.Q, scale=c.scale)
 
-    ell = softplus(gp.hypers.raw_lengthscale)
-    sf2 = softplus(gp.hypers.raw_outputscale)
-    G, _, D = gp.Zs.shape
-    inv_ell2 = (1.0 / (ell * ell)).reshape(G, -1).expand(G, D)
-    lin = LanesLinearizer(
-        params8=spec.kernel_params(model.params).to(obs.device),
-        hyp=torch.cat([sf2[:, None], inv_ell2], dim=1).contiguous(),
-        Zs=gp.Zs, alpha=gp.alpha_s, use_gp=True, family=spec.name,
-    )
-    sol = sqp_solve_batch_lanes_fused(
-        lin, model.dt, cost, bounds, obs, X_init, U_init, cfg, lanes=lanes
-    )
+    if (cfg.kernel_linearize and spec.supports_kernel_linearize and not gp_batched
+            and T <= MAX_FUSED_HORIZON):
+        ell = softplus(gp.hypers.raw_lengthscale)
+        sf2 = softplus(gp.hypers.raw_outputscale)
+        G, _, D = gp.Zs.shape
+        inv_ell2 = (1.0 / (ell * ell)).reshape(G, -1).expand(G, D)
+        lin = LanesLinearizer(
+            params8=spec.kernel_params(model.params).to(obs.device),
+            hyp=torch.cat([sf2[:, None], inv_ell2], dim=1).contiguous(),
+            Zs=gp.Zs, alpha=gp.alpha_s, use_gp=True, family=spec.name,
+        )
+        sol = sqp_solve_batch_lanes_fused(
+            lin, model.dt, cost, bounds, obs, X_init, U_init, cfg, lanes=lanes
+        )
+    elif gp_batched:
+        def linearize(X, U):  # X (B, T, nx), U (B, T, nu): each scenario against its own GP
+            return torch.func.vmap(
+                lambda g, Xb, Ub: jacfwd_linearize(partial(augmented_fd, model, g), Xb, Ub)
+            )(gp, X, U)
+
+        sol = sqp_solve_batch_lanes(
+            None, cost, bounds, obs, X_init, U_init, cfg, linearize_fn=linearize, lanes=lanes
+        )
+    else:
+        fd_jac3 = None
+        if cfg.analytic_jac and spec.name == "quadrotor":
+            # closed forms exist for the quadrotor; other families use jacfwd
+            fd_jac3 = make_augmented_fd_jac(model, gp)
+        sol = sqp_solve_batch_lanes(
+            partial(augmented_fd, model, gp), cost, bounds, obs, X_init, U_init, cfg,
+            fd_jac3=fd_jac3, lanes=lanes,
+        )
     new_states = MpcState(traj_step=states.traj_step + 1, X_warm=sol.X, U_warm=sol.U)
     info = MpcInfo(
         X=sol.X, U=sol.U, step_norm=sol.step_norm, qp_gap=sol.qp_gap,

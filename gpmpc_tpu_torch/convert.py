@@ -31,7 +31,9 @@ def _f32(a, device) -> torch.Tensor:
 
 def gp_model_from_numpy(d, device=None) -> GpModel:
     """GpModel from a flat mapping with the leaf names of the reference's GpModel,
-    the hyperparameters as `raw_lengthscale`, `raw_outputscale`, `raw_noise`."""
+    the hyperparameters as `raw_lengthscale`, `raw_outputscale`, `raw_noise`.
+    A population keeps its leading scenario axis on every leaf (`Zs` of four
+    dimensions, `trained` of shape (B,))."""
     device = resolve(device)
     return GpModel(
         Z=_f32(d["Z"], device), y=_f32(d["y"], device), mask=_f32(d["mask"], device),
@@ -43,7 +45,7 @@ def gp_model_from_numpy(d, device=None) -> GpModel:
         Zs=_f32(d["Zs"], device), alpha_s=_f32(d["alpha_s"], device),
         var_Z=_f32(d["var_Z"], device), var_mat=_f32(d["var_mat"], device),
         var_mask=_f32(d["var_mask"], device),
-        trained=torch.as_tensor(bool(np.asarray(d["trained"])), device=device),
+        trained=torch.as_tensor(np.asarray(d["trained"], bool), device=device),
     )
 
 

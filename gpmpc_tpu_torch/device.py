@@ -7,6 +7,8 @@ tensors follow their inputs' device instead.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -25,3 +27,18 @@ def resolve(device: torch.device | str | None = None) -> torch.device:
             "torch.cuda.is_available() is False; pass device=\"cpu\" to run on the CPU"
         )
     return torch.device("cuda:0")
+
+
+@contextlib.contextmanager
+def strict_float32():
+    """Float32 matrix products in full float32 inside the block, whatever the
+    process had set: `torch.func` turns the GP algebra into `bmm` calls that
+    follow the process-wide TF32 flag, and a GP at its noise floor does not
+    survive TF32's three digits. The flag is restored on exit and never
+    turned on."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

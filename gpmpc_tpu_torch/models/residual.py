@@ -1,7 +1,7 @@
 """Residual-GP structure of each model family. Port of
 `gpmpc_tpu/models/residual.py`: `QUADROTOR_SPEC`, `CARTPOLE_SPEC` and
-`TWOLINK_SPEC`. The specs' `mean_rows` and `make_targets` wait for the GP
-layer (ROADMAP.md Queue 1)."""
+`TWOLINK_SPEC`. The specs' `make_targets` waits for GP training (ROADMAP.md
+Queue 1)."""
 
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ class ResidualSpec:
     uncertain_dim: tuple[int, ...]
     # (x (..., nx), u (..., nu)) -> z (..., z_dim)
     gp_input: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = field(repr=False)
+    # (preds (..., num_gps), z (..., z_dim)) -> residual on the uncertain rows (..., n_unc)
+    mean_rows: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = field(repr=False)
     # z (..., z_dim) -> F (..., n_unc, num_gps)
     var_factors: Callable[[torch.Tensor], torch.Tensor] = field(repr=False)
     supports_kernel_linearize: bool = False
@@ -50,6 +52,23 @@ def _quad_gp_input(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
             u[..., 0],
             x[..., quadrotor.IDX_PHI], x[..., quadrotor.IDX_DPHI], u[..., 1],
             x[..., quadrotor.IDX_THETA], x[..., quadrotor.IDX_DTHETA], u[..., 2],
+        ],
+        dim=-1,
+    )
+
+
+def _quad_mean_rows(preds: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The thrust-magnitude GP rotated into world axes by (cos phi sin theta,
+    -sin phi, cos phi cos theta), then the phi and theta rate rows."""
+    t_pred, r_pred, p_pred = preds[..., 0], preds[..., 1], preds[..., 2]
+    phi, theta = z[..., 1], z[..., 4]
+    return torch.stack(
+        [
+            t_pred * torch.cos(phi) * torch.sin(theta),
+            t_pred * (-torch.sin(phi)),
+            t_pred * torch.cos(phi) * torch.cos(theta),
+            r_pred,
+            p_pred,
         ],
         dim=-1,
     )
@@ -85,10 +104,16 @@ QUADROTOR_SPEC = ResidualSpec(
     gp_idx=((0,), (1, 2, 3), (4, 5, 6)),
     uncertain_dim=(1, 3, 5, 9, 10),
     gp_input=_quad_gp_input,
+    mean_rows=_quad_mean_rows,
     var_factors=_quad_var_factors,
     supports_kernel_linearize=True,
     kernel_params=_quad_kernel_params,
 )
+
+
+def _direct_mean_rows(preds: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The GPs act directly on the acceleration rows: no rotation."""
+    return preds
 
 
 def _identity_var_factors(z: torch.Tensor) -> torch.Tensor:
@@ -118,6 +143,7 @@ CARTPOLE_SPEC = ResidualSpec(
     gp_idx=((0, 2, 3), (1, 2, 3)),
     uncertain_dim=(cartpole.IDX_DX, cartpole.IDX_DTHETA),
     gp_input=_cart_gp_input,
+    mean_rows=_direct_mean_rows,
     var_factors=_identity_var_factors,
     supports_kernel_linearize=True,
     kernel_params=_cart_kernel_params,
@@ -147,6 +173,7 @@ TWOLINK_SPEC = ResidualSpec(
     gp_idx=((0, 1, 2, 3, 4, 5), (0, 1, 2, 3, 4, 5)),
     uncertain_dim=(2, 3),
     gp_input=_twolink_gp_input,
+    mean_rows=_direct_mean_rows,
     var_factors=_identity_var_factors,
     supports_kernel_linearize=True,
     kernel_params=_twolink_kernel_params,

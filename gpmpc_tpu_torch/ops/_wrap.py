@@ -20,13 +20,14 @@ def check_widths(kernel: str, nx: int, nu: int) -> None:
         )
 
 
-def check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    """Raise unless `t` is a contiguous float32 tensor of `shape` on `device`
+def check(name: str, t: torch.Tensor, shape: tuple, device: torch.device,
+          dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on `device`
     (None entries of `shape` match any size)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):

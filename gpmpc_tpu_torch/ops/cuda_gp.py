@@ -23,6 +23,18 @@ def _inv_ell2(lengthscale: torch.Tensor, d: int) -> torch.Tensor:
     return (1.0 / lengthscale**2).expand(d).to(torch.float32)
 
 
+def se_kernel(
+    x1: torch.Tensor,  # (..., n, d)
+    x2: torch.Tensor,  # (..., m, d)
+    lengthscale: torch.Tensor,  # () or (d,)
+    outputscale: torch.Tensor,  # ()
+) -> torch.Tensor:
+    """K[..., i, j] = sf2 * exp(-0.5 * sum_d (x1[i, d] - x2[j, d])^2 / ell_d^2),
+    with the squared differences scaled by 1 / ell^2 as the CUDA kernels do."""
+    diff = x1[..., :, None, :] - x2[..., None, :, :]
+    return outputscale * torch.exp(-0.5 * torch.sum(diff * diff * (1.0 / lengthscale**2), dim=-1))
+
+
 def gp_mean_var_plain(
     z: torch.Tensor,  # (N, D) queries
     Z: torch.Tensor,  # (M, D) inducing / training inputs (padded)
@@ -35,9 +47,7 @@ def gp_mean_var_plain(
     include_noise: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(mean (N,), var (N,)) of the SE-kernel posterior."""
-    inv_ell2 = _inv_ell2(lengthscale, z.shape[1])
-    diff = z[:, None, :] - Z[None, :, :]
-    k = outputscale * torch.exp(-0.5 * torch.sum(diff * diff * inv_ell2, dim=-1)) * mask[None, :]
+    k = se_kernel(z, Z, lengthscale, outputscale) * mask[None, :]
     mean = k @ alpha
     var = torch.clamp_min(outputscale - torch.sum((k @ W) * k, dim=-1), 1e-12)
     if include_noise:

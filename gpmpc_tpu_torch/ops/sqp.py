@@ -1,4 +1,5 @@
-"""SQP types. Port of the type half of `gpmpc_tpu/ops/sqp.py`; the generic
+"""SQP types and KKT residuals. Port of the type half of
+`gpmpc_tpu/ops/sqp.py` and of its `kkt_residuals`, batch-first; the generic
 (non-lanes) SQP solver is not ported yet (ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
@@ -53,3 +54,33 @@ class SqpSolution(NamedTuple):
     eq_res: torch.Tensor
     stat_res: torch.Tensor
     converged: torch.Tensor
+
+
+def kkt_residuals(
+    A: torch.Tensor,  # (B, T, nx, nx) discrete dynamics Jacobians at the iterate
+    Bm: torch.Tensor,  # (B, T, nx, nu)
+    defect: torch.Tensor,  # (B, T, nx) fd(x_k, u_k) - x_{k+1}
+    qx: torch.Tensor,  # (B, T+1, nx) cost gradient in x (terminal stage included)
+    ru: torch.Tensor,  # (B, T, nu) cost gradient in u
+    U: torch.Tensor,  # (B, T, nu) current inputs
+    lu: torch.Tensor,  # (B, T, nu) input bounds
+    uu: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(eq_res (B,), stat_res (B,)) at the current SQP iterate of each scenario.
+
+    eq_res = max |fd(x_k, u_k) - x_{k+1}|, the dynamics feasibility. For
+    stat_res the costates come from the state-stationarity recursion
+    lam_k = qx_k + A_k' lam_{k+1} (active state bounds' multipliers are
+    absorbed into lam), and input stationarity is the projected-gradient norm
+    max |u - P_[lu,uu](u - (ru + B' lam))|, zero iff u satisfies its
+    first-order conditions under the box."""
+    eq = torch.amax(torch.abs(defect), dim=(1, 2))
+    T = A.shape[1]
+    lam = qx[:, T]
+    gu = [None] * T
+    for k in range(T - 1, -1, -1):
+        gu[k] = ru[:, k] + torch.sum(Bm[:, k] * lam[:, :, None], dim=1)
+        lam = qx[:, k] + torch.sum(A[:, k] * lam[:, :, None], dim=1)
+    gu = torch.stack(gu, dim=1)
+    proj = torch.minimum(torch.maximum(U - gu, lu), uu)
+    return eq, torch.amax(torch.abs(U - proj), dim=(1, 2))

@@ -1,17 +1,19 @@
-"""Whole-SQP lanes path: the fused linearize kernel and the lanes IP kernels,
-with X and U kept in lanes layout across SQP iterations.
+"""The two lanes SQP solvers: the fused path (the linearize kernel and the
+lanes IP kernels, X and U kept in lanes layout across SQP iterations) and the
+path that linearizes in plain torch and repacks into lane tiles for the QP
+kernels each iteration.
 
 Port of `gpmpc_tpu/ops/sqp_lanes.py`: `sqp_solve_batch_lanes_fused`,
-`_solve_qp_lanes` with its three tiers (resident, tier-1 and tier-2 streamed
-kernel, hard or L1-soft state bounds), `_kkt_residuals_lanes` (plain torch, as
-it is XLA code in the reference) and the lane-tile packing. The
-jacfwd-linearized `sqp_solve_batch_lanes` is not ported yet (ROADMAP.md
-Queue 1).
+`sqp_solve_batch_lanes` with its three linearizers, `_solve_qp_lanes` with its
+three tiers (resident, tier-1 and tier-2 streamed kernel, hard or L1-soft
+state bounds), `_kkt_residuals_lanes` (plain torch, as it is XLA code in the
+reference) and the lane-tile packing.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from functools import partial
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -22,7 +24,14 @@ from gpmpc_tpu_torch.ops.cuda_ocp import (
     solve_ocp_qp_lanes_streamed,
     solve_ocp_qp_lanes_streamed2,
 )
-from gpmpc_tpu_torch.ops.sqp import BOUND_INF, OcpBounds, OcpCost, SqpConfig, SqpSolution
+from gpmpc_tpu_torch.ops.sqp import (
+    BOUND_INF,
+    OcpBounds,
+    OcpCost,
+    SqpConfig,
+    SqpSolution,
+    kkt_residuals,
+)
 
 LANES = 128  # default scenario tile width
 # Horizon caps of the three QP kernels. They are the reference's numbers, kept
@@ -36,6 +45,17 @@ MAX_STREAM_HORIZON_SOFT = 320
 MAX_STREAM2_HORIZON = 1024  # tier-2 streamed kernel
 MAX_STREAM2_HORIZON_SOFT = 768
 MAX_FUSED_HORIZON = MAX_STREAM_HORIZON  # the fused path's own cap
+
+
+def _lane_width(T: int, lanes: int = LANES) -> int:
+    """The lane-tile width for horizon T: `lanes`, or a ValueError past the
+    last QP kernel's horizon."""
+    if T > MAX_STREAM2_HORIZON:
+        raise ValueError(
+            f"lanes backend supports horizons up to {MAX_STREAM2_HORIZON} (got {T}); "
+            "use the xla backend for longer horizons"
+        )
+    return lanes
 
 
 def lanes_resident_cap(cfg: SqpConfig) -> int:
@@ -104,6 +124,15 @@ def _kkt_residuals_lanes(A, Bm, defect, qx, ru, U, lu, uu):
     return eq, stat
 
 
+def _cost_diagonals(cost: OcpCost) -> tuple[torch.Tensor, torch.Tensor]:
+    """(qdiag (T+1, nx), rdiag (T, nu)): the stage-scaled diagonals of Q, Qe, R."""
+    scale = cost.scale
+    qdiag = torch.cat(
+        [scale[:-1, None] * torch.diagonal(cost.Q)[None], (scale[-1] * torch.diagonal(cost.Qe))[None]]
+    )
+    return qdiag, scale[:-1, None] * torch.diagonal(cost.R)[None]
+
+
 class LanesLinearizer(NamedTuple):
     """Inputs of the linearize kernel: the family's plant coefficients and
     the GP mean data in kernel-ready form."""
@@ -134,14 +163,10 @@ def sqp_solve_batch_lanes_fused(
     T = Tp1 - 1
     nu = U_init.shape[2]
     dev, dtype = X_init.device, X_init.dtype
+    lanes = _lane_width(T, lanes)
     B_pad = B + (-B) % lanes
     n_tiles = B_pad // lanes
-
-    scale = cost.scale
-    qdiag = torch.cat(
-        [scale[:-1, None] * torch.diagonal(cost.Q)[None], (scale[-1] * torch.diagonal(cost.Qe))[None]]
-    )  # (T+1, nx)
-    rdiag = scale[:-1, None] * torch.diagonal(cost.R)[None]  # (T, nu)
+    qdiag, rdiag = _cost_diagonals(cost)
 
     def pack(x):  # zero-padded scenarios, as in the reference
         x = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, B_pad - B))
@@ -214,4 +239,121 @@ def sqp_solve_batch_lanes_fused(
         step_norm=lane_scalar(step_norm), qp_gap=lane_scalar(qp_gap),
         n_iters=lane_scalar(n_iters), eq_res=lane_scalar(eq_res),
         stat_res=lane_scalar(stat_res), converged=lane_scalar(converged),
+    )
+
+
+def jacfwd_linearize(fd, X: torch.Tensor, U: torch.Tensor):
+    """(fnext (..., nx), A (..., nx, nx), B (..., nx, nu)) of fd at every point
+    of X (..., nx), U (..., nu) by forward-mode differentiation: what
+    `vmap(jacfwd(fd, argnums=(0, 1)))` computes, with each of the nx + nu
+    tangents pushed through fd on the whole batch (`vmap` over the basis of
+    `torch.func.jvp`). `fd` must take leading batch axes, as every model
+    function of the port does. `jacfwd` of a per-point fd is not used: there a
+    state component is a 0-dim tensor, and forward-mode products of 0-dim
+    tensors with Python scalars come out in float64."""
+    nx, nu = X.shape[-1], U.shape[-1]
+    basis = torch.eye(nx + nu, dtype=X.dtype, device=X.device)
+
+    def push(t):
+        return torch.func.jvp(fd, (X, U), (t[:nx].expand_as(X), t[nx:].expand_as(U)))[1]
+
+    J = torch.func.vmap(push)(basis).movedim(0, -1)  # (..., nx, nx + nu)
+    return fd(X, U), J[..., :nx], J[..., nx:]
+
+
+def sqp_solve_batch_lanes(
+    fd: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None,
+    cost: OcpCost,  # xref (B, T+1, nx); uref (T, nu), Q/R/Qe/scale shared
+    bounds: OcpBounds,  # leaves (B, ...)
+    x0: torch.Tensor,  # (B, nx)
+    X_init: torch.Tensor,  # (B, T+1, nx)
+    U_init: torch.Tensor,  # (B, T, nu)
+    cfg: SqpConfig,
+    fd_jac3=None,
+    linearize_fn=None,
+    lanes: int = LANES,
+) -> SqpSolution:
+    """Gauss-Newton SQP for B scenarios with the dynamics linearized in plain
+    torch and the QPs solved by the lanes IP kernels; X and U stay
+    batch-first, and the QP data is repacked into lane tiles every iteration.
+
+    fd: (X (..., nx), U (..., nu)) -> next states, differentiated in forward
+    mode (`jacfwd_linearize`) unless one of the others is given. fd_jac3:
+    (X (B, T, nx), U (B, T, nu)) -> (fnext, A, B) on the whole batch
+    (analytic Jacobians, models/jacobians.py). linearize_fn: the same
+    signature, for dynamics that differ per scenario (a GP population);
+    overrides fd and fd_jac3."""
+    B, Tp1, nx = X_init.shape
+    T = Tp1 - 1
+    dev, dtype = X_init.device, X_init.dtype
+    lanes = _lane_width(T, lanes)
+    B_pad = B + (-B) % lanes
+    n_tiles = B_pad // lanes
+    qdiag, rdiag = _cost_diagonals(cost)
+
+    if linearize_fn is not None:
+        linearize = linearize_fn
+    elif fd_jac3 is not None:
+        linearize = fd_jac3
+    else:
+        linearize = partial(jacfwd_linearize, fd)
+
+    def pack(x):  # zero-padded scenarios, as in the reference
+        x = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, B_pad - B))
+        return _to_lane_tiles(x, n_tiles, lanes)
+
+    # LM damping: Hessian diagonals only; gradient and KKT residuals stay undamped
+    qdiag_t = pack((qdiag + cfg.lm_reg)[None].expand(B, T + 1, nx))
+    rdiag_t = pack((rdiag + cfg.lm_reg)[None].expand((B,) + tuple(rdiag.shape)))
+    big = BOUND_INF
+
+    X, U = X_init, U_init
+    converged = torch.zeros(B, dtype=torch.bool, device=dev)
+    inf = lambda: torch.full((B,), torch.inf, dtype=dtype, device=dev)  # noqa: E731
+    step_norm, qp_gap, eq_res, stat_res = inf(), inf(), inf(), inf()
+    n_iters = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    for _ in range(cfg.sqp_iters):
+        if cfg.early_exit and bool(converged.all()):
+            break
+        X = X.clone()
+        X[:, 0] = x0
+        fnext, A, Bm = linearize(X[:, :-1], U)  # (B,T,nx), (B,T,nx,nx), (B,T,nx,nu)
+        defect = fnext - X[:, 1:]
+        qx = qdiag[None] * (X - cost.xref)
+        ru = rdiag[None] * (U - cost.uref)
+        new_eq, new_stat = kkt_residuals(A, Bm, defect, qx, ru, U, bounds.lu, bounds.uu)
+        lx = bounds.lx - X
+        lx[:, 0] = -big
+        ux = bounds.ux - X
+        ux[:, 0] = big
+        tiles = LanesQp(
+            A=pack(A), B=pack(Bm), r=pack(defect), qdiag=qdiag_t, qx=pack(qx), rdiag=rdiag_t,
+            ru=pack(ru), lx=pack(lx), ux=pack(ux), lu=pack(bounds.lu - U), uu=pack(bounds.uu - U),
+        )
+        dx_t, du_t, gap_t = _solve_qp_lanes(tiles, cfg)
+        dx, du = _from_lane_tiles(dx_t, B), _from_lane_tiles(du_t, B)
+        gap = gap_t.reshape(-1)[:B]
+
+        new_step = torch.maximum(
+            torch.amax(torch.abs(dx), dim=(1, 2)), torch.amax(torch.abs(du), dim=(1, 2))
+        )  # (B,)
+        active = ~converged
+        X = torch.where(active[:, None, None], X + dx, X)
+        U = torch.where(active[:, None, None], U + du, U)
+        step_norm = torch.where(active, new_step, step_norm)
+        qp_gap = torch.where(active, gap, qp_gap)
+        eq_res = torch.where(active, new_eq, eq_res)
+        stat_res = torch.where(active, new_stat, stat_res)
+        n_iters = n_iters + active.to(torch.int32)
+        step_ok = new_step < cfg.step_tol
+        if cfg.kkt_tol is not None:
+            step_ok = step_ok & (new_eq < cfg.kkt_tol) & (new_stat < cfg.kkt_tol)
+        converged = converged | step_ok
+
+    X = X.clone()
+    X[:, 0] = x0
+    return SqpSolution(
+        X=X, U=U, step_norm=step_norm, qp_gap=qp_gap, n_iters=n_iters,
+        eq_res=eq_res, stat_res=stat_res, converged=converged,
     )

@@ -21,7 +21,7 @@ for name in names:
     __import__(name)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "triton", "gpmpc_tpu"))
-print("MODULES", len(names))
+print("MODULES", len(names), " ".join(names))
 print("LEAKED", leaked)
 """
 
@@ -33,7 +33,9 @@ def test_port_imports_no_jax_and_no_triton():
     )
     assert r.returncode == 0, r.stderr
     n_modules = int(r.stdout.split("MODULES")[1].split()[0])
-    assert n_modules >= 24, r.stdout  # every module of the port was imported, device.py too
+    assert n_modules >= 27, r.stdout  # every module of the port was imported, device.py too
+    for name in ("roofline", "ops.cuda_chain", "models.jacobians"):
+        assert f"gpmpc_tpu_torch.{name}" in r.stdout, name
     assert "LEAKED []" in r.stdout, r.stdout
 
 
@@ -52,11 +54,45 @@ def test_chip_smoke_imports_no_jax():
 def test_port_sources_name_no_jax_and_no_reference_import():
     """Every Python file of the port and chip_smoke.py, read as text: no
     import of jax or of the JAX package, also inside functions."""
-    files = sorted((REPO / "gpmpc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "gpmpc_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "scripts" / "bench_roofline_torch.py"]
     assert REPO / "gpmpc_tpu_torch" / "device.py" in files
+    assert REPO / "gpmpc_tpu_torch" / "roofline.py" in files
     pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|gpmpc_tpu)(\.|\s|$)", re.M)
     leaks = [str(f.relative_to(REPO)) for f in files if pat.search(f.read_text())]
     assert leaks == []
+
+
+def test_roofline_script_imports_no_jax():
+    """scripts/bench_roofline_torch.py is the port's: importing it pulls in no
+    JAX, no Triton and nothing of the JAX package."""
+    probe = (
+        "import runpy, sys; runpy.run_path('scripts/bench_roofline_torch.py', run_name='probe'); "
+        "print(sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'gpmpc_tpu')))"
+    )
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                       timeout=300, cwd=REPO)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("[]"), r.stdout
+
+
+def test_chain_kernels_have_their_source_and_entry_points():
+    """The three chain kernels are hand-written CUDA in csrc/lanes_chain.cu
+    (one `__global__` template, one instantiation behind each entry point),
+    bound by the build, and call no library."""
+    from gpmpc_tpu_torch import _build
+
+    text = (REPO / "gpmpc_tpu_torch" / "csrc" / "lanes_chain.cu").read_text()
+    for name, inst in (("lanes_chain", "launch_chain<F32, 12,"),
+                       ("lanes_chain_bf16", "launch_chain<Bf16x2, 12,"),
+                       ("lanes_chain_16", "launch_chain<F32, 16,")):
+        entry = text.split(f'extern "C" int {name}_launch(')[1].split('extern "C"')[0]
+        assert inst in entry
+        assert name + "_launch" in _build.SIGNATURES
+    assert text.count("__global__ void") == 1
+    for library in ("cublas", "cutlass", "cudnn"):
+        assert library not in text.lower()
 
 
 def test_every_ip_kernel_variant_has_its_source():

@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from gpmpc_tpu_torch import _build, convert
+from gpmpc_tpu_torch import _build, convert, roofline
 from gpmpc_tpu_torch.control.gpmpc import softplus
-from gpmpc_tpu_torch.ops import cuda_gp, cuda_linearize, cuda_ocp, cuda_tighten
+from gpmpc_tpu_torch.ops import cuda_chain, cuda_gp, cuda_linearize, cuda_ocp, cuda_tighten
 
 pytestmark = pytest.mark.gpu
 
@@ -247,3 +247,64 @@ def test_kernels_refuse_widths_they_are_not_built_for(dev):
             _t(np.zeros((3, 6)), dev), _t(np.eye(6)[:, :2], dev), _t(1.7, dev))
     with pytest.raises(ValueError, match="instantiated for"):
         cuda_tighten.tighten_lanes(*args)
+
+
+CHAINS = {
+    "lanes_chain": (cuda_chain.lanes_chain, cuda_chain.lanes_chain_plain, 128, False, torch.float32),
+    "lanes_chain_bf16": (cuda_chain.lanes_chain_bf16, cuda_chain.lanes_chain_bf16_plain, 256, False,
+                         torch.bfloat16),
+    "lanes_chain_16": (cuda_chain.lanes_chain_16, cuda_chain.lanes_chain_16_plain, 128, True,
+                       torch.float32),
+}
+
+
+def _chain_input(dev, lanes, pad, dtype, tiles=2, stages=3):
+    mats = roofline.reference_mats(tiles * lanes, stages)
+    if pad:
+        mats = roofline.pad16_mats(mats, stages)
+    return roofline.to_lanes(torch.as_tensor(mats, device=dev), lanes).to(dtype)
+
+
+@pytest.mark.parametrize("n_chain", [0, 1, 4])
+@pytest.mark.parametrize("name", list(CHAINS))
+def test_chain_kernels_match_plain(dev, name, n_chain):
+    """The reference's data after a few rounds, where the chain is finite and
+    of order one: float32 within 1e-5 of max(1, |plain|) (the kernel sums with
+    FMAs, the plain version in another order); bf16 within 2 bf16 ulps (both
+    round every product and partial sum in the same order)."""
+    fn, plain, lanes, pad, dtype = CHAINS[name]
+    x = _chain_input(dev, lanes, pad, dtype)
+    before = fn.launches
+    out_k = fn(x, n_chain)
+    out_p = plain(x, n_chain)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and out_k.dtype == dtype and out_k.shape == x.shape
+    tol = 2 * 2.0**-8 if dtype == torch.bfloat16 else 1e-5
+    rel = (out_k.float() - out_p.float()).abs() / out_p.float().abs().clamp_min(1.0)
+    assert bool(torch.isfinite(out_k.float()).all()) and float(rel.max()) <= tol
+    if n_chain == 0:
+        assert torch.equal(out_k, x)
+
+
+@pytest.mark.parametrize("name", list(CHAINS))
+def test_chain_kernels_agree_with_plain_in_where_200_rounds_are_non_finite(dev, name):
+    fn, plain, lanes, pad, dtype = CHAINS[name]
+    x = _chain_input(dev, lanes, pad, dtype, tiles=1)
+    out_k, out_p = fn(x, roofline.N_CHAIN), plain(x, roofline.N_CHAIN)
+    finite = torch.isfinite(out_p.float())
+    assert torch.equal(torch.isfinite(out_k.float()), finite)
+    assert 0.0 < float(finite.float().mean()) < 1.0
+
+
+def test_chain_kernels_slice_wide_tiles_and_refuse_odd_bf16_tiles(dev):
+    """A block takes at most 128 lane slots whose two buffers fit in shared
+    memory, so wider tiles run as slices; packed bf16 needs an even width."""
+    x = _chain_input(dev, 256, False, torch.float32, tiles=1, stages=2)
+    out_k, out_p = cuda_chain.lanes_chain(x, 4), cuda_chain.lanes_chain_plain(x, 4)
+    assert float((out_k - out_p).abs().max()) <= 1e-5 * float(out_p.abs().max())
+    wide = _chain_input(dev, 192, True, torch.float32, tiles=1, stages=2)
+    out_k, out_p = cuda_chain.lanes_chain_16(wide, 4), cuda_chain.lanes_chain_16_plain(wide, 4)
+    assert float((out_k - out_p).abs().max()) <= 1e-5 * float(out_p.abs().max())
+    odd = torch.zeros(1, 1, 12, 12, 7, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel instantiation"):
+        cuda_chain.lanes_chain_bf16(odd, 1)

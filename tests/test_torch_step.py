@@ -131,6 +131,9 @@ def test_fused_step_matches_jax_at_slice_horizon_after_transient(family):
 
 
 def test_other_dispatch_paths_raise_instead_of_falling_back():
+    """Only the `xla` decision raises, requested or decided by a horizon past
+    the last QP kernel's cap; every `lanes` decision runs
+    (tests/test_torch_dispatch.py, tests/test_torch_step_lanes.py)."""
     prior = reference_prior_dict()
     model_t = t_sym(dt=0.02, params=prior)
     traj = np.asarray(j_drone.make_trajectory(j_drone.EnvParams.default()))
@@ -139,20 +142,20 @@ def test_other_dispatch_paths_raise_instead_of_falling_back():
     gp_t = convert.load_bench_gp("cpu")
     st = t_mpc.init_state(2, 6, device="cpu")
     obs = torch.as_tensor(traj[:2])
-    for cfg, kw in (
-        (tc.cfg, {}),  # kernel_linearize off -> the jacfwd 'lanes' path
-        (tc.cfg._replace(kernel_linearize=True), {"backend": "xla"}),
-    ):
-        with pytest.raises(t_gpmpc.UnsupportedPathError, match="not ported"):
-            batched_gpmpc_step(model_t, cfg, tc.consts, gp_t, st, obs, **kw)
-    # a horizon past the fused path's cap: the reference's jacfwd 'lanes' path
-    long = t_gpmpc.GPMPC(model_t, traj, prior, horizon=401, q_mpc=Q_MPC, r_mpc=R_MPC, device="cpu")
-    with pytest.raises(t_gpmpc.UnsupportedPathError, match="exceeds the fused-path cap"):
+    with pytest.raises(t_gpmpc.UnsupportedPathError, match="not ported"):
+        batched_gpmpc_step(model_t, tc.cfg._replace(kernel_linearize=True), tc.consts, gp_t, st, obs,
+                           backend="xla")
+    long = t_gpmpc.GPMPC(model_t, traj, prior, horizon=1025, q_mpc=Q_MPC, r_mpc=R_MPC, device="cpu")
+    with pytest.raises(t_gpmpc.UnsupportedPathError, match="exceeds the lanes cap"):
         batched_gpmpc_step(model_t, tc.cfg._replace(kernel_linearize=True), long.consts, gp_t,
-                           t_mpc.init_state(2, 401, device="cpu"), obs)
-    # a family with no kernel linearizer closure: the reference's jacfwd
-    # 'lanes' path, not ported
+                           t_mpc.init_state(2, 1025, device="cpu"), obs)
+    # kernel_linearize off -> the 'lanes' path, which runs; so does a family
+    # with no kernel linearizer closure (with its one-time warning)
+    u, _, _ = batched_gpmpc_step(model_t, tc.cfg, tc.consts, gp_t, st, obs, lanes=2)
+    assert bool(torch.isfinite(u).all())
     spec = dataclasses.replace(model_t.residual_spec, name="unicycle", supports_kernel_linearize=False)
-    with pytest.raises(t_gpmpc.UnsupportedPathError, match="no kernel linearizer"):
-        batched_gpmpc_step(dataclasses.replace(model_t, residual_spec=spec),
-                           tc.cfg._replace(kernel_linearize=True), tc.consts, gp_t, st, obs)
+    with pytest.warns(UserWarning, match="no in-kernel linearizer"):
+        u2, _, _ = batched_gpmpc_step(dataclasses.replace(model_t, residual_spec=spec),
+                                      tc.cfg._replace(kernel_linearize=True), tc.consts, gp_t, st, obs,
+                                      lanes=2)
+    np.testing.assert_allclose(u2.numpy(), u.numpy(), atol=1e-5)

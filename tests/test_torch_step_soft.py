@@ -162,10 +162,21 @@ def test_bounds_from_tightening_soft_matches_jax_exactly():
         assert crossed == soft
 
 
-def test_soft_past_the_lanes_cap_warns_and_falls_back_to_hard_bounds():
-    """T=769 with soft bounds: the reference warns and clears soft_x_penalty;
-    the port does the same, and then refuses the horizon, which is past its
-    fused path."""
+def test_soft_past_the_lanes_cap_warns_and_falls_back_to_hard_bounds(monkeypatch):
+    """T=769 with soft bounds: the reference warns, clears soft_x_penalty and
+    solves on the `lanes` path (the horizon is past the fused path's cap) with
+    hard bounds and the feasibility clamp; the port does the same. The solver
+    is stopped at its door: a T=769 solve on the CPU takes minutes."""
+
+    class Reached(Exception):
+        pass
+
+    def stop(fd, cost, bounds, x0, X_init, U_init, cfg, **kw):
+        assert cfg.soft_x_penalty is None and U_init.shape[1] == T
+        assert bool((bounds.lx <= bounds.ux).all())  # hard bounds: the boxes never cross
+        raise Reached
+
+    monkeypatch.setattr(t_gpmpc, "sqp_solve_batch_lanes", stop)
     prior = reference_prior_dict()
     model_t = t_sym(dt=0.02, params=prior)
     T = t_sqp_lanes.MAX_STREAM2_HORIZON_SOFT + 1
@@ -174,7 +185,7 @@ def test_soft_past_the_lanes_cap_warns_and_falls_back_to_hard_bounds():
     assert tc.cfg.soft_x_penalty == 50.0
     st = t_mpc.init_state(1, T, device="cpu")
     with pytest.warns(UserWarning, match="exceeds the lanes soft horizon cap .768."):
-        with pytest.raises(t_gpmpc.UnsupportedPathError):
+        with pytest.raises(Reached):
             t_gpmpc.batched_select_action_lanes(
                 model_t, tc.cfg._replace(kernel_linearize=True), tc.consts,
                 convert.load_bench_gp("cpu"), st, torch.zeros(1, 12))

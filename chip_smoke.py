@@ -26,8 +26,10 @@ generator). Phases, each printing its own lines:
 
   0. the card's name and power limit (nvidia-smi), then the kernel build:
      one nvcc per source in parallel, each source's time and ptxas's
-     register and spill report for every instantiation; the workspace the QP
-     wrappers allocate at each horizon cap;
+     register and spill report for every instantiation; the resident QP
+     kernel's launch geometry at each width (team, scenarios per block,
+     cluster, shared memory, blocks at B=1024 and B=256); the workspace the
+     QP wrappers allocate at each horizon cap;
   1. per path, each kernel of the path against its plain PyTorch version on
      the card, on inputs captured from the path's first warm-started step and
      on seeded random inputs at the path's shapes (soft QPs with boxes tight
@@ -40,10 +42,12 @@ generator). Phases, each printing its own lines:
      each chain kernel's time beside its bound, its plain version and one
      `torch.matmul` a round on the same data. Then the QP instantiations no
      path of this script reaches, on random inputs: the narrow widths (4, 1)
-     and (4, 2) of every new kernel, the four horizon caps at 12x4 (tier 1 at
-     T=400 and at T=320 soft, tier 2 at T=1024 and at T=768 soft), kernels
-     1-3 at T=400, and the resident kernel called directly on the T=100 QP
-     beside the streamed one;
+     and (4, 2) of every new kernel, the six horizon caps at 12x4 (the
+     resident kernel at T=50 hard and soft, tier 1 at T=400 and at T=320
+     soft, tier 2 at T=1024 and at T=768 soft), kernels 1-3 at T=400, the
+     resident kernel on the quadrotor path's captured QP cut to two tiles
+     (B=256) beside the whole one, and the resident kernel called directly on
+     the T=100 QP beside the streamed one;
   2. per path, the closed loop: warm-up and timed steps with every kernel's
      launch count (counts set to 0 just before the path's run and read just
      after: the path's QP wrapper must have launched, the other two not; a
@@ -662,8 +666,9 @@ def check_kernels(prob: Problem, results: dict, captured: dict) -> None:
 
 def check_kernel_level_only(dev, captured: dict, extra: list) -> None:
     """Phase 1 for the QP instantiations no path of this script reaches, on
-    random inputs; the horizon caps; the resident kernel beside the streamed
-    one at T=100."""
+    random inputs; the horizon caps; the resident kernel at B=256 on the
+    quadrotor path's QP; the resident kernel beside the streamed one at
+    T=100."""
     # every new kernel at the narrow widths; the 12x4 variants without a path
     cases = [("ocp_ip", True, 4, 1, 8, 25), ("ocp_ip", True, 4, 2, 8, 25)]
     for name in ("ocp_ip_streamed", "ocp_ip_streamed2"):
@@ -681,8 +686,18 @@ def check_kernel_level_only(dev, captured: dict, extra: list) -> None:
         err, ms_k, ms_p, out_k = compare(entry, f"random T={T}", kind, fn, plain, a, k)
         extra.append(result_entry(entry, qp_source(name, soft), replaces, err, ms_k, ms_p,
                                   bound_ocp(a[0], k, out_k, fn.last_iterations)))
+    # the resident kernel on two tiles (B=256) of the quadrotor path's first
+    # warm-started QP, beside its time on all eight (the path's own entry)
+    fn, plain, replaces = QP_WRAPPERS["ocp_ip"]
+    a, k = captured["quadrotor"]["qp"]
+    a = (cuda_ocp.LanesQp(*(f[:2].contiguous() for f in a[0])),) + tuple(a[1:])
+    err, ms_k, ms_p, out_k = compare("ocp_ip[B=256]", "real step", "ocp", fn, plain, a, k)
+    extra.append(result_entry("ocp_ip[B=256]", qp_source("ocp_ip", False), replaces, err, ms_k, ms_p,
+                              bound_ocp(a[0], k, out_k, fn.last_iterations)))
     # the horizon caps at 12x4, one tile each, one comparison call each
-    for name, soft, T in (("ocp_ip_streamed", False, sqp_lanes.MAX_STREAM_HORIZON),
+    for name, soft, T in (("ocp_ip", False, sqp_lanes.MAX_LANES_HORIZON),
+                          ("ocp_ip", True, sqp_lanes.MAX_LANES_HORIZON),
+                          ("ocp_ip_streamed", False, sqp_lanes.MAX_STREAM_HORIZON),
                           ("ocp_ip_streamed", True, sqp_lanes.MAX_STREAM_HORIZON_SOFT),
                           ("ocp_ip_streamed2", False, sqp_lanes.MAX_STREAM2_HORIZON),
                           ("ocp_ip_streamed2", True, sqp_lanes.MAX_STREAM2_HORIZON_SOFT)):
@@ -888,19 +903,23 @@ def check_chains(dev, results: dict) -> dict:
 
 def chain_share(prob: Problem, gflops: dict) -> None:
     """What share of the measured lane-chain rate the resident QP kernel's
-    products reach, block for block: both kernels run one 128-thread block a
-    tile with one thread a scenario; the chain keeps every SM busy, the QP
-    kernel at B=1024 only 8 of them, so the rates are compared per resident
-    block (the chain's 250 blocks run in two waves of at most 132)."""
+    products reach, per SM at work: the chain runs one 128-thread block a
+    (tile, stage) pair and keeps every SM busy (its 250 blocks run in two
+    waves of at most 132); the QP kernel runs a cluster of blocks a tile
+    (`cuda_ocp.resident_geometry`), at B=1024 fewer blocks than SMs, so the
+    rates are compared per SM that holds a block."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     chain_blocks = (roofline.B // 128) * roofline.T
     chain_resident = chain_blocks / -(-chain_blocks // sms)
     chain_rate = gflops["cuda_lanes"] / chain_resident
-    qp_rate = prob.rates["qp"] / 1e9 / (prob.path.B // LANES)
-    say(f"[phase 1] per resident block: the lane chain reaches {chain_rate:.2f} GFLOP/s "
-        f"({gflops['cuda_lanes']:.1f} over {chain_resident:.0f} blocks at a time), the resident QP "
-        f"kernel on {prob.path_name} {qp_rate:.3f} GFLOP/s ({prob.rates['qp'] / 1e9:.2f} over "
-        f"{prob.path.B // LANES} blocks): {100 * qp_rate / chain_rate:.2f} % of the chain's rate")
+    g = cuda_ocp.resident_geometry(prob.model.nx, prob.model.nu, LANES)
+    qp_blocks = min(sms, (prob.path.B // LANES) * g.cluster)
+    qp_rate = prob.rates["qp"] / 1e9 / qp_blocks
+    say(f"[phase 1] per SM at work: the lane chain reaches {chain_rate:.2f} GFLOP/s "
+        f"({gflops['cuda_lanes']:.1f} over {chain_resident:.0f} SMs), the resident QP kernel on "
+        f"{prob.path_name} {qp_rate:.3f} GFLOP/s ({prob.rates['qp'] / 1e9:.2f} over {qp_blocks} SMs, "
+        f"one block of {g.threads} threads each): {100 * qp_rate / chain_rate:.2f} % of the chain's "
+        "rate")
 
 
 def profile_step(prob: Problem) -> None:
@@ -957,6 +976,17 @@ def main() -> int:
     for line in _build.BuildInfo.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(f"[phase 0] ptxas: {line.strip()}")
+    lib = _build.load_library()
+    for nx, nu in ((12, 4), (4, 1), (4, 2)):
+        g = cuda_ocp.resident_geometry(nx, nu, LANES)
+        lib_bytes = lib.ocp_ip_shared_bytes(nx, nu, g.scenarios_per_block)
+        say(f"[phase 0] resident QP kernel at {nx}x{nu}: a team of {g.team} threads a scenario, "
+            f"{g.scenarios_per_block} scenarios ({g.threads} threads) a block, a cluster of "
+            f"{g.cluster} blocks a tile of {LANES}, {g.shared_bytes} bytes of shared memory a block "
+            f"(the library's count: {lib_bytes}); {8 * g.cluster} blocks at B=1024, "
+            f"{2 * g.cluster} at B=256")
+        if lib_bytes != g.shared_bytes:
+            raise RuntimeError("resident_geometry's shared memory disagrees with the library's")
     for kernel, soft, T in (("ocp_ip", False, 50), ("ocp_ip", True, 50),
                             ("ocp_ip_streamed", False, 400), ("ocp_ip_streamed", True, 320),
                             ("ocp_ip_streamed2", False, 1024), ("ocp_ip_streamed2", True, 768)):

@@ -1,8 +1,9 @@
-// Shared device code of the OCP-QP interior-point kernels: the resident kernel
-// (ocp_ip.cu, ocp_ip_soft.cu) and the two streamed ones (ocp_ip_streamed*.cu,
-// ocp_ip_streamed2*.cu). One scenario per thread, one block per L-scenario
-// tile; templated on Cfg<NX, NU, SOFT, TIER> and instantiated by each source
-// for (12, 4), (4, 1) and (4, 2).
+// Device code of the two streamed OCP-QP interior-point kernels
+// (ocp_ip_streamed*.cu, ocp_ip_streamed2*.cu), and the element algebra of the
+// interior point that the resident kernel (ocp_ip_resident.cuh) shares. One
+// scenario per thread, one block per L-scenario tile; templated on
+// Cfg<NX, NU, SOFT, TIER> and instantiated by each source for (12, 4), (4, 1)
+// and (4, 2).
 //
 // Each interior-point iteration: barrier weights, dynamics residual, a
 // backward Riccati sweep (diagonal Q/R plus barrier, an NU x NU Cholesky per
@@ -18,13 +19,11 @@
 //    the complementarity gradients are formed over the same den; step lengths
 //    and gaps take the extra pairs (e, nu); the centering floors move to 1e-8,
 //    below which float32 barrier weights break the Riccati recursion.
-//  * TIER (RESIDENT / STREAMED / STREAMED2): the resident kernel factorizes
-//    once per Mehrotra iteration (the affine sweep stores P r, the Guu
-//    Cholesky factor and Gxu; the corrector is a vector-only sweep). The
-//    streamed kernels keep no such stores, 76 T floats per scenario less at
-//    12x4: their corrector repeats the full matrix sweep, and the dynamics
+//  * TIER (STREAMED / STREAMED2): the streamed kernels keep no factorization
+//    stores (P r, the Guu factors and Gxu: 76 T floats per scenario at 12x4):
+//    the Mehrotra corrector repeats the full matrix sweep, and the dynamics
 //    residual is formed inside the first backward sweep of an iteration.
-//    They also hint the next stage's read-only data into L2 ahead of use
+//    They hint the next stage's read-only data into L2 ahead of use
 //    (`prefetch.global.L2`): A and B in STREAMED, every per-stage read-only
 //    array in STREAMED2, whose horizons put the QP data of a batch past the
 //    L2's size. The hint takes no shared memory: at 12x4 and L = 128 the
@@ -41,11 +40,13 @@
 //    e * L + l, bank-conflict-free): (2 NX^2 + NX NU) * L floats. At NX = 12
 //    they would need ~340 registers per thread, past the 255 limit;
 //  * everything that must survive a sweep (slacks, duals, K, kff, the dynamics
-//    residual, directions and the resident Mehrotra stores) is a per-scenario
-//    workspace in device memory, scenario axis last, allocated by the wrapper;
+//    residual, directions) is a per-scenario workspace in device memory,
+//    scenario axis last, allocated by the wrapper;
 //  * the Newton right-hand sides (q-hat, r-hat), the barrier diagonals and the
 //    slack/dual directions are recomputed element by element from the stored
-//    state instead of being stored.
+//    state instead of being stored. x_terms, u_terms, qhat and rhat take any
+//    problem view with this header's member names (Ip here, TeamIp in the
+//    resident kernel).
 #pragma once
 
 #include <math_constants.h>
@@ -56,7 +57,7 @@ namespace gpmpc {
 namespace ocp {
 
 enum Mode { AFFINE = 0, CORRECTOR = 1, PLAIN = 2 };
-enum Tier { RESIDENT = 0, STREAMED = 1, STREAMED2 = 2 };
+enum Tier { STREAMED = 1, STREAMED2 = 2 };
 
 template <int NX_, int NU_, bool SOFT_, int TIER_>
 struct Cfg {
@@ -68,7 +69,6 @@ struct Cfg {
 struct WsLayout {
   long slx, sux, llx, lux, slu, suu, llu, luu;
   long K, kff, rdyn, ddx_a, ddu_a, ddx, ddu;
-  long Pr, lchol, Gxu;          // resident only
   long elx, eux, nulx, nuux;    // soft only
   long total;
 };
@@ -94,11 +94,6 @@ __host__ __device__ WsLayout ws_layout(int T) {
   w.ddu_a = o; o += nus;
   w.ddx = o; o += nxs;
   w.ddu = o; o += nus;
-  if (C::TIER == RESIDENT) {
-    w.Pr = o; o += (long)T * NX;
-    w.lchol = o; o += (long)T * NU * NU;
-    w.Gxu = o; o += (long)T * NX * NU;
-  }
   if (C::SOFT) {
     w.elx = o; o += nxs;
     w.eux = o; o += nxs;
@@ -112,11 +107,12 @@ __host__ __device__ WsLayout ws_layout(int T) {
 template <class C>
 struct Ip {
   static constexpr int NX = C::NX, NU = C::NU;
+  static constexpr bool SOFT = C::SOFT;
   int T, L;
   bool mehrotra;
   ConstLaneView A, B, r, qdiag, qx, rdiag, ru, lx, ux, lu, uu;
   LaneView dx, du, slx, sux, llx, lux, slu, suu, llu, luu;
-  LaneView K, kff, rdyn, ddx_a, ddu_a, ddx, ddu, Pr, lchol, Gxu;
+  LaneView K, kff, rdyn, ddx_a, ddu_a, ddx, ddu;
   LaneView elx, eux, nulx, nuux;
   float* P_s;  // NX*NX*L shared, this lane at +lane
   float* W_s;  // NX*(NX+NU)*L shared
@@ -210,8 +206,8 @@ __device__ __forceinline__ void pair_rhs(Terms& t, int mode, float cent, float d
   soft_gradients<SOFT>(t);
 }
 
-template <class C>
-__device__ __forceinline__ Terms x_terms(const Ip<C>& ip, int idx, int mode, float cent) {
+template <class IP>
+__device__ __forceinline__ Terms x_terms(const IP& ip, int idx, int mode, float cent) {
   Terms t;
   const float d = ip.dx[idx];
   t.sl = ip.slx[idx];
@@ -220,7 +216,7 @@ __device__ __forceinline__ Terms x_terms(const Ip<C>& ip, int idx, int mode, flo
   t.lu = ip.lux[idx];
   t.r_sl = d - ip.lx[idx] - t.sl;
   t.r_su = ip.ux[idx] - d - t.su;
-  if constexpr (C::SOFT) {
+  if constexpr (IP::SOFT) {
     t.el = ip.elx[idx];
     t.eu = ip.eux[idx];
     t.nl = ip.nulx[idx];
@@ -228,13 +224,13 @@ __device__ __forceinline__ Terms x_terms(const Ip<C>& ip, int idx, int mode, flo
     t.r_sl += t.el;  // s = dx + e - lx
     t.r_su += t.eu;
   }
-  pair_rhs<C::SOFT>(t, mode, cent, mode == CORRECTOR ? ip.ddx_a[idx] : 0.0f);
+  pair_rhs<IP::SOFT>(t, mode, cent, mode == CORRECTOR ? ip.ddx_a[idx] : 0.0f);
   return t;
 }
 
 // Input bounds are actuator limits: always hard.
-template <class C>
-__device__ __forceinline__ Terms u_terms(const Ip<C>& ip, int idx, int mode, float cent) {
+template <class IP>
+__device__ __forceinline__ Terms u_terms(const IP& ip, int idx, int mode, float cent) {
   Terms t;
   const float d = ip.du[idx];
   t.sl = ip.slu[idx];
@@ -262,15 +258,15 @@ __device__ __forceinline__ float pair_sig(const Terms& t) {
 }
 
 // q-hat of state element idx, and its barrier diagonal in `sig`.
-template <class C>
-__device__ __forceinline__ float qhat(const Ip<C>& ip, int idx, int mode, float cent, float& sig) {
+template <class IP>
+__device__ __forceinline__ float qhat(const IP& ip, int idx, int mode, float cent, float& sig) {
   const Terms t = x_terms(ip, idx, mode, cent);
-  sig = pair_sig<C::SOFT>(t);
-  return ip.qdiag[idx] * ip.dx[idx] + ip.qx[idx] - t.ll + t.lu + pair_corr<C::SOFT>(t);
+  sig = pair_sig<IP::SOFT>(t);
+  return ip.qdiag[idx] * ip.dx[idx] + ip.qx[idx] - t.ll + t.lu + pair_corr<IP::SOFT>(t);
 }
 
-template <class C>
-__device__ __forceinline__ float rhat(const Ip<C>& ip, int idx, int mode, float cent, float& sig) {
+template <class IP>
+__device__ __forceinline__ float rhat(const IP& ip, int idx, int mode, float cent, float& sig) {
   const Terms t = u_terms(ip, idx, mode, cent);
   sig = pair_sig<false>(t);
   return ip.rdiag[idx] * ip.du[idx] + ip.ru[idx] - t.ll + t.lu + pair_corr<false>(t);
@@ -324,10 +320,8 @@ __device__ __forceinline__ void prefetch_rows(const ConstLaneView& v, long first
 template <class C>
 __device__ __forceinline__ void prefetch_stage(const Ip<C>& ip, int k, bool backward) {
   constexpr int NX = C::NX, NU = C::NU;
-  if constexpr (C::TIER != RESIDENT) {
-    prefetch_rows(ip.A, (long)k * NX * NX, NX * NX);
-    prefetch_rows(ip.B, (long)k * NX * NU, NX * NU);
-  }
+  prefetch_rows(ip.A, (long)k * NX * NX, NX * NX);
+  prefetch_rows(ip.B, (long)k * NX * NU, NX * NU);
   if constexpr (C::TIER == STREAMED2) {
     if (backward) {
       prefetch_rows(ip.r, (long)k * NX, NX);
@@ -344,13 +338,11 @@ __device__ __forceinline__ void prefetch_stage(const Ip<C>& ip, int k, bool back
 }
 
 // Backward Riccati sweep + forward rollout of the Newton system; writes the
-// state and input directions to (ddx_o, ddu_o). matrix=false (resident kernel
-// only) is the Mehrotra corrector over the affine sweep's stores: it reuses
-// K, P r, the Cholesky factors and Gxu and updates only the vector recursion.
-// compute_rdyn (streamed kernels, first sweep of an iteration) forms the
-// dynamics residual r_dyn_k = A dx_k + B du_k + r - dx_{k+1} inside the sweep.
+// state and input directions to (ddx_o, ddu_o). compute_rdyn (first sweep of
+// an iteration) forms the dynamics residual r_dyn_k = A dx_k + B du_k + r -
+// dx_{k+1} inside the sweep.
 template <class C>
-__device__ void newton(const Ip<C>& ip, int mode, float cent, bool matrix, bool compute_rdyn,
+__device__ void newton(const Ip<C>& ip, int mode, float cent, bool compute_rdyn,
                        const LaneView& ddx_o, const LaneView& ddu_o) {
   constexpr int NX = C::NX, NU = C::NU;
   const int T = ip.T;
@@ -358,121 +350,90 @@ __device__ void newton(const Ip<C>& ip, int mode, float cent, bool matrix, bool 
   for (int i = 0; i < NX; ++i) {
     float sig;
     p[i] = qhat(ip, T * NX + i, mode, cent, sig);
-    if (matrix)
-      for (int j = 0; j < NX; ++j) ip.P(i, j) = i == j ? ip.qdiag[T * NX + i] + sig : 0.0f;
+    for (int j = 0; j < NX; ++j) ip.P(i, j) = i == j ? ip.qdiag[T * NX + i] + sig : 0.0f;
   }
   for (int k = T - 1; k >= 0; --k) {
     float Frp[NX], gx[NX], gu[NU], kf[NU];
     float Gxu[NX][NU];
-    if (C::TIER != RESIDENT || matrix) {
-      if (k > 0) prefetch_stage(ip, k - 1, true);
-      if (compute_rdyn) {
-        for (int i = 0; i < NX; ++i) {
-          float s = 0.0f;
-          for (int j = 0; j < NX; ++j) s += ip.A[(k * NX + i) * NX + j] * ip.dx[k * NX + j];
-          float t = 0.0f;
-          for (int u = 0; u < NU; ++u) t += ip.B[(k * NX + i) * NU + u] * ip.du[k * NU + u];
-          ip.rdyn[k * NX + i] = s + t + ip.r[k * NX + i] - ip.dx[(k + 1) * NX + i];
-        }
-      }
+    if (k > 0) prefetch_stage(ip, k - 1, true);
+    if (compute_rdyn) {
       for (int i = 0; i < NX; ++i) {
         float s = 0.0f;
-        for (int j = 0; j < NX; ++j) s += ip.P(i, j) * ip.rdyn[k * NX + j];
-        if (C::TIER == RESIDENT && ip.mehrotra) ip.Pr[k * NX + i] = s;
-        Frp[i] = s + p[i];
+        for (int j = 0; j < NX; ++j) s += ip.A[(k * NX + i) * NX + j] * ip.dx[k * NX + j];
+        float t = 0.0f;
+        for (int u = 0; u < NU; ++u) t += ip.B[(k * NX + i) * NU + u] * ip.du[k * NU + u];
+        ip.rdyn[k * NX + i] = s + t + ip.r[k * NX + i] - ip.dx[(k + 1) * NX + i];
       }
-      // W = P [A_k | B_k]
-      for (int c = 0; c < NX + NU; ++c) {
-        float col[NX];
-        for (int j = 0; j < NX; ++j) col[j] = ip.AB(k, j, c);
-        for (int i = 0; i < NX; ++i) {
-          float s = 0.0f;
-          for (int j = 0; j < NX; ++j) s += ip.P(i, j) * col[j];
-          ip.W(i, c) = s;
-        }
-      }
-      // [A|B]^T W: Gxx overwrites P (P is no longer needed), Gxu and Guu in registers.
-      float Guu[NU][NU];
-      for (int a = 0; a < NX + NU; ++a) {
-        float col[NX];
-        for (int j = 0; j < NX; ++j) col[j] = ip.AB(k, j, a);
-        float g = 0.0f;
-        for (int j = 0; j < NX; ++j) g += col[j] * Frp[j];
-        float sig;
-        if (a < NX) {
-          for (int c = 0; c < NX + NU; ++c) {
-            float s = 0.0f;
-            for (int j = 0; j < NX; ++j) s += col[j] * ip.W(j, c);
-            if (c < NX)
-              ip.P(a, c) = s;
-            else
-              Gxu[a][c - NX] = s;
-          }
-          gx[a] = qhat(ip, k * NX + a, mode, cent, sig) + g;
-          ip.P(a, a) += ip.qdiag[k * NX + a] + sig;
-        } else {
-          for (int c = NX; c < NX + NU; ++c) {
-            float s = 0.0f;
-            for (int j = 0; j < NX; ++j) s += col[j] * ip.W(j, c);
-            Guu[a - NX][c - NX] = s;
-          }
-          gu[a - NX] = rhat(ip, k * NU + (a - NX), mode, cent, sig) + g;
-          Guu[a - NX][a - NX] += ip.rdiag[k * NU + (a - NX)] + sig;
-        }
-      }
-      float l[NU][NU];
-      chol<NU>(Guu, l);
-      if (C::TIER == RESIDENT && ip.mehrotra) {
-        for (int i = 0; i < NU; ++i)
-          for (int j = 0; j < NU; ++j) ip.lchol[(k * NU + i) * NU + j] = j <= i ? l[i][j] : 0.0f;
-        for (int i = 0; i < NX; ++i)
-          for (int u = 0; u < NU; ++u) ip.Gxu[(k * NX + i) * NU + u] = Gxu[i][u];
-      }
-      // K = -Guu^-1 Gxu^T, column by column
-      for (int j = 0; j < NX; ++j) {
-        float b[NU];
-        for (int u = 0; u < NU; ++u) b[u] = Gxu[j][u];
-        chol_solve<NU>(l, b);
-        for (int u = 0; u < NU; ++u) ip.K[(k * NU + u) * NX + j] = -b[u];
-      }
-      for (int u = 0; u < NU; ++u) kf[u] = gu[u];
-      chol_solve<NU>(l, kf);
-      for (int u = 0; u < NU; ++u) kf[u] = -kf[u];
-      // P = Gxx + Gxu K, symmetrized
-      for (int i = 0; i < NX; ++i)
-        for (int j = 0; j < NX; ++j) {
-          float s = ip.P(i, j);
-          for (int u = 0; u < NU; ++u) s += Gxu[i][u] * ip.K[(k * NU + u) * NX + j];
-          ip.P(i, j) = s;
-        }
-      for (int i = 0; i < NX; ++i)
-        for (int j = i + 1; j < NX; ++j) {
-          const float s = 0.5f * (ip.P(i, j) + ip.P(j, i));
-          ip.P(i, j) = s;
-          ip.P(j, i) = s;
-        }
-    } else {
-      float sig;
-      for (int i = 0; i < NX; ++i) Frp[i] = ip.Pr[k * NX + i] + p[i];
-      for (int a = 0; a < NX; ++a) {
-        float g = 0.0f;
-        for (int j = 0; j < NX; ++j) g += ip.A[(k * NX + j) * NX + a] * Frp[j];
-        gx[a] = qhat(ip, k * NX + a, mode, cent, sig) + g;
-      }
-      for (int u = 0; u < NU; ++u) {
-        float g = 0.0f;
-        for (int j = 0; j < NX; ++j) g += ip.B[(k * NX + j) * NU + u] * Frp[j];
-        gu[u] = rhat(ip, k * NU + u, mode, cent, sig) + g;
-      }
-      float l[NU][NU];
-      for (int i = 0; i < NU; ++i)
-        for (int j = 0; j < NU; ++j) l[i][j] = ip.lchol[(k * NU + i) * NU + j];
-      for (int u = 0; u < NU; ++u) kf[u] = gu[u];
-      chol_solve<NU>(l, kf);
-      for (int u = 0; u < NU; ++u) kf[u] = -kf[u];
-      for (int i = 0; i < NX; ++i)
-        for (int u = 0; u < NU; ++u) Gxu[i][u] = ip.Gxu[(k * NX + i) * NU + u];
     }
+    for (int i = 0; i < NX; ++i) {
+      float s = 0.0f;
+      for (int j = 0; j < NX; ++j) s += ip.P(i, j) * ip.rdyn[k * NX + j];
+      Frp[i] = s + p[i];
+    }
+    // W = P [A_k | B_k]
+    for (int c = 0; c < NX + NU; ++c) {
+      float col[NX];
+      for (int j = 0; j < NX; ++j) col[j] = ip.AB(k, j, c);
+      for (int i = 0; i < NX; ++i) {
+        float s = 0.0f;
+        for (int j = 0; j < NX; ++j) s += ip.P(i, j) * col[j];
+        ip.W(i, c) = s;
+      }
+    }
+    // [A|B]^T W: Gxx overwrites P (P is no longer needed), Gxu and Guu in registers.
+    float Guu[NU][NU];
+    for (int a = 0; a < NX + NU; ++a) {
+      float col[NX];
+      for (int j = 0; j < NX; ++j) col[j] = ip.AB(k, j, a);
+      float g = 0.0f;
+      for (int j = 0; j < NX; ++j) g += col[j] * Frp[j];
+      float sig;
+      if (a < NX) {
+        for (int c = 0; c < NX + NU; ++c) {
+          float s = 0.0f;
+          for (int j = 0; j < NX; ++j) s += col[j] * ip.W(j, c);
+          if (c < NX)
+            ip.P(a, c) = s;
+          else
+            Gxu[a][c - NX] = s;
+        }
+        gx[a] = qhat(ip, k * NX + a, mode, cent, sig) + g;
+        ip.P(a, a) += ip.qdiag[k * NX + a] + sig;
+      } else {
+        for (int c = NX; c < NX + NU; ++c) {
+          float s = 0.0f;
+          for (int j = 0; j < NX; ++j) s += col[j] * ip.W(j, c);
+          Guu[a - NX][c - NX] = s;
+        }
+        gu[a - NX] = rhat(ip, k * NU + (a - NX), mode, cent, sig) + g;
+        Guu[a - NX][a - NX] += ip.rdiag[k * NU + (a - NX)] + sig;
+      }
+    }
+    float l[NU][NU];
+    chol<NU>(Guu, l);
+    // K = -Guu^-1 Gxu^T, column by column
+    for (int j = 0; j < NX; ++j) {
+      float b[NU];
+      for (int u = 0; u < NU; ++u) b[u] = Gxu[j][u];
+      chol_solve<NU>(l, b);
+      for (int u = 0; u < NU; ++u) ip.K[(k * NU + u) * NX + j] = -b[u];
+    }
+    for (int u = 0; u < NU; ++u) kf[u] = gu[u];
+    chol_solve<NU>(l, kf);
+    for (int u = 0; u < NU; ++u) kf[u] = -kf[u];
+    // P = Gxx + Gxu K, symmetrized
+    for (int i = 0; i < NX; ++i)
+      for (int j = 0; j < NX; ++j) {
+        float s = ip.P(i, j);
+        for (int u = 0; u < NU; ++u) s += Gxu[i][u] * ip.K[(k * NU + u) * NX + j];
+        ip.P(i, j) = s;
+      }
+    for (int i = 0; i < NX; ++i)
+      for (int j = i + 1; j < NX; ++j) {
+        const float s = 0.5f * (ip.P(i, j) + ip.P(j, i));
+        ip.P(i, j) = s;
+        ip.P(j, i) = s;
+      }
     for (int u = 0; u < NU; ++u) ip.kff[k * NU + u] = kf[u];
     for (int i = 0; i < NX; ++i) {
       float s = gx[i];
@@ -560,25 +521,13 @@ __device__ float gap_sum(const Ip<C>& ip) {
 template <class C>
 __device__ float ip_iteration(const Ip<C>& ip, float mu, float sigma, float tau, float m_total) {
   constexpr int NX = C::NX, NU = C::NU;
-  constexpr bool streamed = C::TIER != RESIDENT;
   const int T = ip.T;
-  if constexpr (!streamed) {
-    // dynamics residual r_dyn_k = A dx_k + B du_k + r - dx_{k+1}
-    for (int k = 0; k < T; ++k)
-      for (int i = 0; i < NX; ++i) {
-        float s = 0.0f;
-        for (int j = 0; j < NX; ++j) s += ip.A[(k * NX + i) * NX + j] * ip.dx[k * NX + j];
-        float t = 0.0f;
-        for (int u = 0; u < NU; ++u) t += ip.B[(k * NX + i) * NU + u] * ip.du[k * NU + u];
-        ip.rdyn[k * NX + i] = s + t + ip.r[k * NX + i] - ip.dx[(k + 1) * NX + i];
-      }
-  }
 
   int mode = PLAIN;
   float cent = mu;
   if (ip.mehrotra) {
     const float gap_now = gap_sum(ip) / m_total;
-    newton(ip, AFFINE, 0.0f, true, streamed, ip.ddx_a, ip.ddu_a);
+    newton(ip, AFFINE, 0.0f, true, ip.ddx_a, ip.ddu_a);
     float ap, ad;
     step_lengths(ip, AFFINE, 0.0f, ip.ddx_a, ip.ddu_a, 1.0f, ap, ad);
     float g_lx = 0.0f, g_ux = 0.0f, g_lu = 0.0f, g_uu = 0.0f, g_e = 0.0f;
@@ -602,9 +551,9 @@ __device__ float ip_iteration(const Ip<C>& ip, float mu, float sigma, float tau,
     const float sig = fminf(fmaxf(ratio_aff * ratio_aff * ratio_aff, 1e-4f), 1.0f);
     mode = CORRECTOR;
     cent = fmaxf(sig * gap_now, C::SOFT ? 1e-8f : 1e-14f);
-    newton(ip, CORRECTOR, cent, streamed, false, ip.ddx, ip.ddu);
+    newton(ip, CORRECTOR, cent, false, ip.ddx, ip.ddu);
   } else {
-    newton(ip, PLAIN, cent, true, streamed, ip.ddx, ip.ddu);
+    newton(ip, PLAIN, cent, true, ip.ddx, ip.ddu);
   }
 
   float a_p, a_d;
@@ -689,9 +638,6 @@ __device__ void solve(const float* A, const float* B, const float* r, const floa
   ip.ddu_a = sub(w.ddu_a);
   ip.ddx = sub(w.ddx);
   ip.ddu = sub(w.ddu);
-  ip.Pr = sub(w.Pr);
-  ip.lchol = sub(w.lchol);
-  ip.Gxu = sub(w.Gxu);
   ip.elx = sub(w.elx);
   ip.eux = sub(w.eux);
   ip.nulx = sub(w.nulx);

@@ -10,10 +10,9 @@
 // What bounds it on an H100: the sequential Riccati chain per scenario, now
 // two matrix sweeps per Mehrotra iteration (T stages x ~4k FMAs each at
 // NX = 12), and the per-scenario workspace in device memory, which at long
-// horizons no longer stays in L2. The resident kernel reads A and B from
-// device memory stage by stage too, so on this card the tier earns its keep
-// by its smaller workspace (160 T floats per scenario at 12x4 against 236 T),
-// not by where A and B live.
+// horizons no longer stays in L2. On this card the tier earns its keep by
+// its smaller workspace (160 T floats per scenario at 12x4 against the
+// resident kernel's 252 T), not by where A and B live.
 //
 // Design: ocp_ip.cuh, here as Cfg<NX, NU, SOFT = true, STREAMED>. There is no
 // chunked copy of A and B into the block: the sweep hints the next stage's A

@@ -6,9 +6,12 @@ Port of `gpmpc_tpu/ops/pallas_ocp.py`'s three solvers: `solve_ocp_qp_lanes`
 `solve_ocp_qp_lanes_streamed2` (tier 2), each with plain centering or
 Mehrotra, a fixed iteration count or the tile-wide adaptive exit, and hard or
 L1-soft state bounds (`soft_rho`). The CUDA kernels share
-`csrc/ocp_ip.cuh`; each of the six variants (three tiers, hard and soft) has
+two headers; each of the six variants (three tiers, hard and soft) has
 its own source and entry points, instantiated for the (nx, nu) pairs in
-`_wrap.KERNEL_SHAPES`. Beside each wrapper stands the same algorithm in
+`_wrap.KERNEL_SHAPES`. The resident kernel (`csrc/ocp_ip_resident.cuh`)
+gives each scenario a team of threads and spreads a tile over a thread-block
+cluster (`resident_geometry`); the streamed tiers (`csrc/ocp_ip.cuh`) run one
+thread per scenario and one block per tile. Beside each wrapper stands the same algorithm in
 plain PyTorch (`*_plain`), which the wrapper runs for CPU tensors: the
 streamed tiers keep no factorization between the two sweeps of a Mehrotra
 iteration, so their corrector repeats the matrix sweep. Unlike the reference,
@@ -396,17 +399,79 @@ def solve_ocp_qp_lanes_streamed2_plain(
     return _ip_plain(qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, refactor=True)
 
 
+class ResidentGeometry(NamedTuple):
+    """Launch geometry of the resident kernel for one tile width: `team`
+    threads a scenario, `scenarios_per_block` scenarios a block, `cluster`
+    blocks a tile, `shared_bytes` of shared memory a block."""
+
+    team: int
+    scenarios_per_block: int
+    cluster: int
+    shared_bytes: int
+
+    @property
+    def threads(self) -> int:
+        return self.team * self.scenarios_per_block
+
+
+# Scenarios a block of the resident kernel takes, by (nx, nu): 8 x 16 threads
+# at 12x4 (a tile of 128 lanes is a cluster of 16 blocks), 16 x 8 threads at
+# the narrow widths (a cluster of 8). The smaller blocks measured faster on
+# the card than 16 and 64 (scripts/bench_resident_geometry_torch.py, PERF.md).
+RESIDENT_SCENARIOS_PER_BLOCK = {(12, 4): 8, (4, 1): 16, (4, 2): 16}
+RESIDENT_MAX_THREADS = 256  # csrc/ocp_ip_resident.cuh::kMaxThreads
+RESIDENT_MAX_CLUSTER = 16  # past the portable 8: the kernel allows the H100's 16
+
+
+def resident_geometry(nx: int, nu: int, L: int) -> ResidentGeometry:
+    """The resident kernel's launch geometry for tiles of L lanes: the team is
+    the power of two at or above nx + nu; a tile is split over the fewest
+    blocks (at most 16, a cluster) that keep a block at or under its
+    scenarios-per-block target. Raises for a tile the cluster cannot split
+    evenly or a block past 256 threads. Shared memory, as the kernel lays it
+    out (csrc/ocp_ip_resident.cuh::Cfg): two stage slabs of [A_k | B_k] for
+    the block's scenarios, rows padded to 16-byte quads; per scenario W, the
+    dynamics residual, F, K, Guu and gu, and two state vectors; each
+    scenario's area an odd number of quads; and two vote slots."""
+    if (nx, nu) not in RESIDENT_SCENARIOS_PER_BLOCK:
+        raise ValueError(f"ocp_ip kernel is instantiated for (nx, nu) in "
+                         f"{tuple(RESIDENT_SCENARIOS_PER_BLOCK)}, got ({nx}, {nu})")
+    team = 1 << (nx + nu - 1).bit_length()
+    target = RESIDENT_SCENARIOS_PER_BLOCK[(nx, nu)]
+    cluster = min(RESIDENT_MAX_CLUSTER, -(-L // target))
+    spb = L // cluster if L > 0 else 0
+    if L <= 0 or L % cluster or spb * team > RESIDENT_MAX_THREADS:
+        raise ValueError(
+            f"ocp_ip kernel: a tile of L={L} lanes does not split over a cluster of at most "
+            f"{RESIDENT_MAX_CLUSTER} blocks of at most {RESIDENT_MAX_THREADS // team} scenarios "
+            f"({team} threads each) at (nx, nu) = ({nx}, {nu})"
+        )
+    row = -(-(nx + nu) // 4) * 4  # a row of [A_k | B_k] padded to 16-byte quads
+    slab = _odd_quads(nx * row)
+    team_floats = _odd_quads(nx * row + 2 * nx + nu * nx + nu * nu + nu + 2 * nx)
+    smem = 4 * (2 * slab * spb + spb * team_floats + 2)
+    return ResidentGeometry(team, spb, cluster, smem)
+
+
+def _odd_quads(n: int) -> int:
+    """n floats rounded up to an odd number of 16-byte quads
+    (csrc/ocp_ip_resident.cuh::odd_quads)."""
+    q = -(-n // 4)
+    return 4 * (q if q % 2 else q + 1)
+
+
 _QP_FIELDS_X1 = ("qdiag", "qx", "lx", "ux")  # (n, T+1, nx, L)
 _QP_FIELDS_U = ("rdiag", "ru", "lu", "uu")  # (n, T, nu, L)
 
 
 def _solve_on_card(wrapper, kernel, plain, qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra,
-                   soft_rho, check_free=False):
+                   soft_rho, check_free=False, resident=False):
     """Shared body of the three wrappers: checks, the plain route for CPU
     tensors, workspace and outputs, the launch, the wrapper's count and the
     iterations each tile ran. The workspace's size is the library's
-    (`csrc/ocp_ip.cuh::workspace_floats`); with `check_free` it is held
-    against the card's free memory before anything is allocated."""
+    (`workspace_floats` of `csrc/ocp_ip_resident.cuh` or `csrc/ocp_ip.cuh`);
+    with `check_free` it is held against the card's free memory before
+    anything is allocated. `resident` launches with `resident_geometry`."""
     dev = qp.A.device
     n, T, nx, _, L = qp.A.shape
     nu = qp.B.shape[3]
@@ -423,12 +488,19 @@ def _solve_on_card(wrapper, kernel, plain, qp, n_ip, mu0, sigma, tau, adaptive_t
         return plain(qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho)
 
     check_widths(kernel, nx, nu)
-    smem = 4 * (nx * nx + nx * (nx + nu)) * L
-    if n == 0 or T == 0 or smem > 232448 or L > 1024:
-        raise ValueError(
-            f"{kernel} kernel needs n_tiles > 0, T > 0 and {smem} <= 232448 bytes of shared "
-            f"memory per block (n_tiles={n}, T={T}, nx={nx}, nu={nu}, L={L})"
-        )
+    if n == 0 or T == 0:
+        raise ValueError(f"{kernel} kernel needs n_tiles > 0 and T > 0 (n_tiles={n}, T={T})")
+    if resident:
+        geom = resident_geometry(nx, nu, L)
+        extra = (geom.team, geom.cluster)
+    else:
+        smem = 4 * (nx * nx + nx * (nx + nu)) * L
+        if smem > 232448 or L > 1024:
+            raise ValueError(
+                f"{kernel} kernel needs {smem} <= 232448 bytes of shared memory per block and "
+                f"L <= 1024 (nx={nx}, nu={nu}, L={L})"
+            )
+        extra = ()
     soft = soft_rho is not None
     if soft:
         adaptive_tol = max(adaptive_tol or 0.0, 1e-8)
@@ -452,7 +524,7 @@ def _solve_on_card(wrapper, kernel, plain, qp, n_ip, mu0, sigma, tau, adaptive_t
         name + "_launch", *(p(t) for t in qp), p(dx), p(du), p(gap), p(n_iters), p(ws),
         n, T, L, nx, nu, int(n_ip), float(mu0), float(sigma), float(tau),
         -1.0 if adaptive_tol is None else float(adaptive_tol), int(mehrotra),
-        float(soft_rho) if soft else 0.0, _build.stream_handle(dev),
+        float(soft_rho) if soft else 0.0, *extra, _build.stream_handle(dev),
     )
     wrapper.launches += 1
     wrapper.last_iterations = n_iters
@@ -471,11 +543,12 @@ def solve_ocp_qp_lanes(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Resident kernel, with `solve_ocp_qp_lanes_plain`'s signature. CPU
     tensors take the plain version; CUDA tensors launch `csrc/ocp_ip.cu`
-    (`csrc/ocp_ip_soft.cu` with `soft_rho`), one block per tile, with the
+    (`csrc/ocp_ip_soft.cu` with `soft_rho`): a cluster of blocks per tile and
+    a team of threads per scenario (`resident_geometry`), with the
     per-scenario workspace allocated here."""
     return _solve_on_card(
         solve_ocp_qp_lanes, "ocp_ip", solve_ocp_qp_lanes_plain,
-        qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho,
+        qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, resident=True,
     )
 
 

@@ -97,12 +97,24 @@ def test_chain_kernels_have_their_source_and_entry_points():
 
 def test_every_ip_kernel_variant_has_its_source():
     """The build compiles csrc/*.cu: each interior-point entry point the build
-    binds has a source of its name that defines it through the shared header."""
+    binds has a source of its name that defines it through its shared header:
+    the resident kernel's ocp_ip_resident.cuh (a team of threads per
+    scenario, a cluster per tile), the streamed tiers' ocp_ip.cuh. The old
+    one-thread-per-scenario resident tier is gone from ocp_ip.cuh."""
     from gpmpc_tpu_torch import _build
 
     csrc = REPO / "gpmpc_tpu_torch" / "csrc"
     for name in _build.OCP_IP_KERNELS:
         text = (csrc / f"{name}.cu").read_text()
-        assert f"GPMPC_OCP_IP_ENTRY_POINTS({name}," in text and '#include "ocp_ip.cuh"' in text
+        if name in _build.OCP_IP_RESIDENT:
+            assert f"GPMPC_OCP_IP_RESIDENT_ENTRY_POINTS({name}," in text
+            assert '#include "ocp_ip_resident.cuh"' in text
+        else:
+            assert f"GPMPC_OCP_IP_ENTRY_POINTS({name}," in text and '#include "ocp_ip.cuh"' in text
         assert name + "_launch" in _build.SIGNATURES
     assert (csrc / "ocp_ip.cuh").exists()
+    assert "RESIDENT" not in (csrc / "ocp_ip.cuh").read_text()
+    resident = (csrc / "ocp_ip_resident.cuh").read_text()
+    for feature in ("cudaLaunchAttributeClusterDimension", "map_shared_rank", "cp.async",
+                    "__shfl_xor_sync"):
+        assert feature in resident

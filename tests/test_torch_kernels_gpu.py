@@ -173,6 +173,75 @@ def test_ocp_kernel_matches_plain(dev, n_tiles, T, kw, nx, nu):
     assert float(du_k.abs().max()) <= 0.3 + 1e-4
 
 
+@pytest.mark.parametrize("adaptive", [None, 1e-6], ids=["fixed", "exit"])
+@pytest.mark.parametrize("mehrotra", [False, True], ids=["plain", "mehrotra"])
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+@pytest.mark.parametrize("nx,nu", [(12, 4), (4, 1), (4, 2)])
+def test_resident_kernel_modes_match_plain(dev, nx, nu, soft, mehrotra, adaptive):
+    """The resident kernel (a team of threads per scenario, a cluster of
+    blocks per tile) in every mode at every width, two tiles at T=25: dx and
+    du within 5e-4 of the plain version (chip_smoke.py TOL["ocp"]). Soft
+    bounds floor the exit at 1e-8, so "fixed" runs the soft mode's own stop."""
+    qp = _qp(dev, 2, 25, seed=7, nx=nx, nu=nu, box=0.15 if soft else 1.5)
+    kw = dict(n_ip=10, mehrotra=mehrotra, adaptive_tol=adaptive)
+    if soft:
+        kw["soft_rho"] = 2.0 if nx == 12 else 0.5
+    fn = cuda_ocp.solve_ocp_qp_lanes
+    before = fn.launches
+    dx_k, du_k, gap_k = fn(qp, **kw)
+    dx_p, du_p, _ = cuda_ocp.solve_ocp_qp_lanes_plain(qp, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and fn.last_iterations.shape == (2,)
+    assert bool(torch.isfinite(gap_k).all())
+    assert _maxdiff(du_k, du_p) <= 5e-4 and _maxdiff(dx_k, dx_p) <= 5e-4
+
+
+def _plain_iterations(qp, kw, n_max):
+    """The IP iterations each tile of the plain version ran: the fewest after
+    which its solution is that of n_max iterations (an exited tile is left
+    as it is, bit for bit)."""
+    ref = cuda_ocp.solve_ocp_qp_lanes_plain(qp, **dict(kw, n_ip=n_max))[1]
+    counts = [None] * ref.shape[0]
+    for m in range(n_max + 1):
+        du = cuda_ocp.solve_ocp_qp_lanes_plain(qp, **dict(kw, n_ip=m))[1]
+        for t in range(ref.shape[0]):
+            if counts[t] is None and torch.equal(du[t], ref[t]):
+                counts[t] = m
+    return counts
+
+
+def test_resident_kernel_tile_exit_counts_match_plain_across_the_cluster(dev):
+    """Two tiles that exit at different IP iterations (the second has three
+    times larger gradients), the second with 28 padded lanes (no dynamics
+    and no gradient, as the SQP pads a batch): every block of a tile's
+    cluster must leave at the iteration the plain version's 128-lane vote
+    does, so the per-tile counts are equal, and the solutions agree."""
+    qp = _qp(dev, 2, 25, seed=5)
+    qp.qx[1] *= 3.0
+    qp.ru[1] *= 3.0
+    for f in ("A", "B", "r", "qx", "ru"):
+        getattr(qp, f)[1, ..., 100:] = 0.0
+    kw = dict(n_ip=10, mehrotra=True, adaptive_tol=1e-6)
+    assert cuda_ocp.resident_geometry(12, 4, LANES).cluster > 1
+    dx_k, du_k, _ = cuda_ocp.solve_ocp_qp_lanes(qp, **kw)
+    counts_k = cuda_ocp.solve_ocp_qp_lanes.last_iterations.tolist()
+    dx_p, du_p, _ = cuda_ocp.solve_ocp_qp_lanes_plain(qp, **kw)
+    counts_p = _plain_iterations(qp, kw, 10)
+    assert counts_k == counts_p and counts_p[0] != counts_p[1]
+    assert _maxdiff(du_k, du_p) <= 5e-4 and _maxdiff(dx_k, dx_p) <= 5e-4
+
+
+def test_resident_kernel_refuses_a_tile_the_cluster_cannot_split(dev):
+    with pytest.raises(ValueError, match="does not split over a cluster"):
+        cuda_ocp.solve_ocp_qp_lanes(_qp_lanes(dev, 100), n_ip=2)
+
+
+def _qp_lanes(dev, lanes):
+    """A one-tile QP of `lanes` lanes at 12x4, T=3."""
+    full = _qp(dev, 1, 3, seed=0)
+    return cuda_ocp.LanesQp(*(f[..., :lanes].contiguous() for f in full))
+
+
 TIERS = {
     "resident": (cuda_ocp.solve_ocp_qp_lanes, cuda_ocp.solve_ocp_qp_lanes_plain, 25, 1.0),
     "streamed": (cuda_ocp.solve_ocp_qp_lanes_streamed, cuda_ocp.solve_ocp_qp_lanes_streamed_plain,

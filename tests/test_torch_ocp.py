@@ -111,3 +111,28 @@ def test_soft_bounds_are_not_ported_and_say_so():
                               for _ in cuda_ocp.LanesQp._fields))
     with pytest.raises(ValueError, match=f"up to T={MAX_STREAM2_HORIZON} .got"):
         _solve_qp_lanes(past, cfg)
+
+
+@pytest.mark.parametrize("nx,nu,L,expected", [
+    (12, 4, 128, (16, 8, 16, 22408)),
+    (4, 1, 128, (8, 16, 8, 8456)),
+    (4, 2, 128, (8, 16, 8, 8968)),
+    (12, 4, 8, (16, 8, 1, 22408)),
+    (12, 4, 256, (16, 16, 16, 44808)),
+])
+def test_resident_geometry_at_the_three_widths(nx, nu, L, expected):
+    """The resident kernel's launch geometry: a team of threads per scenario
+    (the power of two at or above nx + nu), a tile of L lanes spread over a
+    cluster of at most 16 blocks, and the shared memory its blocks take (two
+    [A_k | B_k] slabs and each scenario's team area)."""
+    g = cuda_ocp.resident_geometry(nx, nu, L)
+    assert (g.team, g.scenarios_per_block, g.cluster, g.shared_bytes) == expected
+    assert g.cluster * g.scenarios_per_block == L and g.threads <= 256
+
+
+@pytest.mark.parametrize("nx,nu,L", [(12, 4, 100), (12, 4, 1024), (4, 1, 130), (4, 3, 128)])
+def test_resident_geometry_refuses_what_the_cluster_cannot_split(nx, nu, L):
+    """A tile the cluster cannot split evenly, one past 16 blocks of 256
+    threads, or a width with no instantiation raises before any launch."""
+    with pytest.raises(ValueError, match="ocp_ip kernel"):
+        cuda_ocp.resident_geometry(nx, nu, L)

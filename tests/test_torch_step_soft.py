@@ -126,15 +126,6 @@ def test_tier1_step_matches_jax_lanes_step(monkeypatch, soft):
     np.testing.assert_allclose(info_t.soft_viol.numpy(), info_j.soft_viol.numpy(), atol=2e-3)
 
 
-def test_hard_step_T52_tier1_matches_jax_lanes_step(monkeypatch):
-    """T=52, B=3, hard bounds: past the resident cap of both packages as they
-    are (about half a minute: the Pallas kernels run in interpret mode)."""
-    calls_t = _count_calls(monkeypatch, t_sqp_lanes, "solve_ocp_qp_lanes_streamed")
-    u_j, u_t, _, _ = _both_steps(52, 3, None, sqp_iters=2, qp_iters=6)
-    assert len(calls_t) > 0
-    np.testing.assert_allclose(u_t, u_j, atol=1e-3)
-
-
 def test_bounds_from_tightening_soft_matches_jax_exactly():
     """A tightening that exceeds the 45 % cap in some state and input entries:
     with soft bounds the state part is kept in full and not counted in

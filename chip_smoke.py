@@ -34,8 +34,11 @@ generator). Phases, each printing its own lines:
      the card, on inputs captured from the path's first warm-started step and
      on seeded random inputs at the path's shapes (soft QPs with boxes tight
      enough to force violations): max abs difference beside the stated
-     tolerance, the median time of each (CUDA events) and the least time the
-     card could take (`bound_ms`, see `Bound`). First of all the three chain
+     tolerance, the median time of each (CUDA events around one call), the
+     kernel's device time with calls back to back (`device_ms`), the least
+     time the card could take (`bound_ms`, see `Bound`) and, for kernel 2,
+     one torch.matmul that gives the same variances (`library_ms`, see
+     `tighten_library_ms`). First of all the three chain
      kernels against their plain versions on the reference's data after 4
      rounds (the chain leaves float32 after some ten) and, after 200 rounds, in
      where they are non-finite; the five roofline rows as their JSON lines;
@@ -44,7 +47,8 @@ generator). Phases, each printing its own lines:
      path of this script reaches, on random inputs: the narrow widths (4, 1)
      and (4, 2) of every new kernel, the six horizon caps at 12x4 (the
      resident kernel at T=50 hard and soft, tier 1 at T=400 and at T=320
-     soft, tier 2 at T=1024 and at T=768 soft), kernels 1-3 at T=400, the
+     soft, tier 2 at T=1024 and at T=768 soft), kernels 1-3 at T=400,
+     kernel 2 at T=512 and T=1024 (12x4, B=256, beside its yardstick), the
      resident kernel on the quadrotor path's captured QP cut to two tiles
      (B=256) beside the whole one, and the resident kernel called directly on
      the T=100 QP beside the streamed one;
@@ -67,8 +71,9 @@ step and against phase 2's unprofiled steps.
 Prints a JSON line of per-kernel results (`kernels`: one entry per path and
 kernel, with the launches of that path's run, and the three chain kernels
 with the launches of the roofline rows' run; `kernel_level_only`: the
-instantiations held in phase 1 alone), the nvidia-smi line, then as its last
-line {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
+instantiations held in phase 1 alone; each entry with the contract's keys
+and `device_ms`), the nvidia-smi line, then as its last line
+{"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
 
 from __future__ import annotations
@@ -286,12 +291,13 @@ class Bound(NamedTuple):
     by: str
     bytes: int
     flops: int
+    counted: str = ""  # which formulation's operations, where a function has two
 
 
-def bound(n_bytes: int, flops: int) -> Bound:
+def bound(n_bytes: int, flops: int, counted: str = "") -> Bound:
     t_b, t_f = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS
     return Bound(1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations", int(n_bytes),
-                 int(flops))
+                 int(flops), counted)
 
 
 def tensor_bytes(*tensors) -> int:
@@ -313,11 +319,36 @@ def bound_gp(args, out) -> Bound:
 
 
 def bound_tighten(args, out) -> Bound:
-    """Per scenario and stage: (A+BK) cov (A+BK)^T as two nx^3 products, the
-    diagonal of K cov K^T, the disturbance diagonal."""
+    """The operations of whichever formulation of the same function is
+    cheaper at the shape. The recursion, per scenario and stage: Acl cov as
+    one nx^3 product (Acl = A + B K is shared and not counted), the upper
+    triangle of the symmetric (Acl cov) Acl^T (nx^2 (nx+1) / 2 FMAs), the
+    diagonal of K cov K^T from cov's upper triangle (nx (nx+1) / 2 FMAs per
+    input, the products of K's entries shared) and the nd disturbance terms.
+    The direct form, per scenario: the triangular sums over (j, q) of the nx
+    state rows at k = 0..T and of the nu input rows at k = 0..T-1 (the
+    weights are shared by all scenarios and not counted). An FMA is two
+    operations."""
     b, t, nd = args[0].shape
     nx, nu = args[2].shape
-    return bound(tensor_bytes(*args, *out), b * t * (4 * nx**3 + 2 * nu * nx * nx + 2 * nu * nx + nd))
+    recursion = b * t * (2 * nx**3 + nx * nx * (nx + 1) + nu * nx * (nx + 1) + nd)
+    direct = b * nd * (nx * t * (t + 1) + nu * t * (t - 1))
+    flops, counted = (direct, "direct form") if direct <= recursion else (recursion, "recursion")
+    return bound(tensor_bytes(*args, *out), flops, counted)
+
+
+def tighten_library_ms(args) -> float:
+    """The yardstick of kernel 2: one torch.matmul (float32, TF32 off) of the
+    diagonals (B, T nd) by the direct form's expanded weight matrix
+    (T nd, (T+1) nx + T nu), which gives the same variances; timed at the
+    call's shapes, the matrix formed beforehand. The port never calls it."""
+    cov_dn, Ad, Bd_in, lqr_gain, Bd = args[:5]
+    b, t, nd = cov_dn.shape
+    nx = Ad.shape[0]
+    M = cuda_tighten.expanded_weights(cuda_tighten.tighten_weights_plain(Ad, Bd_in, lqr_gain, Bd, t))
+    M = M[:, : t * (nx + Bd_in.shape[1]) + nx].contiguous()  # no input columns at k = T
+    D = cov_dn.reshape(b, t * nd)
+    return timed(lambda: torch.matmul(D, M))[0]
 
 
 # nonzeros of the continuous-time Jacobians (Jx, Ju) of each family's closure
@@ -442,6 +473,32 @@ def timed(fn):
         ms, out = once()
         times.append(ms)
     return statistics.median(times), runs, out
+
+
+def device_ms(fn, runs: int = 10) -> float:
+    """Device time of one call of `fn`: CUDA events around `runs` calls that
+    the card runs back to back, divided by `runs`. A spin kernel
+    (`torch.cuda._sleep`) keeps the card busy while the host enqueues the
+    calls, so the events hold the kernels and the gaps between them but not
+    the host's work around each launch, which a pair of events around a
+    single call also holds (`timed`: the card waits for the host there once
+    a kernel is short). The spin lasts 1.5x the host's time to enqueue the
+    calls (measured on a warm call), at most 50 ms, plus 1 ms."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (min(1.5 * runs * enqueue_s, 0.05) + 1e-3)))  # ~2 GHz clock
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
 
 
 class Capture:
@@ -588,22 +645,24 @@ def random_inputs(prob: Problem, T: int):
 
 def compare(entry, label, kind, fn, plain, a, k, time_plain=True):
     """One kernel-vs-plain comparison on the card; raises on disagreement.
-    Returns (max abs err, kernel ms, plain ms or None, kernel outputs)."""
+    Returns (max abs err, kernel ms, plain ms or None, kernel outputs, the
+    kernel's device ms or None); the times when `time_plain`."""
     ms_k, runs_k, out_k = timed(lambda: fn(*a, **k))
     if time_plain:
         ms_p, runs_p, out_p = timed(lambda: plain(*a, **k))
+        dev_ms = device_ms(lambda: fn(*a, **k), runs=10 if ms_k < 50 else 2)
     else:
-        ms_p, runs_p, out_p = None, 0, plain(*a, **k)
+        ms_p, runs_p, out_p, dev_ms = None, 0, plain(*a, **k), None
         torch.cuda.synchronize()
     err, ok = tolerance_check(kind, out_k, out_p)
     times = f"kernel {ms_k:.4f} ms (median of {runs_k})"
     if time_plain:
-        times += f", plain {ms_p:.4f} ms (median of {runs_p})"
+        times += f", on the device {dev_ms:.4f} ms, plain {ms_p:.4f} ms (median of {runs_p})"
     say(f"[phase 1] {entry:28s} {label:12s}: max|kernel - plain| = {err:.3e} "
         f"(tolerance {TOL_TEXT[kind]}) {'ok' if ok else 'FAIL'}; {times}")
     if not ok:
         raise RuntimeError(f"{entry}: kernel disagrees with its plain version ({label})")
-    return err, ms_k, ms_p, out_k
+    return err, ms_k, ms_p, out_k, dev_ms
 
 
 def kernel_bound(name, fn, a, k, out) -> Bound:
@@ -616,12 +675,20 @@ def kernel_bound(name, fn, a, k, out) -> Bound:
     return bound_ocp(a[0], k, out, fn.last_iterations)
 
 
-def result_entry(entry, source, replaces, err, ms_k, ms_p, bnd: Bound, launches=0):
+def result_entry(entry, source, replaces, err, ms_k, ms_p, bnd: Bound, launches=0,
+                 library_ms=None, dev_ms=None):
+    """The entry of the JSON line: `ms` is the CUDA-event time of a call (as
+    in every earlier run), `device_ms` its kernels' time on the card with
+    the calls back to back (`device_ms`)."""
+    counted = f", the {bnd.counted}'s" if bnd.counted else ""
+    library = "" if library_ms is None else f"; one library call {library_ms:.4f} ms"
+    on_device = "" if dev_ms is None else f" ({100 * bnd.ms / dev_ms:.2f} % of its device time)"
     say(f"[phase 1] {entry:28s} bound {bnd.ms:.5f} ms by {bnd.by} ({bnd.bytes} bytes, "
-        f"{bnd.flops} operations): the kernel reaches {100 * bnd.ms / ms_k:.2f} % of it")
+        f"{bnd.flops} operations{counted}): the kernel reaches {100 * bnd.ms / ms_k:.2f} % of "
+        f"it{on_device}{library}")
     return dict(name=entry, route="cuda", source=source, replaces=replaces, launches=launches,
                 max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=bnd.ms, bound_by=bnd.by,
-                library_ms=None)
+                library_ms=library_ms, device_ms=dev_ms)
 
 
 def check_kernels(prob: Problem, results: dict, captured: dict) -> None:
@@ -652,7 +719,7 @@ def check_kernels(prob: Problem, results: dict, captured: dict) -> None:
             if name == "linearize":
                 replaces = LINEARIZE_CLOSURES.get(prob.family, replaces)
         a, k = cap.args[name]
-        worst, ms_k, ms_p, out_k = compare(entry, "real step", kind, fn, plain, a, k)
+        worst, ms_k, ms_p, out_k, dev_ms = compare(entry, "real step", kind, fn, plain, a, k)
         bnd = kernel_bound(name, fn, a, k, out_k)
         for T in random_Ts:
             if name == "qp" and (T != path.T or path.T > sqp_lanes.MAX_FUSED_HORIZON):
@@ -660,7 +727,10 @@ def check_kernels(prob: Problem, results: dict, captured: dict) -> None:
             a_r, k_r = rand[T][name]
             label = "random" if T == path.T else f"random T={T}"
             worst = max(worst, compare(entry, label, kind, fn, plain, a_r, k_r, time_plain=False)[0])
-        results[entry] = result_entry(entry, src, replaces, worst, ms_k, ms_p, bnd)
+        # kernel 2's yardstick; no single PyTorch call computes kernels 1, 3 or the QP
+        library_ms = tighten_library_ms(a) if name == "tighten" else None
+        results[entry] = result_entry(entry, src, replaces, worst, ms_k, ms_p, bnd,
+                                      library_ms=library_ms, dev_ms=dev_ms)
         prob.rates[name] = bnd.flops / (1e-3 * ms_k)  # operations/s the kernel reached
 
 
@@ -668,7 +738,19 @@ def check_kernel_level_only(dev, captured: dict, extra: list) -> None:
     """Phase 1 for the QP instantiations no path of this script reaches, on
     random inputs; the horizon caps; the resident kernel at B=256 on the
     quadrotor path's QP; the resident kernel beside the streamed one at
-    T=100."""
+    T=100; the tightening kernel at T=512 and T=1024 (12x4, B=256)."""
+    # kernel 2 at long horizons: the quadrotor path's matrices, random diagonals
+    fn, plain, src, replaces = KERNELS["tighten"]
+    mats = captured["quadrotor"]["tighten"][0][1:]
+    for T in (512, 1024):
+        rng = np.random.default_rng(T)
+        cov_dn = torch.as_tensor(rng.uniform(1e-6, 4e-4, (256, T, mats[3].shape[1])),
+                                 dtype=torch.float32, device=dev)
+        a = (cov_dn,) + tuple(mats)
+        entry = f"tighten[12x4,T={T}]"
+        err, ms_k, ms_p, out_k, dev_ms = compare(entry, "random", "tighten", fn, plain, a, {})
+        extra.append(result_entry(entry, src, replaces, err, ms_k, ms_p, bound_tighten(a, out_k),
+                                  library_ms=tighten_library_ms(a), dev_ms=dev_ms))
     # every new kernel at the narrow widths; the 12x4 variants without a path
     cases = [("ocp_ip", True, 4, 1, 8, 25), ("ocp_ip", True, 4, 2, 8, 25)]
     for name in ("ocp_ip_streamed", "ocp_ip_streamed2"):
@@ -683,17 +765,17 @@ def check_kernel_level_only(dev, captured: dict, extra: list) -> None:
         entry = f"{name}{'_soft' if soft else ''}[{nx}x{nu}]"
         a, k = random_qp_call(dev, n_tiles, T, nx, nu, soft)
         kind = "ocp_soft" if soft else "ocp"
-        err, ms_k, ms_p, out_k = compare(entry, f"random T={T}", kind, fn, plain, a, k)
+        err, ms_k, ms_p, out_k, dev_ms = compare(entry, f"random T={T}", kind, fn, plain, a, k)
         extra.append(result_entry(entry, qp_source(name, soft), replaces, err, ms_k, ms_p,
-                                  bound_ocp(a[0], k, out_k, fn.last_iterations)))
+                                  bound_ocp(a[0], k, out_k, fn.last_iterations), dev_ms=dev_ms))
     # the resident kernel on two tiles (B=256) of the quadrotor path's first
     # warm-started QP, beside its time on all eight (the path's own entry)
     fn, plain, replaces = QP_WRAPPERS["ocp_ip"]
     a, k = captured["quadrotor"]["qp"]
     a = (cuda_ocp.LanesQp(*(f[:2].contiguous() for f in a[0])),) + tuple(a[1:])
-    err, ms_k, ms_p, out_k = compare("ocp_ip[B=256]", "real step", "ocp", fn, plain, a, k)
+    err, ms_k, ms_p, out_k, dev_ms = compare("ocp_ip[B=256]", "real step", "ocp", fn, plain, a, k)
     extra.append(result_entry("ocp_ip[B=256]", qp_source("ocp_ip", False), replaces, err, ms_k, ms_p,
-                              bound_ocp(a[0], k, out_k, fn.last_iterations)))
+                              bound_ocp(a[0], k, out_k, fn.last_iterations), dev_ms=dev_ms))
     # the horizon caps at 12x4, one tile each, one comparison call each
     for name, soft, T in (("ocp_ip", False, sqp_lanes.MAX_LANES_HORIZON),
                           ("ocp_ip", True, sqp_lanes.MAX_LANES_HORIZON),
@@ -894,10 +976,10 @@ def check_chains(dev, results: dict) -> dict:
         say(f"[phase 1] {name:28s} {roofline.N_CHAIN} rounds: kernel {ms_k:.4f} ms (median of "
             f"{runs_k}), plain {ms_p:.4f} ms (median of {runs_p}), one torch.matmul a round "
             f"{ms_l:.4f} ms (median of {runs_l}); peak {peak / 1e12:.1f} TFLOP/s")
-        entry = result_entry(name, "gpmpc_tpu_torch/csrc/lanes_chain.cu", replaces,
-                             results[name]["max_abs_err"], ms_k, ms_p, bnd, launches=launches[name])
-        entry["library_ms"] = ms_l
-        results[name] = entry
+        results[name] = result_entry(
+            name, "gpmpc_tpu_torch/csrc/lanes_chain.cu", replaces, results[name]["max_abs_err"],
+            ms_k, ms_p, bnd, launches=launches[name], library_ms=ms_l,
+            dev_ms=device_ms(lambda: fn(x, roofline.N_CHAIN)))
     return gflops
 
 
@@ -951,6 +1033,9 @@ def profile_step(prob: Problem) -> None:
         f"unprofiled steps {prob.ms_per_step:.1f} ms each (idle share "
         f"{1 - busy_ms / prob.ms_per_step:.3f}, lower estimate); top: " + ", ".join(
             f"{e.key[:40]} {e.device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
+    tighten = [e for e in rows if "tighten" in e.key]  # the two kernels of kernel 2, apart
+    say(f"[profile] {prob.path_name}: kernel 2's launches: " + ", ".join(
+        f"{e.key[:40]} {e.device_time_total / 1e3:.4f} ms x{e.count}" for e in tighten))
 
 
 def main() -> int:

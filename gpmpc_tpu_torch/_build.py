@@ -37,8 +37,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     # z, Zt, alpha, W, mask, hyp, n, m, d, mean, var, stream
     "gp_posterior_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    # covdn, A, B, K, Bd, ppf, n_tiles, T, nd, L, nx, nu, tx, tu, stream
-    "tighten_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # covdn, A, B, K, Bd, ppf, B, T, nd, nx, nu, wsq, tx, tu, stream
+    "tighten_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # family, nx, nu, par8, hyp, X, U, Zs, alpha, n_tiles, T, L, Ms, use_gp, dt, fnext, A, B, stream
     "linearize_launch": [_I, _I, _I] + [_P] * 6 + [_I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
 }

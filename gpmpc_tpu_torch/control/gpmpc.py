@@ -362,28 +362,54 @@ def _select_action_lanes(model, cfg, consts, gp, states, obs, lanes):
 
 class GPMPC:
     """Controller setup (the setup half of the reference's `GPMPC.__init__`):
-    `consts` (GpMpcConsts on `device`) and `cfg` (SqpConfig). `bounds`
-    (((lx, ux), (lu, uu)), default the quadrotor's boxes) and `lm_reg` are the
-    reference's, as is `soft_constraints`: the L1 penalty weight that makes
-    the chance-tightened state bounds soft (None keeps them hard). The
-    stateful select_action / train_gp API is not ported yet."""
+    `consts` (GpMpcConsts on `device`) and `cfg` (SqpConfig). The parameter
+    list is the reference's, in its order and with its defaults, except
+    `device` (None resolves to the card). `bounds` (((lx, ux), (lu, uu)),
+    default the quadrotor's boxes), `lm_reg` and `soft_constraints` (the L1
+    penalty weight that makes the chance-tightened state bounds soft; None
+    keeps them hard) act as in the reference. The arguments of parts not
+    ported yet are stored as given; those that would change the setup
+    (`sparse_gp`, `ard_gp`, `parallel_scan`, a `step_backend` other than
+    "auto") raise `UnsupportedPathError` when set. The stateful select_action /
+    train_gp API is not ported yet."""
+
+    U_EQ = np.array([0.3234, 0.0, 0.0, 0.0])
 
     def __init__(
         self,
         model,
         traj,
-        prior_params: dict,
+        prior_params: dict | None,
         horizon: int,
         q_mpc,
         r_mpc,
+        sparse_gp: bool = False,
         prob: float = 0.955,
+        max_gp_samples: int = 30,
+        seed: int = 1337,
+        device: torch.device | str | None = None,
+        output_dir=None,
+        max_gp_points: int = 128,
         sqp_iters: int = 25,
         qp_iters: int = 15,
-        device: torch.device | str | None = None,
+        parallel_scan: bool = False,
+        ard_gp: bool = False,
+        soft_constraints: float | None = None,
         bounds: tuple | None = None,
         lm_reg: float = 0.0,
-        soft_constraints: float | None = None,
+        step_backend: str = "auto",
     ):
+        unported = {"sparse_gp": sparse_gp, "ard_gp": ard_gp, "parallel_scan": parallel_scan,
+                    "step_backend": step_backend != "auto"}
+        for name, value in unported.items():
+            if value:
+                raise UnsupportedPathError(
+                    f"GPMPC({name}=...) needs a part of the reference that is not ported "
+                    "(ROADMAP.md Queue 1)"
+                )
+        self.sparse, self.ard_gp, self.step_backend = sparse_gp, ard_gp, step_backend
+        self.max_gp_samples, self.max_gp_points = max_gp_samples, max(max_gp_points, max_gp_samples)
+        self.seed, self.output_dir = seed, output_dir
         device = resolve(device)
         self.spec = model_spec(model)
         # only the quadrotor's thrust map consumes the prior's a and b

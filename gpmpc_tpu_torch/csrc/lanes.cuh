@@ -1,11 +1,12 @@
 // Shared helpers for the lanes-layout kernels of gpmpc_tpu_torch.
 //
 // Lanes layout: a tensor of shape (n_tiles, d0, d1, ..., L) holds one
-// scenario per lane, scenario axis last. Each kernel runs one thread block
-// per tile and one thread per lane, so thread `lane` of block `tile` reads
-// element (tile, i, lane) at tile_base + i * L + lane: neighbouring threads
-// touch neighbouring addresses and every warp access is one coalesced
-// 128-byte transaction.
+// scenario per lane, scenario axis last, so element (tile, i, lane) lies at
+// tile_base + i * L + lane. A kernel puts consecutive lanes in consecutive
+// threads of a warp (threadIdx.x): neighbouring threads touch neighbouring
+// addresses and every warp access is one coalesced 128-byte transaction.
+// `lane_view` is the view of the simplest mapping, one block per tile and
+// one thread per lane.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -56,6 +57,20 @@ __device__ __forceinline__ LaneView lane_view(float* p, long per_lane, int L) {
 
 __device__ __forceinline__ ConstLaneView lane_view(const float* p, long per_lane, int L) {
   return ConstLaneView{p + lane_offset(blockIdx.x, threadIdx.x, per_lane, L), L};
+}
+
+// Asynchronous 4-byte copies from global to shared memory (sm_80 and up):
+// start one, close a group, and wait until at most N groups are still in flight.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace gpmpc

@@ -8,68 +8,132 @@
 // _FAMILY_FC_JAC registry). For each stage k of each scenario:
 //   fnext_k = RK4(x_k, u_k),  A_k = d fnext / dx,  B_k = d fnext / du.
 //
-// What bounds it on an H100: arithmetic and special functions. Each stage
-// evaluates the GP means and gradients 4 times (G GPs x Ms inducing points,
-// one expf each) and the Jacobian chain; at the quadrotor's widths it reads
-// 64 bytes and writes 832 bytes per scenario-stage, so the writes of A and B
-// are the device-memory traffic.
+// What bounds it on an H100: the writes of A and B (832 bytes per
+// scenario-stage at the quadrotor's widths, against 64 read), then the
+// arithmetic: each stage evaluates the G GP means and gradients 4 times over
+// Ms inducing points (one expf each) and the Jacobian chain. Nothing is
+// carried from one stage to the next (the reference's stage body reads x_k
+// and u_k and writes stage k only), so a kernel that walks the stages of a
+// scenario in one thread leaves T-fold parallelism unused: at B = 1024 the
+// one-thread-per-scenario mapping is 8 blocks of 128 threads on 132 SMs.
 //
-// Design: one block per L-scenario tile, one thread per scenario, stages in a
-// loop. The kernel is a template on a family trait that supplies NX, NU, the
-// GP count G and input width D, the family's sparse continuous Jacobian
-// (struct Jac: only its non-constant entries), fc_and_jac (f and Jac at one
-// point) and jac_col (one column of [Jx | Ju] applied to a vector). The
-// inducing inputs, weights and hyperparameters (shared by all scenarios) are
-// staged in shared memory and read as broadcasts. The chain
-// dk_{i+1} = J_{i+1} (I + h dk_i) acts column by column on [dx | du], so each
-// of the NX + NU columns runs the whole four-stage chain with three
-// NX-vectors in registers and is written straight to A or B: no NX x NX
-// matrix is ever held per thread.
+// Design: stages in the grid and a team of threads per (scenario, stage).
+// Block (x, y) covers up to 128 / TEAM lanes of one tile at stage y: grid
+// (n_tiles * lane chunks, T), threads (lanes a block, TEAM) (the reference's
+// T <= 1024 keeps the grid's y under its limit of 65,535, so no block needs
+// to walk several stages). With the stages in the grid even a team of 1
+// gives T times the blocks of a thread-per-scenario kernel. threadIdx.x is
+// the lane, so a warp is 32 consecutive scenarios and every load of X and U
+// and store of fnext, A and B is one coalesced 128-byte transaction;
+// threadIdx.y is the team member. TEAM is a constant of each family trait,
+// the fastest of 1, 2 and 4 on an H100 (scripts/bench_linearize_team_torch.py,
+// which builds this file with -DLINEARIZE_TEAM=n to give every family a team
+// of n): 1 for the quadrotor, whose closure, repeated by every member,
+// outweighs the split GP sums, and for the cartpole, where 1 and 2 read
+// alike; 2 for the two-link arm, whose GP inputs are six wide. The team
+// splits the GP sums (member t takes inducing points j = t mod TEAM): at each
+// of the four RK evaluations the members' partial means and gradients
+// (G (1 + D) values) meet in shared memory behind one __syncthreads (two
+// buffers alternate, so a member never overwrites a buffer another is still
+// reading) and every member adds them in member order, so all members hold
+// the same closure values. The team then splits the NX + NU columns of
+// [A | B] (column c to member c mod TEAM); member 0 writes fnext. Every
+// thread of a block runs every evaluation and reaches every barrier: a lane
+// past L computes lane L - 1 and stores nothing. The kernel is a template on
+// a family trait that supplies NX, NU, the GP count G and input width D, its
+// TEAM, the family's sparse continuous Jacobian (struct Jac: only its
+// non-constant entries), fc_and_jac (f and Jac at one point; it asks the team
+// for the GP terms) and jac_col (one column of [Jx | Ju] applied to a
+// vector). The inducing inputs, weights and hyperparameters (shared by all
+// scenarios) are staged in shared memory per block and read as broadcasts.
+// The chain dk_{i+1} = J_{i+1} (I + h dk_i) acts column by column on
+// [dx | du], so each column runs the whole four-stage chain with three
+// NX-vectors in registers and is written straight to A or B.
 #include "lanes.cuh"
 
 namespace {
 
 constexpr float GRAVITY = 9.81f;
 
-struct GpShared {
+constexpr int kThreads = 128;  // threads a block: lanes x TEAM
+
+#ifdef LINEARIZE_TEAM
+#define FAMILY_TEAM(measured) LINEARIZE_TEAM
+#else
+#define FAMILY_TEAM(measured) measured
+#endif
+
+// The GP operands (shared memory, staged per block) and one team member's
+// share of the GP sums.
+template <int G, int D, int TEAM>
+struct GpTeam {
+  static constexpr int NV = G * (1 + D);  // per GP: the mean and its gradient
   const float* Zs;     // (G, Ms, D)
   const float* alpha;  // (G, Ms)
   const float* hyp;    // (G, 1 + D): sf2, 1/ell^2 per dim
   int Ms;
-};
+  float* red;          // 2 x TEAM x NV x lanes (TEAM > 1)
+  int member, lane, lanes;
+  int parity;          // the reduction buffer of the next evaluation
 
-// SE posterior mean of GP g at z and its gradient d mean / dz.
-template <int D>
-__device__ void gp_mean_grad(const GpShared& gp, int g, const float z[D], float& mean,
-                             float grad[D]) {
-  const float* Z = gp.Zs + g * gp.Ms * D;
-  const float* a = gp.alpha + g * gp.Ms;
-  const float sf2 = gp.hyp[g * (1 + D)];
-  const float* inv = gp.hyp + g * (1 + D) + 1;
-  float m = 0.0f, gs[D];
+  // SE posterior means of the G GPs at z[g] and their gradients d mean / dz.
+  // Member t sums the inducing points j = t (mod TEAM); the partial sums meet
+  // in shared memory and every member adds them in member order.
+  __device__ void mean_grad(const float z[G][D], float mean[G], float grad[G][D]) {
+    float part[NV];
 #pragma unroll
-  for (int d = 0; d < D; ++d) gs[d] = 0.0f;
-  for (int j = 0; j < gp.Ms; ++j) {
-    float diff[D], dist2 = 0.0f;
+    for (int g = 0; g < G; ++g) {
+      const float* Z = Zs + g * Ms * D;
+      const float* a = alpha + g * Ms;
+      const float sf2 = hyp[g * (1 + D)];
+      const float* inv = hyp + g * (1 + D) + 1;
+      float m = 0.0f, gs[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      diff[d] = Z[j * D + d] - z[d];
-      dist2 += diff[d] * diff[d] * inv[d];
+      for (int d = 0; d < D; ++d) gs[d] = 0.0f;
+      for (int j = member; j < Ms; j += TEAM) {
+        float diff[D], dist2 = 0.0f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          diff[d] = Z[j * D + d] - z[g][d];
+          dist2 += diff[d] * diff[d] * inv[d];
+        }
+        const float ka = sf2 * expf(-0.5f * dist2) * a[j];
+        m += ka;
+#pragma unroll
+        for (int d = 0; d < D; ++d) gs[d] += ka * diff[d];
+      }
+      part[g * (1 + D)] = m;
+#pragma unroll
+      for (int d = 0; d < D; ++d) part[g * (1 + D) + 1 + d] = gs[d];
     }
-    const float ka = sf2 * expf(-0.5f * dist2) * a[j];
-    m += ka;
+    if constexpr (TEAM > 1) {
+      float* buf = red + parity * TEAM * NV * lanes;
+      parity ^= 1;
 #pragma unroll
-    for (int d = 0; d < D; ++d) gs[d] += ka * diff[d];
+      for (int v = 0; v < NV; ++v) buf[(member * NV + v) * lanes + lane] = part[v];
+      __syncthreads();
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        float sum = buf[v * lanes + lane];
+#pragma unroll
+        for (int t = 1; t < TEAM; ++t) sum += buf[(t * NV + v) * lanes + lane];
+        part[v] = sum;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float* inv = hyp + g * (1 + D) + 1;
+      mean[g] = part[g * (1 + D)];
+#pragma unroll
+      for (int d = 0; d < D; ++d) grad[g][d] = part[g * (1 + D) + 1 + d] * inv[d];
+    }
   }
-  mean = m;
-#pragma unroll
-  for (int d = 0; d < D; ++d) grad[d] = gs[d] * inv[d];
-}
+};
 
 // ---- quadrotor: models/quadrotor.py plus thrust, roll-rate, pitch-rate GPs --
 
 struct Quad {
-  static constexpr int NX = 12, NU = 4, G = 3, D = 3;
+  static constexpr int NX = 12, NU = 4, G = 3, D = 3, TEAM = FAMILY_TEAM(1);
   struct Jac {  // non-constant entries of the continuous Jacobian
     float x1_6, x1_7, x1_8, x3_6, x3_7, x3_8, x5_6, x5_7, x9_6, x9_9, x10_7, x10_10;
     float u1_0, u3_0, u5_0, u9_1, u10_2;
@@ -77,8 +141,9 @@ struct Quad {
 
   // f(x, u) and its Jacobian entries (models/jacobians.py's closed forms plus
   // the GP terms; the GP rotation is the psi = 0 slice). par = [a..l].
-  static __device__ void fc_and_jac(const float* par, const GpShared& gp, bool use_gp,
-                                    const float x[NX], const float u[NU], float f[NX], Jac& J) {
+  template <class Gp>
+  static __device__ void fc_and_jac(const float* par, Gp& gp, bool use_gp, const float x[NX],
+                                    const float u[NU], float f[NX], Jac& J) {
     const float pa = par[0], pb = par[1], pc = par[2], pd = par[3];
     const float pe = par[4], pf = par[5], ph = par[6], pl = par[7];
     const float phi = x[6], theta = x[7], psi = x[8];
@@ -88,16 +153,16 @@ struct Quad {
     const float cpsi = cosf(psi), spsi = sinf(psi);
     const float acc = pa * u[0] + pb;
 
-    float Tp = 0.0f, Rp = 0.0f, Pp = 0.0f;
-    float dT[D] = {0.0f, 0.0f, 0.0f}, dR[D] = {0.0f, 0.0f, 0.0f}, dP[D] = {0.0f, 0.0f, 0.0f};
+    float gm[G] = {0.0f, 0.0f, 0.0f}, gd[G][D] = {};
     if (use_gp) {
-      const float zT[D] = {u[0], 0.0f, 0.0f};  // the thrust GP sees (u0, 0, 0)
-      const float zR[D] = {phi, dphi, u[1]};
-      const float zP[D] = {theta, dtheta, u[2]};
-      gp_mean_grad<D>(gp, 0, zT, Tp, dT);
-      gp_mean_grad<D>(gp, 1, zR, Rp, dR);
-      gp_mean_grad<D>(gp, 2, zP, Pp, dP);
+      // thrust GP (u0, 0, 0), roll-rate GP (phi, dphi, u1), pitch-rate GP
+      const float z[G][D] = {{u[0], 0.0f, 0.0f}, {phi, dphi, u[1]}, {theta, dtheta, u[2]}};
+      gp.mean_grad(z, gm, gd);
     }
+    const float Tp = gm[0], Rp = gm[1], Pp = gm[2];
+    const float* dT = gd[0];
+    const float* dR = gd[1];
+    const float* dP = gd[2];
 
     f[0] = x[1];
     f[1] = acc * (cphi * sth * cpsi + sphi * spsi) + Tp * cphi * sth;
@@ -169,25 +234,27 @@ struct Quad {
 // GP0 sees (v, w, F) and adds to x''; GP1 sees (theta, w, F) and adds to theta''.
 
 struct Cart {
-  static constexpr int NX = 4, NU = 1, G = 2, D = 3;
+  static constexpr int NX = 4, NU = 1, G = 2, D = 3, TEAM = FAMILY_TEAM(1);
   struct Jac {  // rows 1 (x'') and 3 (theta''); rows 0 and 2 are constant
     float x1_1, x1_2, x1_3, x3_2, x3_3, u1_0, u3_0;
   };
 
-  static __device__ void fc_and_jac(const float* par, const GpShared& gp, bool use_gp,
-                                    const float x[NX], const float u[NU], float f[NX], Jac& J) {
+  template <class Gp>
+  static __device__ void fc_and_jac(const float* par, Gp& gp, bool use_gp, const float x[NX],
+                                    const float u[NU], float f[NX], Jac& J) {
     const float mc = par[0], mp = par[1], len = par[2];
     const float M = mc + mp, k = mp * len / M;
     const float v = x[1], th = x[2], w = x[3], F = u[0];
     const float s = sinf(th), c = cosf(th);
 
-    float g0 = 0.0f, g1 = 0.0f, d0[D] = {0.0f, 0.0f, 0.0f}, d1[D] = {0.0f, 0.0f, 0.0f};
+    float gm[G] = {0.0f, 0.0f}, gd[G][D] = {};
     if (use_gp) {
-      const float z0[D] = {v, w, F};
-      const float z1[D] = {th, w, F};
-      gp_mean_grad<D>(gp, 0, z0, g0, d0);
-      gp_mean_grad<D>(gp, 1, z1, g1, d1);
+      const float z[G][D] = {{v, w, F}, {th, w, F}};
+      gp.mean_grad(z, gm, gd);
     }
+    const float g0 = gm[0], g1 = gm[1];
+    const float* d0 = gd[0];
+    const float* d1 = gd[1];
 
     const float p = (F + mp * len * w * w * s) / M;
     const float e = len * (4.0f / 3.0f - mp * c * c / M);
@@ -241,14 +308,15 @@ struct Cart {
 // the chain-rule factor 0.1.
 
 struct TwoLink {
-  static constexpr int NX = 4, NU = 2, G = 2, D = 6;
+  static constexpr int NX = 4, NU = 2, G = 2, D = 6, TEAM = FAMILY_TEAM(2);
   static constexpr float TAU_SCALE = 0.1f;
   struct Jac {  // rows 2 and 3 (ddq1, ddq2); rows 0 and 1 are constant
     float x[2][NX], u[2][NU];
   };
 
-  static __device__ void fc_and_jac(const float* par, const GpShared& gp, bool use_gp,
-                                    const float x[NX], const float u[NU], float f[NX], Jac& J) {
+  template <class Gp>
+  static __device__ void fc_and_jac(const float* par, Gp& gp, bool use_gp, const float x[NX],
+                                    const float u[NU], float f[NX], Jac& J) {
     const float m1 = par[0], m2 = par[1], l1 = par[2], l2 = par[3];
     const float lc1 = 0.5f * l1, lc2 = 0.5f * l2;
     const float i1 = m1 * l1 * l1 / 12.0f, i2 = m2 * l2 * l2 / 12.0f;
@@ -259,11 +327,15 @@ struct TwoLink {
     const float q1 = x[0], q2 = x[1], dq1 = x[2], dq2 = x[3];
     const float c2 = cosf(q2), s2 = sinf(q2), c12 = cosf(q1 + q2), s12 = sinf(q1 + q2);
 
-    float gm[2] = {0.0f, 0.0f}, gd[2][D] = {};
+    float gm[G] = {0.0f, 0.0f}, gd[G][D] = {};
     if (use_gp) {
-      const float z[D] = {q1, q2, dq1, dq2, TAU_SCALE * u[0], TAU_SCALE * u[1]};
-      gp_mean_grad<D>(gp, 0, z, gm[0], gd[0]);
-      gp_mean_grad<D>(gp, 1, z, gm[1], gd[1]);
+      const float zi[D] = {q1, q2, dq1, dq2, TAU_SCALE * u[0], TAU_SCALE * u[1]};
+      float z[G][D];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int d = 0; d < D; ++d) z[g][d] = zi[d];
+      gp.mean_grad(z, gm, gd);
     }
 
     const float m11 = k1 + 2.0f * a * c2, m12 = k2 + a * c2, m22 = k2;
@@ -315,78 +387,93 @@ struct TwoLink {
 };
 
 template <class Fam>
-__global__ void linearize_kernel(const float* __restrict__ par8,   // (8,)
-                                 const float* __restrict__ hyp,    // (G, 1+D)
-                                 const float* __restrict__ X,      // (n_tiles, T+1, NX, L)
-                                 const float* __restrict__ U,      // (n_tiles, T, NU, L)
-                                 const float* __restrict__ Zs,     // (G, Ms, D)
-                                 const float* __restrict__ alpha,  // (G, Ms)
-                                 int T, int L, int Ms, bool use_gp, float dt,
-                                 float* __restrict__ fnext,        // (n_tiles, T, NX, L)
-                                 float* __restrict__ Aout,         // (n_tiles, T, NX, NX, L)
-                                 float* __restrict__ Bout) {       // (n_tiles, T, NX, NU, L)
-  constexpr int NX = Fam::NX, NU = Fam::NU, G = Fam::G, D = Fam::D;
+__global__ void __launch_bounds__(kThreads)
+    linearize_kernel(const float* __restrict__ par8,   // (8,)
+                     const float* __restrict__ hyp,    // (G, 1+D)
+                     const float* __restrict__ X,      // (n_tiles, T+1, NX, L)
+                     const float* __restrict__ U,      // (n_tiles, T, NU, L)
+                     const float* __restrict__ Zs,     // (G, Ms, D)
+                     const float* __restrict__ alpha,  // (G, Ms)
+                     int T, int L, int Ms, bool use_gp, float dt,
+                     float* __restrict__ fnext,        // (n_tiles, T, NX, L)
+                     float* __restrict__ Aout,         // (n_tiles, T, NX, NX, L)
+                     float* __restrict__ Bout) {       // (n_tiles, T, NX, NU, L)
+  constexpr int NX = Fam::NX, NU = Fam::NU, G = Fam::G, D = Fam::D, TEAM = Fam::TEAM;
+  using Gp = GpTeam<G, D, TEAM>;
   extern __shared__ float smem[];
+  const int lanes = blockDim.x;
+  const int tid = threadIdx.y * lanes + threadIdx.x, nthreads = lanes * TEAM;
   float* par_s = smem;                  // 8
   float* hyp_s = par_s + 8;             // G*(1+D)
   float* Zs_s = hyp_s + G * (1 + D);    // G*Ms*D
   float* alpha_s = Zs_s + G * Ms * D;   // G*Ms
-  for (int i = threadIdx.x; i < 8; i += blockDim.x) par_s[i] = par8[i];
-  for (int i = threadIdx.x; i < G * (1 + D); i += blockDim.x) hyp_s[i] = hyp[i];
-  for (int i = threadIdx.x; i < G * Ms * D; i += blockDim.x) Zs_s[i] = Zs[i];
-  for (int i = threadIdx.x; i < G * Ms; i += blockDim.x) alpha_s[i] = alpha[i];
+  float* red_s = alpha_s + G * Ms;      // 2*TEAM*NV*lanes
+  for (int i = tid; i < 8; i += nthreads) par_s[i] = par8[i];
+  for (int i = tid; i < G * (1 + D); i += nthreads) hyp_s[i] = hyp[i];
+  for (int i = tid; i < G * Ms * D; i += nthreads) Zs_s[i] = Zs[i];
+  for (int i = tid; i < G * Ms; i += nthreads) alpha_s[i] = alpha[i];
   __syncthreads();
-  const GpShared gp{Zs_s, alpha_s, hyp_s, Ms};
+  Gp gp{Zs_s, alpha_s, hyp_s, Ms, red_s, (int)threadIdx.y, (int)threadIdx.x, lanes, 0};
 
-  gpmpc::ConstLaneView Xl = gpmpc::lane_view(X, (long)(T + 1) * NX, L);
-  gpmpc::ConstLaneView Ul = gpmpc::lane_view(U, (long)T * NU, L);
-  gpmpc::LaneView Fl = gpmpc::lane_view(fnext, (long)T * NX, L);
-  gpmpc::LaneView Al = gpmpc::lane_view(Aout, (long)T * NX * NX, L);
-  gpmpc::LaneView Bl = gpmpc::lane_view(Bout, (long)T * NX * NU, L);
+  const int chunks = (L + lanes - 1) / lanes;
+  const int tile = blockIdx.x / chunks;
+  const int lane = (blockIdx.x % chunks) * lanes + threadIdx.x;
+  const bool store = lane < L;  // a lane past L computes lane L - 1 and stores nothing
+  const int lane_c = store ? lane : L - 1;
+  const gpmpc::ConstLaneView Xl{X + gpmpc::lane_offset(tile, lane_c, (long)(T + 1) * NX, L), L};
+  const gpmpc::ConstLaneView Ul{U + gpmpc::lane_offset(tile, lane_c, (long)T * NU, L), L};
+  const gpmpc::LaneView Fl{fnext + gpmpc::lane_offset(tile, lane_c, (long)T * NX, L), L};
+  const gpmpc::LaneView Al{Aout + gpmpc::lane_offset(tile, lane_c, (long)T * NX * NX, L), L};
+  const gpmpc::LaneView Bl{Bout + gpmpc::lane_offset(tile, lane_c, (long)T * NX * NU, L), L};
   const float h = 0.5f * dt;
   const float dt6 = dt / 6.0f;
-
-  for (int k = 0; k < T; ++k) {
-    float x[NX], u[NU], xs[NX], kf[NX], ksum[NX];
-    for (int i = 0; i < NX; ++i) x[i] = Xl[k * NX + i];
-    for (int i = 0; i < NU; ++i) u[i] = Ul[k * NU + i];
-    typename Fam::Jac J1, J2, J3, J4;
-    Fam::fc_and_jac(par_s, gp, use_gp, x, u, kf, J1);
-    for (int i = 0; i < NX; ++i) { ksum[i] = kf[i]; xs[i] = x[i] + h * kf[i]; }
-    Fam::fc_and_jac(par_s, gp, use_gp, xs, u, kf, J2);
-    for (int i = 0; i < NX; ++i) { ksum[i] += 2.0f * kf[i]; xs[i] = x[i] + h * kf[i]; }
-    Fam::fc_and_jac(par_s, gp, use_gp, xs, u, kf, J3);
-    for (int i = 0; i < NX; ++i) { ksum[i] += 2.0f * kf[i]; xs[i] = x[i] + dt * kf[i]; }
-    Fam::fc_and_jac(par_s, gp, use_gp, xs, u, kf, J4);
+  const int k = blockIdx.y;
+  float x[NX], u[NU], xs[NX], kf[NX], ksum[NX];
+  for (int i = 0; i < NX; ++i) x[i] = Xl[k * NX + i];
+  for (int i = 0; i < NU; ++i) u[i] = Ul[k * NU + i];
+  typename Fam::Jac J1, J2, J3, J4;
+  Fam::fc_and_jac(par_s, gp, use_gp, x, u, kf, J1);
+  for (int i = 0; i < NX; ++i) { ksum[i] = kf[i]; xs[i] = x[i] + h * kf[i]; }
+  Fam::fc_and_jac(par_s, gp, use_gp, xs, u, kf, J2);
+  for (int i = 0; i < NX; ++i) { ksum[i] += 2.0f * kf[i]; xs[i] = x[i] + h * kf[i]; }
+  Fam::fc_and_jac(par_s, gp, use_gp, xs, u, kf, J3);
+  for (int i = 0; i < NX; ++i) { ksum[i] += 2.0f * kf[i]; xs[i] = x[i] + dt * kf[i]; }
+  Fam::fc_and_jac(par_s, gp, use_gp, xs, u, kf, J4);
+  if (store && threadIdx.y == 0)
     for (int i = 0; i < NX; ++i) Fl[k * NX + i] = x[i] + dt6 * (ksum[i] + kf[i]);
 
-    // Column c of [A | B]: e = unit column (state) or 0 (input).
-    for (int c = 0; c < NX + NU; ++c) {
-      float m[NX], n[NX], s[NX];
-      for (int i = 0; i < NX; ++i) m[i] = 0.0f;
-      if (c < NX) m[c] = 1.0f;
-      Fam::jac_col(J1, m, c, n);  // J1 e (+ J1u column)
-      for (int i = 0; i < NX; ++i) {
-        s[i] = n[i];
-        m[i] = (i == c ? 1.0f : 0.0f) + h * n[i];
-      }
-      Fam::jac_col(J2, m, c, n);
-      for (int i = 0; i < NX; ++i) {
-        s[i] += 2.0f * n[i];
-        m[i] = (i == c ? 1.0f : 0.0f) + h * n[i];
-      }
-      Fam::jac_col(J3, m, c, n);
-      for (int i = 0; i < NX; ++i) {
-        s[i] += 2.0f * n[i];
-        m[i] = (i == c ? 1.0f : 0.0f) + dt * n[i];
-      }
-      Fam::jac_col(J4, m, c, n);
-      if (c < NX) {
-        for (int i = 0; i < NX; ++i)
-          Al[(k * NX + i) * NX + c] = (i == c ? 1.0f : 0.0f) + dt6 * (s[i] + n[i]);
-      } else {
-        for (int i = 0; i < NX; ++i) Bl[(k * NX + i) * NU + (c - NX)] = dt6 * (s[i] + n[i]);
-      }
+  // Column c of [A | B]: e = unit column (state) or 0 (input). Member t
+  // takes the columns c = t (mod TEAM); the loop is unrolled so that every
+  // index into m and J is a constant (registers, no local memory), and the
+  // test is uniform across a warp (a warp holds one member).
+#pragma unroll
+  for (int c = 0; c < NX + NU; ++c) {
+    if (c % TEAM != (int)threadIdx.y) continue;
+    float m[NX], n[NX], s[NX];
+    for (int i = 0; i < NX; ++i) m[i] = 0.0f;
+    if (c < NX) m[c] = 1.0f;
+    Fam::jac_col(J1, m, c, n);  // J1 e (+ J1u column)
+    for (int i = 0; i < NX; ++i) {
+      s[i] = n[i];
+      m[i] = (i == c ? 1.0f : 0.0f) + h * n[i];
+    }
+    Fam::jac_col(J2, m, c, n);
+    for (int i = 0; i < NX; ++i) {
+      s[i] += 2.0f * n[i];
+      m[i] = (i == c ? 1.0f : 0.0f) + h * n[i];
+    }
+    Fam::jac_col(J3, m, c, n);
+    for (int i = 0; i < NX; ++i) {
+      s[i] += 2.0f * n[i];
+      m[i] = (i == c ? 1.0f : 0.0f) + dt * n[i];
+    }
+    Fam::jac_col(J4, m, c, n);
+    if (!store) continue;
+    if (c < NX) {
+      for (int i = 0; i < NX; ++i)
+        Al[(k * NX + i) * NX + c] = (i == c ? 1.0f : 0.0f) + dt6 * (s[i] + n[i]);
+    } else {
+      for (int i = 0; i < NX; ++i) Bl[(k * NX + i) * NU + (c - NX)] = dt6 * (s[i] + n[i]);
     }
   }
 }
@@ -396,14 +483,20 @@ int launch_family(int nx, int nu, const float* par8, const float* hyp, const flo
                   const float* U, const float* Zs, const float* alpha, int n_tiles, int T, int L,
                   int Ms, int use_gp, float dt, float* fnext, float* A, float* B,
                   cudaStream_t stream) {
+  constexpr int G = Fam::G, D = Fam::D, TEAM = Fam::TEAM;
   if (nx != Fam::NX || nu != Fam::NU) return gpmpc::kUnsupported;
-  constexpr int G = Fam::G, D = Fam::D;
-  const size_t smem = sizeof(float) * (8 + G * (1 + D) + (size_t)G * Ms * D + (size_t)G * Ms);
+  if (n_tiles <= 0 || T <= 0 || T > 65535 || L <= 0 || L > 1024) return gpmpc::kUnsupported;
+  // whole warps of lanes, fewer than 128 / TEAM where the tile is narrower
+  const int lanes = min(kThreads / TEAM, 32 * ((L + 31) / 32));
+  const size_t red = TEAM > 1 ? 2 * (size_t)TEAM * GpTeam<G, D, TEAM>::NV * lanes : 0;
+  const size_t smem =
+      sizeof(float) * (8 + G * (1 + D) + (size_t)G * Ms * D + (size_t)G * Ms + red);
   cudaError_t err = cudaFuncSetAttribute(
       linearize_kernel<Fam>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  linearize_kernel<Fam><<<n_tiles, L, smem, stream>>>(par8, hyp, X, U, Zs, alpha, T, L, Ms,
-                                                      use_gp != 0, dt, fnext, A, B);
+  const dim3 grid(n_tiles * ((L + lanes - 1) / lanes), T);
+  linearize_kernel<Fam><<<grid, dim3(lanes, TEAM), smem, stream>>>(
+      par8, hyp, X, U, Zs, alpha, T, L, Ms, use_gp != 0, dt, fnext, A, B);
   return (int)cudaGetLastError();
 }
 

@@ -194,17 +194,7 @@ struct Team {
 
 // ---- staging [A_k | B_k] -------------------------------------------------------
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// (cp_async4, cp_async_commit and cp_async_wait: lanes.cuh)
 
 // Issue the copy of stage k's [A_k | B_k] for the block's spb lanes into dst:
 // entry (j, c) of scenario s at dst[s * SLAB + j * RW + c], so that a team

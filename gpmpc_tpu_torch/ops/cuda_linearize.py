@@ -3,10 +3,12 @@
 Port of `gpmpc_tpu/ops/pallas_linearize.py::linearize_ocp_lanes` with its
 family closures (`_FAMILY_FC_JAC`: the quadrotor, the cartpole and the
 two-link arm). The CUDA kernel is `csrc/linearize.cu`, a template on a family
-trait; `linearize_ocp_lanes_plain` computes the same RK4 step and Jacobian
-chain in plain PyTorch, with the closures below, which the wrapper runs for
-CPU tensors. `FAMILIES` is the registry both read: a family's widths, its GP
-count and input width, and the id the C launcher dispatches on.
+trait with the stages in the grid and a team of threads per (scenario,
+stage), the team a constant of the trait; `linearize_ocp_lanes_plain`
+computes the same RK4 step and Jacobian chain in plain PyTorch, with the
+closures below, which the wrapper runs for CPU tensors. `FAMILIES` is the
+registry both read: a family's widths, its GP count and input width, and the
+id the C launcher dispatches on.
 """
 
 from __future__ import annotations
@@ -264,7 +266,8 @@ def linearize_ocp_lanes(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel wrapper with `linearize_ocp_lanes_plain`'s signature. CPU tensors
     take the plain version; CUDA tensors launch `linearize_kernel` for the
-    family, one block per tile. Shapes are checked against the family."""
+    family (one launch a call, counted in `launches`). Shapes are checked
+    against the family on both routes."""
     fam = family_of(family)
     dev = X.device
     n, Tp1, _, L = X.shape

@@ -1,10 +1,14 @@
-"""Chance-constraint covariance recursion: kernel 2 of the port.
+"""Chance-constraint tightening: kernel 2 of the port.
 
-Port of `gpmpc_tpu/ops/pallas_tighten.py::tighten_lanes`. The CUDA kernel is
-`csrc/tighten.cu` (one thread per scenario, lane tiles of width `lanes`,
-instantiated for the (nx, nu) pairs in `_wrap.KERNEL_SHAPES`);
-`tighten_lanes_plain` is the recursion in plain PyTorch, batched over B, which
-the wrapper runs for CPU tensors.
+Port of `gpmpc_tpu/ops/pallas_tighten.py::tighten_lanes`. The CUDA route
+(`csrc/tighten.cu`, instantiated for the (nx, nu) pairs in
+`_wrap.KERNEL_SHAPES`) computes the direct form of the covariance recursion:
+since A, B, K and Bd are shared and only the diagonal D varies, the diagonals
+of the covariance are triangular Toeplitz sums of D against the squared
+weights W_m = (A + B K)^m Bd and V_m = K W_m (`tighten_weights_plain`, formed
+in float64). `tighten_lanes_plain` is the recursion in plain PyTorch, batched
+over B, which the wrapper runs for CPU tensors; `tighten_direct_plain` is the
+direct form in plain PyTorch, the CUDA route's oracle on the CPU.
 """
 
 from __future__ import annotations
@@ -49,6 +53,61 @@ def tighten_lanes_plain(
     return torch.stack(tx, dim=1), torch.stack(tu, dim=1)
 
 
+def tighten_weights_plain(
+    Ad: torch.Tensor,  # (nx, nx)
+    Bd_in: torch.Tensor,  # (nx, nu)
+    lqr_gain: torch.Tensor,  # (nu, nx)
+    Bd: torch.Tensor,  # (nx, nd)
+    T: int,
+) -> torch.Tensor:
+    """(T, nx + nu, nd) float32: the elementwise squares of W_m = Acl^m Bd
+    (rows 0..nx-1) and V_m = K W_m (rows nx..), m = 0..T-1, Acl = A + B K,
+    all formed in float64 from the float32 inputs (the twin of
+    `csrc/tighten.cu::tighten_weights_kernel`)."""
+    f64 = torch.float64
+    A, Bm, K, W = Ad.to(f64), Bd_in.to(f64), lqr_gain.to(f64), Bd.to(f64)
+    acl = A + Bm @ K
+    rows = []
+    for _ in range(T):
+        rows.append(torch.cat([W, K @ W], dim=0))
+        W = acl @ W
+    nx, nd = Bd.shape
+    if not rows:
+        return Bd.new_zeros(0, nx + K.shape[0], nd)
+    return (torch.stack(rows) ** 2).to(torch.float32)
+
+
+def expanded_weights(wsq: torch.Tensor) -> torch.Tensor:
+    """(T nd, (T+1) R) float32 matrix M of the direct form, R = nx + nu:
+    M[(j, q), (k, r)] = wsq[k-1-j, r, q] for j < k, else 0, so that the state
+    and input variances of a scenario are its diagonals D (T nd,) times M."""
+    T, R, nd = wsq.shape
+    j = torch.arange(T, device=wsq.device)[:, None]
+    k = torch.arange(T + 1, device=wsq.device)[None, :]
+    m = k - 1 - j  # (T, T+1)
+    M = wsq[m.clamp_min(0)] * (m >= 0)[:, :, None, None]  # (T, T+1, R, nd)
+    return M.permute(0, 3, 1, 2).reshape(T * nd, (T + 1) * R)
+
+
+def tighten_direct_plain(
+    cov_dn: torch.Tensor,
+    Ad: torch.Tensor,
+    Bd_in: torch.Tensor,
+    lqr_gain: torch.Tensor,
+    Bd: torch.Tensor,
+    inverse_cdf: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`tighten_lanes_plain`'s function in the direct form the CUDA route
+    computes: var = D @ `expanded_weights` in float32 with float64-formed
+    weights, then ppf * sqrt(max(var, 0))."""
+    B, T, nd = cov_dn.shape
+    nx, nu = Bd_in.shape
+    M = expanded_weights(tighten_weights_plain(Ad, Bd_in, lqr_gain, Bd, T))
+    var = (cov_dn.reshape(B, T * nd) @ M).reshape(B, T + 1, nx + nu)
+    t = inverse_cdf * torch.sqrt(torch.clamp_min(var, 0.0))
+    return t[:, :, :nx].contiguous(), t[:, :T, nx:].contiguous()
+
+
 def tighten_lanes(
     cov_dn: torch.Tensor,
     Ad: torch.Tensor,
@@ -59,8 +118,11 @@ def tighten_lanes(
     lanes: int = LANES,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper with `tighten_lanes_plain`'s signature. CPU tensors take
-    the plain version; CUDA tensors launch `tighten_kernel` over
-    ceil(B / lanes) tiles (padded scenarios are zero and dropped)."""
+    the plain version (the recursion); CUDA tensors launch the two kernels of
+    `csrc/tighten.cu`, the squared weights into a (T, nx + nu, nd) workspace
+    and then the sums, which write t_x and t_u in place (`lanes` does not
+    enter the CUDA route). `launches` counts wrapper calls: one per call,
+    for both kernels."""
     dev = cov_dn.device
     B, T, nd = cov_dn.shape
     nx, nu = Bd_in.shape
@@ -74,25 +136,17 @@ def tighten_lanes(
         return tighten_lanes_plain(cov_dn, Ad, Bd_in, lqr_gain, Bd, inverse_cdf, lanes)
 
     check_widths("tighten", nx, nu)
-    if B == 0:
-        raise ValueError("tighten kernel needs B > 0")
-    smem = 4 * (nx * nx + nu * nx + nx * nd + 2 * nx * nx * lanes)
-    if smem > 232448 or lanes > 1024:
-        raise ValueError(f"lanes={lanes} needs {smem} bytes of shared memory per block")
-    B_pad = B + (-B) % lanes
-    n_tiles = B_pad // lanes
-    x = torch.nn.functional.pad(cov_dn, (0, 0, 0, 0, 0, B_pad - B))
-    tiles = x.reshape(n_tiles, lanes, T, nd).permute(0, 2, 3, 1).contiguous()
-    tx = torch.empty(n_tiles, T + 1, nx, lanes, dtype=torch.float32, device=dev)
-    tu = torch.empty(n_tiles, T, nu, lanes, dtype=torch.float32, device=dev)
+    if B == 0 or nd == 0:
+        raise ValueError("tighten kernel needs B > 0 and nd > 0")
+    wsq = torch.empty(T, nx + nu, nd, dtype=torch.float32, device=dev)
+    tx = torch.empty(B, T + 1, nx, dtype=torch.float32, device=dev)
+    tu = torch.empty(B, T, nu, dtype=torch.float32, device=dev)
     p = _build.ptr
     _build.launch(
-        "tighten_launch", p(tiles), p(Ad), p(Bd_in), p(lqr_gain), p(Bd), p(inverse_cdf),
-        n_tiles, T, nd, lanes, nx, nu, p(tx), p(tu), _build.stream_handle(dev),
+        "tighten_launch", p(cov_dn), p(Ad), p(Bd_in), p(lqr_gain), p(Bd), p(inverse_cdf),
+        B, T, nd, nx, nu, p(wsq), p(tx), p(tu), _build.stream_handle(dev),
     )
     tighten_lanes.launches += 1
-    tx = tx.permute(0, 3, 1, 2).reshape(B_pad, T + 1, nx)[:B]
-    tu = tu.permute(0, 3, 1, 2).reshape(B_pad, T, nu)[:B]
     return tx, tu
 
 

@@ -72,17 +72,30 @@ WIDTHS = [(12, 4, [1, 3, 5, 9, 10]), (4, 1, [1, 3]), (4, 2, [2, 3])]
 
 
 @pytest.mark.parametrize("nx,nu,unc", WIDTHS)
-@pytest.mark.parametrize("B,T", [(5, 7), (1024, 25)])
+@pytest.mark.parametrize("B,T", [(5, 7), (1024, 25), (1, 1), (1000, 25), (256, 512)])
 def test_tighten_kernel_matches_plain(dev, B, T, nx, nu, unc):
+    """The direct form on the card against the recursion, one wrapper launch
+    a call. At T=512 the perturbations of A, B and K are halved, so that the
+    covariance stays inside float32 (at full size it overflows at 12x4), and
+    the reference is the recursion in float64: on this data the float32
+    recursion itself drifts from it by more than the bar at 12x4, where the
+    direct form stays well inside it."""
     rng = np.random.default_rng(B)
-    A = np.eye(nx) + 0.02 * rng.normal(size=(nx, nx))
+    s = 0.5 if T > 100 else 1.0
+    A = np.eye(nx) + 0.02 * s * rng.normal(size=(nx, nx))
     args = (
         _t(rng.uniform(1e-6, 4e-4, (B, T, len(unc))), dev), _t(A, dev),
-        _t(0.05 * rng.normal(size=(nx, nu)), dev), _t(0.3 * rng.normal(size=(nu, nx)), dev),
+        _t(0.05 * s * rng.normal(size=(nx, nu)), dev), _t(0.3 * s * rng.normal(size=(nu, nx)), dev),
         _t(np.eye(nx)[:, unc], dev), _t(1.7, dev),
     )
+    before = cuda_tighten.tighten_lanes.launches
     tx_k, tu_k = cuda_tighten.tighten_lanes(*args)
-    tx_p, tu_p = cuda_tighten.tighten_lanes_plain(*args)
+    assert cuda_tighten.tighten_lanes.launches == before + 1
+    if T > 100:
+        tx_p, tu_p = (t.float() for t in cuda_tighten.tighten_lanes_plain(*(a.double() for a in args)))
+    else:
+        tx_p, tu_p = cuda_tighten.tighten_lanes_plain(*args)
+    torch.cuda.synchronize()
     assert tx_k.shape == (B, T + 1, nx) and tu_k.shape == (B, T, nu)
     assert _maxdiff(tx_k, tx_p) <= 1e-5 * max(1.0, float(tx_p.abs().max()))
     assert _maxdiff(tu_k, tu_p) <= 1e-5 * max(1.0, float(tu_p.abs().max()))
@@ -95,31 +108,45 @@ PAR8 = {
 }
 
 
-def _states_inputs(family, rng, n_tiles, T):
+def _states_inputs(family, rng, n_tiles, T, L=LANES):
     """States and inputs in each family's operating range (as the reference's
-    tests/test_pallas_linearize.py draws them)."""
-    x_shape, u_shape = (n_tiles, T + 1, LANES), (n_tiles, T, LANES)
+    tests/test_pallas_linearize.py draws them), L lanes a tile."""
+    x_shape, u_shape = (n_tiles, T + 1, L), (n_tiles, T, L)
     if family == "quadrotor":
-        X = rng.normal(0, 0.3, (n_tiles, T + 1, 12, LANES))
+        X = rng.normal(0, 0.3, (n_tiles, T + 1, 12, L))
         U = np.stack([rng.uniform(0.15, 0.55, u_shape)]
                      + [rng.uniform(-0.3, 0.3, u_shape) for _ in range(3)], axis=2)
     elif family == "cartpole":
-        X = rng.normal(0, 0.3, (n_tiles, T + 1, 4, LANES))
-        U = rng.uniform(-5.0, 5.0, (n_tiles, T, 1, LANES))
+        X = rng.normal(0, 0.3, (n_tiles, T + 1, 4, L))
+        U = rng.uniform(-5.0, 5.0, (n_tiles, T, 1, L))
     else:
         X = np.stack([rng.uniform(-2.0, 0.2, x_shape), rng.uniform(-0.4, 1.8, x_shape),
                       rng.normal(0, 0.8, x_shape), rng.normal(0, 0.8, x_shape)], axis=2)
-        U = rng.uniform(-12.0, 12.0, (n_tiles, T, 2, LANES))
+        U = rng.uniform(-12.0, 12.0, (n_tiles, T, 2, L))
     return X, U
 
 
 @pytest.mark.parametrize("family", ["quadrotor", "cartpole", "twolink"])
-@pytest.mark.parametrize("n_tiles,T,use_gp", [(1, 5, True), (1, 5, False), (8, 25, True)])
-def test_linearize_kernel_matches_plain(dev, n_tiles, T, use_gp, family):
+@pytest.mark.parametrize(
+    "n_tiles,T,L,use_gp,n_pad",
+    [(1, 5, LANES, True, 0), (1, 5, LANES, False, 0), (8, 25, LANES, True, 0),
+     (1, 1, LANES, True, 0), (1, 1, LANES, False, 0), (8, 100, LANES, True, 0),
+     (8, 100, LANES, False, 0), (2, 25, LANES, True, 28), (2, 25, LANES, False, 28),
+     (3, 7, 40, True, 0), (3, 7, 40, False, 0), (2, 25, 200, True, 0)],
+)
+def test_linearize_kernel_matches_plain(dev, n_tiles, T, L, use_gp, n_pad, family):
+    """The family's team at T=1, T=100, with a batch whose last `n_pad`
+    lanes are padding (zero states and inputs, as the SQP loop packs them),
+    and at tile widths L that leave the last block's lanes past L idle (40
+    and 200 are no multiple of a block's lanes at any team): finite and equal
+    to the plain version everywhere. One wrapper launch a call."""
     rng = np.random.default_rng(T)
     gp = convert.load_bench_gp(dev, family)
     G, _, D = gp.Zs.shape
-    X, U = _states_inputs(family, rng, n_tiles, T)
+    X, U = _states_inputs(family, rng, n_tiles, T, L)
+    if n_pad:
+        X[-1, ..., L - n_pad:] = 0.0
+        U[-1, ..., L - n_pad:] = 0.0
     ell = softplus(gp.hypers.raw_lengthscale)
     hyp = torch.cat([softplus(gp.hypers.raw_outputscale)[:, None],
                      (1.0 / ell**2)[:, None].expand(G, D)], dim=1).contiguous()
@@ -128,7 +155,9 @@ def test_linearize_kernel_matches_plain(dev, n_tiles, T, use_gp, family):
     before = cuda_linearize.linearize_ocp_lanes.launches
     f_k, A_k, B_k = cuda_linearize.linearize_ocp_lanes(*args, **kw)
     f_p, A_p, B_p = cuda_linearize.linearize_ocp_lanes_plain(*args, **kw)
+    torch.cuda.synchronize()
     assert cuda_linearize.linearize_ocp_lanes.launches == before + 1
+    assert all(bool(torch.isfinite(o).all()) for o in (f_k, A_k, B_k))
     assert _maxdiff(f_k, f_p) <= 2e-5
     assert _maxdiff(A_k, A_p) <= 2e-4
     assert _maxdiff(B_k, B_p) <= 2e-4

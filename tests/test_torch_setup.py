@@ -87,6 +87,41 @@ def test_gpmpc_consts_match_jax(family):
     assert tc.cfg._asdict() == jc.cfg._asdict()
 
 
+@pytest.mark.parametrize("case", ["quadrotor", "cartpole", "sparse_gp"])
+def test_gpmpc_positional_arguments_match_jax(case):
+    """F6: the port's GPMPC takes the reference's parameter list in its order,
+    so a positional call (here `sparse_gp=False` in the seventh place) builds
+    the same controller: every const that the arguments decide, the chance
+    quantile `inverse_cdf` among them, is bit for bit the reference's. Ad,
+    Bd_in and the LQR gain come from each framework's Jacobian of the prior
+    at the trim point and agree to rounding (test_gpmpc_consts_match_jax's
+    bar). `sparse_gp=True` needs the sparse GP, which is not ported."""
+    family = "quadrotor" if case == "sparse_gp" else case
+    model_j, env_j, model_t, prior, q, r, _, _, _ = family_config(family)
+    if env_j is None:
+        traj = DroneFigureEightEnv().trajectory
+    else:
+        traj = env_j.make_trajectory(env_j.EnvParams.default())
+    if case == "sparse_gp":
+        with pytest.raises(t_gpmpc.UnsupportedPathError, match="sparse_gp"):
+            t_gpmpc.GPMPC(model_t(), np.asarray(traj), prior, T, q, r, True, device="cpu")
+        return
+    jc = JGPMPC(model_j, traj, prior, T, q, r, False, 0.95, 40, 1, "cpu", None, 128, 6, 10)
+    tc = t_gpmpc.GPMPC(model_t(), np.asarray(traj), prior, T, q, r, False, 0.95, 40, 1, "cpu",
+                       None, 128, 6, 10)
+    for name in ("Bd", "inverse_cdf", "dt"):
+        np.testing.assert_array_equal(getattr(tc.consts, name).numpy(),
+                                      np.asarray(getattr(jc.consts, name)), err_msg=name)
+    for name in t_mpc.MpcConsts._fields:
+        np.testing.assert_array_equal(getattr(tc.consts.mpc, name).numpy(),
+                                      np.asarray(getattr(jc.consts.mpc, name)), err_msg=name)
+    for name in ("Ad", "Bd_in", "lqr_gain"):
+        _close(getattr(tc.consts, name), getattr(jc.consts, name))
+    assert tc.cfg._asdict() == jc.cfg._asdict()
+    assert (tc.max_gp_samples, tc.max_gp_points, tc.seed) == (40, 128, 1)
+    np.testing.assert_array_equal(t_gpmpc.GPMPC.U_EQ, JGPMPC.U_EQ)
+
+
 def test_init_state_and_reference_window_match_jax():
     jc, tc = _controllers()
     sj = j_mpc.init_state(T, 12, 4)

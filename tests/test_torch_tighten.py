@@ -16,6 +16,7 @@ from gpmpc_tpu.envs.drone import DroneFigureEightEnv
 from gpmpc_tpu.models import cartpole as j_cart
 from gpmpc_tpu.models import twolink as j_twolink
 from gpmpc_tpu.models.symbolic import symbolic_attitude as j_sym
+from gpmpc_tpu.ops.pallas_tighten import tighten_lanes as j_tighten_lanes
 from gpmpc_tpu.utils.benchkit import Q_MPC, R_MPC, reference_prior_dict
 from gpmpc_tpu_torch import convert
 from gpmpc_tpu_torch.control import gpmpc as t_gpmpc
@@ -107,6 +108,80 @@ def test_tightening_matches_jax_tightening_from_variances(family):
     np.testing.assert_allclose(tx_t.numpy(), np.asarray(tx_j, F32), atol=1e-6)
     np.testing.assert_allclose(tu_t.numpy(), np.asarray(tu_j, F32), atol=1e-6)
     assert tx_t[:, 1:, spec_t.uncertain_dim[0]].min() > 0  # variance reaches the uncertain rows
+
+
+# (nx, nu, uncertain rows) of the quadrotor, the cartpole and the two-link arm
+WIDTHS = {"quadrotor": (12, 4, [1, 3, 5, 9, 10]), "cartpole": (4, 1, [1, 3]),
+          "twolink": (4, 2, [2, 3])}
+
+
+def _weights_f32(Ad, Bd_in, lqr_gain, Bd, T):
+    """`tighten_weights_plain` with the powers formed in float32."""
+    acl, W, rows = Ad + Bd_in @ lqr_gain, Bd, []
+    for _ in range(T):
+        rows.append(torch.cat([W, lqr_gain @ W]))
+        W = acl @ W
+    return torch.stack(rows) ** 2
+
+
+@pytest.mark.parametrize("family", list(WIDTHS))
+@pytest.mark.parametrize("oracle,T", [("pallas", 5), ("scan", 25), ("recursion", 100),
+                                      ("recursion", 512)])
+def test_direct_tightening_matches_reference(family, oracle, T, monkeypatch):
+    """The direct form of the CUDA route (`tighten_weights_plain`, float64
+    weights, and `tighten_direct_plain`, float32 sums) against the
+    reference's Pallas kernel in interpret mode (T=5), its per-scenario scan
+    `tightening_from_variances` (T=25, the family's controller) and the
+    recursion `tighten_lanes_plain` (T=100, 512; on A = I + 0.02 N(0, 1) the
+    tightening grows to ~1e18 at T=512), B=8, within 1e-5 x max(1, max|t|).
+    At T=512 the same sums over weights formed in float32 are no closer than
+    over float64 ones (on this data: 1.6e-5 against 2.4e-6 relative at 4x1,
+    7.8e-6 against 1.2e-6 at 12x4)."""
+    nx, nu, unc = WIDTHS[family]
+    B = 8
+    rng = np.random.default_rng(T)
+    if oracle == "scan":
+        if family == "quadrotor":
+            _, jc, _, _ = _setup(train=False)
+            spec_t = t_gpmpc.QUADROTOR_SPEC
+        else:
+            jc, spec_t, _ = _family_setup(family)
+        zq = rng.normal(0, 0.4, (B, T, spec_t.z_dim)).astype(F32)
+        covs = rng.uniform(1e-3, 5e-2, (B, spec_t.num_gps, T)).astype(F32)
+        ref_x, ref_u = jax.jit(jax.vmap(
+            lambda z, c: j_gpmpc.tightening_from_variances(jc.consts, jc.gp_model, z, c, jc.spec)
+        ))(jnp.asarray(zq), jnp.asarray(covs))
+        cov_dn = jax.vmap(
+            lambda z, c: j_gpmpc.disturbance_diagonals(jc.consts, jc.gp_model, z, c, jc.spec)
+        )(jnp.asarray(zq), jnp.asarray(covs))
+        c = jc.consts
+        mats = [np.asarray(m, F32) for m in (cov_dn, c.Ad, c.Bd_in, c.lqr_gain, c.Bd, c.inverse_cdf)]
+    else:
+        A = np.eye(nx) + 0.02 * rng.normal(size=(nx, nx))  # test_torch_kernels_gpu.py's draws
+        mats = [rng.uniform(1e-6, 4e-4, (B, T, len(unc))), A, 0.05 * rng.normal(size=(nx, nu)),
+                0.3 * rng.normal(size=(nu, nx)), np.eye(nx)[:, unc], np.asarray(1.7)]
+        mats = [np.asarray(m, F32) for m in mats]
+    args = [torch.as_tensor(m) for m in mats]
+    if oracle == "pallas":
+        ref_x, ref_u = j_tighten_lanes(*map(jnp.asarray, mats), interpret=True)
+    elif oracle == "recursion":
+        ref_x, ref_u = cuda_tighten.tighten_lanes_plain(*args)
+    ref_x, ref_u = np.asarray(ref_x, F32), np.asarray(ref_u, F32)
+
+    def rel_err():
+        tx, tu = cuda_tighten.tighten_direct_plain(*args)
+        assert tx.shape == (B, T + 1, nx) and tu.shape == (B, T, nu)
+        scale = max(1.0, float(np.abs(ref_x).max()), float(np.abs(ref_u).max()))
+        return max(float(np.abs(tx.numpy() - ref_x).max()),
+                   float(np.abs(tu.numpy() - ref_u).max())) / scale
+
+    wsq = cuda_tighten.tighten_weights_plain(*args[1:5], T)
+    assert wsq.shape == (T, nx + nu, len(unc)) and wsq.dtype == torch.float32
+    err = rel_err()
+    assert err <= 1e-5
+    if T == 512:
+        monkeypatch.setattr(cuda_tighten, "tighten_weights_plain", _weights_f32)
+        assert rel_err() >= err
 
 
 @pytest.mark.parametrize(

@@ -13,13 +13,13 @@ linearization, the family's cost weights, boxes and `lm_reg`, the plant on the
 card), and the quadrotor with soft state bounds (`quadrotor-soft`,
 soft_constraints=50: the resident QP kernel's soft mode), at T=100, B=256
 (`quadrotor-T100`: the tier-1 streamed QP kernel) and at T=360, B=256 with
-soft bounds (`quadrotor-soft-T360`: the tier-2 streamed QP kernel, soft); then,
+soft bounds (`quadrotor-soft-T360`: the tier-2 QP kernel, soft); then,
 linearized in plain torch with only the QP, the tightening and (for a shared
 GP) the GP variances in kernels, the quadrotor with `kernel_linearize=False`
 (`quadrotor-jacfwd`, bench.py's BENCH_KERNEL_LIN=0, followed by a short run
 with `analytic_jac=True`, BENCH_ANALYTIC_JAC=1, whose actions must agree
 within 1e-4), at T=512, B=256 past the fused path's cap (`quadrotor-T512`:
-the tier-2 streamed QP kernel with hard bounds, one dispatch warning) and with
+the tier-2 QP kernel with hard bounds, one dispatch warning) and with
 a per-scenario GP population (`quadrotor-population`: the benchmark GP per
 scenario with `alpha_s` and the raw hyperparameters perturbed from a seeded
 generator). Phases, each printing its own lines:
@@ -28,8 +28,8 @@ generator). Phases, each printing its own lines:
      one nvcc per source in parallel, each source's time and ptxas's
      register and spill report for every instantiation; the resident QP
      kernel's launch geometry at each width (team, scenarios per block,
-     cluster, shared memory, blocks at B=1024 and B=256); the workspace the
-     QP wrappers allocate at each horizon cap;
+     cluster, shared memory, blocks at B=1024 and B=256), which tier 2
+     shares; the workspace the QP wrappers allocate at each horizon cap;
   1. per path, each kernel of the path against its plain PyTorch version on
      the card, on inputs captured from the path's first warm-started step and
      on seeded random inputs at the path's shapes (soft QPs with boxes tight
@@ -38,7 +38,10 @@ generator). Phases, each printing its own lines:
      kernel's device time with calls back to back (`device_ms`), the least
      time the card could take (`bound_ms`, see `Bound`) and, for kernel 2,
      one torch.matmul that gives the same variances (`library_ms`, see
-     `tighten_library_ms`). First of all the three chain
+     `tighten_library_ms`); for the QP kernels the IP iterations each tile
+     ran, which for kernel 6 must equal the plain version's. The GP entry of
+     a path is the multi-GP wrapper (all of a step's GPs in one launch).
+     First of all the three chain
      kernels against their plain versions on the reference's data after 4
      rounds (the chain leaves float32 after some ten) and, after 200 rounds, in
      where they are non-finite; the five roofline rows as their JSON lines;
@@ -49,14 +52,17 @@ generator). Phases, each printing its own lines:
      resident kernel at T=50 hard and soft, tier 1 at T=400 and at T=320
      soft, tier 2 at T=1024 and at T=768 soft), kernels 1-3 at T=400,
      kernel 2 at T=512 and T=1024 (12x4, B=256, beside its yardstick), the
-     resident kernel on the quadrotor path's captured QP cut to two tiles
-     (B=256) beside the whole one, and the resident kernel called directly on
-     the T=100 QP beside the streamed one;
+     multi-GP kernel at G = 2 and 3, D = 3 and 6, N = 25,637, on GPs whose
+     live points are not a prefix, the resident kernel on the quadrotor
+     path's captured QP cut to two tiles (B=256) beside the whole one, the
+     resident kernel called directly on the T=100 QP beside the streamed
+     one, and kernel 4 beside kernel 6 on the T=512 path's QP (printed);
   2. per path, the closed loop: warm-up and timed steps with every kernel's
      launch count (counts set to 0 just before the path's run and read just
      after: the path's QP wrapper must have launched, the other two not; a
      `lanes` path must not launch the linearize kernel, nor the population
-     path the GP kernel), the dispatch decision and its one-time warning,
+     path the GP kernel; a shared-GP path launches it once a step), the
+     dispatch decision and its one-time warning,
      finite actions, clamp fraction, soft violation, SQP iterations and QP
      gaps; then five `quadrotor-soft` steps with the GP's raw_outputscale at
      30, which must report soft violations and stay finite;
@@ -64,9 +70,9 @@ generator). Phases, each printing its own lines:
      port's plain path on the CPU: control RMSE against the card's actions
      <= 1e-3.
 
-`--profile` adds a torch.profiler pass over one step of each quadrotor path
-and prints the card's busy time with the idle share against the profiled
-step and against phase 2's unprofiled steps.
+`--profile` adds a torch.profiler pass over one step of each path and
+prints the card's busy time with the idle share against the profiled step
+and against phase 2's unprofiled steps.
 
 Prints a JSON line of per-kernel results (`kernels`: one entry per path and
 kernel, with the launches of that path's run, and the three chain kernels
@@ -220,7 +226,7 @@ QP_WRAPPERS = {
 }
 # kernel -> (wrapper, plain version, source, TPU kernel it replaces)
 KERNELS = {
-    "gp_posterior": (cuda_gp.gp_mean_var, cuda_gp.gp_mean_var_plain,
+    "gp_posterior": (cuda_gp.gp_mean_var_multi, cuda_gp.gp_mean_var_multi_plain,
                      "gpmpc_tpu_torch/csrc/gp_posterior.cu", "gpmpc_tpu/ops/pallas_gp.py:64"),
     "tighten": (cuda_tighten.tighten_lanes, cuda_tighten.tighten_lanes_plain,
                 "gpmpc_tpu_torch/csrc/tighten.cu", "gpmpc_tpu/ops/pallas_tighten.py:93"),
@@ -305,17 +311,20 @@ def tensor_bytes(*tensors) -> int:
 
 
 def bound_gp(args, out) -> Bound:
-    """N queries against the M live points in D dims: the kernel vector
-    (3 D + 2 per pair), the mean (2 M) and the variance's quadratic form
-    (2 M^2 + 2 M). The wrapper takes the points padded to the GP's capacity
-    with a mask; padded, masked points are no work, so both operations and
-    bytes count the live ones (Z, alpha and the M x M form at their live
-    size, the queries, the hyperparameters, mean and variance)."""
-    z, _, _, _, ell = args[:5]
-    n, d = z.shape
-    m = int((args[7] != 0).sum())
-    n_bytes = 4 * (n * d + m * d + m + m * m + ell.numel() + 2 + 2 * n)
-    return bound(n_bytes, n * (2 * m * m + m * (3 * d + 6)))
+    """Per GP of the launch, N queries against its M live points in D dims:
+    the kernel vector (3 D + 2 per pair), the mean (2 M) and the variance's
+    quadratic form (2 M^2 + 2 M). The packed form pads each GP's points to
+    a multiple of 8 with a zero mask; padded, masked points are no work, so
+    both operations and bytes count the live ones (Z, alpha and the M x M
+    form at their live size, the queries, the hyperparameters, mean and
+    variance)."""
+    z, form = args[:2]
+    g, n, d = z.shape
+    n_bytes, flops = 0, 0
+    for m in (int((form.mask[i] != 0).sum()) for i in range(g)):
+        n_bytes += 4 * (n * d + m * d + m + m * m + d + 2 + 2 * n)
+        flops += n * (2 * m * m + m * (3 * d + 6))
+    return bound(n_bytes, flops)
 
 
 def bound_tighten(args, out) -> Bound:
@@ -508,7 +517,7 @@ class Capture:
     def __init__(self, path: SmokePath):
         qp_attr = QP_WRAPPERS[path.qp][0].__name__
         sites = {
-            "gp_posterior": (gpmpc_mod, "gp_mean_var"),
+            "gp_posterior": (gpmpc_mod, "gp_mean_var_multi"),
             "tighten": (gpmpc_mod, "tighten_lanes"),
             "linearize": (sqp_lanes, "linearize_ocp_lanes"),
             "qp": (sqp_lanes, qp_attr),
@@ -599,7 +608,6 @@ def random_inputs(prob: Problem, T: int):
     gp, consts, model = prob.gp, prob.consts, prob.model
     nx, nu = model.nx, model.nu
     n_tiles = B // LANES
-    F = torch.nn.functional
     inputs = {}
     # kernel 2: disturbance diagonals in the range a trained GP produces
     inputs["tighten"] = (
@@ -611,16 +619,9 @@ def random_inputs(prob: Problem, T: int):
     if prob.path.population:
         return inputs
     G, _, D = gp.Zs.shape
-    # kernel 1: N = B*T queries against GP 0's padded variance form
-    pad = 128 - gp.var_Z.shape[1]
-    inputs["gp_posterior"] = (
-        (t(rng.normal(0, 0.4, (B * T, D))), F.pad(gp.var_Z[0], (0, 0, 0, pad)),
-         F.pad(gp.alpha_s[0], (0, pad)), F.pad(gp.var_mat[0], (0, pad, 0, pad)),
-         gpmpc_mod.softplus(gp.hypers.raw_lengthscale[0]),
-         gpmpc_mod.softplus(gp.hypers.raw_outputscale[0]),
-         gpmpc_mod.softplus(gp.hypers.raw_noise[0]) + 1e-6, F.pad(gp.var_mask[0], (0, pad))),
-        {},
-    )
+    # kernel 1: N = B*T queries per GP against the GPs' packed variance forms
+    inputs["gp_posterior"] = ((t(rng.normal(0, 0.4, (G, B * T, D))), gpmpc_mod.variance_form(gp)),
+                              {})
     # kernel 3: states and inputs as tests/test_pallas_linearize.py draws them
     xs, us = (n_tiles, T + 1, LANES), (n_tiles, T, LANES)
     if prob.family == "quadrotor":
@@ -655,6 +656,13 @@ def compare(entry, label, kind, fn, plain, a, k, time_plain=True):
         ms_p, runs_p, out_p, dev_ms = None, 0, plain(*a, **k), None
         torch.cuda.synchronize()
     err, ok = tolerance_check(kind, out_k, out_p)
+    if kind in ("ocp", "ocp_soft"):
+        # per-tile IP iterations; kernel 6 must run exactly the plain version's
+        its_k, its_p = fn.last_iterations.tolist(), plain.last_iterations.tolist()
+        say(f"[phase 1] {entry:28s} {label:12s}: IP iterations per tile, kernel {its_k}, plain "
+            f"{its_p}")
+        if fn is cuda_ocp.solve_ocp_qp_lanes_streamed2 and its_k != its_p:
+            raise RuntimeError(f"{entry}: per-tile IP iterations differ from the plain version's")
     times = f"kernel {ms_k:.4f} ms (median of {runs_k})"
     if time_plain:
         times += f", on the device {dev_ms:.4f} ms, plain {ms_p:.4f} ms (median of {runs_p})"
@@ -734,6 +742,50 @@ def check_kernels(prob: Problem, results: dict, captured: dict) -> None:
         prob.rates[name] = bnd.flops / (1e-3 * ms_k)  # operations/s the kernel reached
 
 
+def random_gp_leaves(G: int, D: int, seed: int, m: int = 128, n_live: int = 40):
+    """G GPs of m padded points, `n_live` live ones each (fewer for later GPs)
+    at scattered positions, so the live points are not a prefix; the masked
+    points keep nonzero inputs and W entries (tests/test_torch_gp.py's
+    make_multi). numpy, float32: (Z, alpha, W, lengthscale, outputscale,
+    noise, mask)."""
+    rng = np.random.default_rng(seed)
+    Z = rng.normal(size=(G, m, D)).astype(np.float32)
+    mask = np.zeros((G, m), np.float32)
+    W = np.zeros((G, m, m), np.float32)
+    alpha = np.zeros((G, m), np.float32)
+    ell = np.linspace(0.7, 1.6, G * D).reshape(G, D).astype(np.float32)
+    sf2 = np.linspace(0.8, 1.5, G).astype(np.float32)
+    noise = np.linspace(0.03, 0.08, G).astype(np.float32)
+    for g in range(G):
+        mask[g, np.sort(rng.choice(m, size=n_live - 3 * g, replace=False))] = 1.0
+        diff = (Z[g][:, None, :] - Z[g][None, :, :]) / ell[g]
+        K = sf2[g] * np.exp(-0.5 * (diff**2).sum(-1)) * np.outer(mask[g], mask[g])
+        K += np.diag(noise[g] * mask[g] + (1 - mask[g]))
+        W[g] = np.linalg.inv(K).astype(np.float32)
+        alpha[g] = (W[g] @ (rng.normal(size=m) * mask[g])).astype(np.float32)
+    return Z, alpha, W, ell, sf2, noise, mask
+
+
+def check_gp_kernel_level(dev, extra: list) -> None:
+    """Phase 1 for kernel 1 beyond the paths: the multi-GP kernel against its
+    plain version at G = 2 and 3, D = 3 and 6, N = 25,637 (not a multiple of
+    the 128-query tile), on GPs whose live points are not a prefix."""
+    fn, plain, src, replaces = KERNELS["gp_posterior"]
+    n = 25_637
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    for G in (2, 3):
+        for D in (3, 6):
+            leaves = [t(a) for a in random_gp_leaves(G, D, seed=10 * G + D)]
+            form = cuda_gp.pack_form(*leaves)
+            z = t(np.random.default_rng(G + D).normal(0, 0.6, (G, n, D)).astype(np.float32))
+            entry = f"gp_posterior_multi[G={G},D={D}]"
+            a, k = (z, form), {"include_noise": True}
+            err, ms_k, ms_p, out_k, dev_ms = compare(entry, f"M={form.Z.shape[1]}", "gp_posterior",
+                                                     fn, plain, a, k)
+            extra.append(result_entry(entry, src, replaces, err, ms_k, ms_p, bound_gp(a, out_k),
+                                      dev_ms=dev_ms))
+
+
 def check_kernel_level_only(dev, captured: dict, extra: list) -> None:
     """Phase 1 for the QP instantiations no path of this script reaches, on
     random inputs; the horizon caps; the resident kernel at B=256 on the
@@ -798,6 +850,16 @@ def check_kernel_level_only(dev, captured: dict, extra: list) -> None:
         f"max|resident - streamed| = {d:.3e}")
     if not d <= TOL["ocp"]:
         raise RuntimeError("the resident and the streamed kernel disagree at T=100")
+    # kernel 4 beside kernel 6 (the same code under tier 2's names) on the QP
+    # of the T=512 path's first warm-started step, in turns; printed, not gated
+    a, k = captured["quadrotor-T512"]["qp"]
+    t2 = cuda_ocp.solve_ocp_qp_lanes_streamed2
+    ms = [timed(lambda f=f: f(*a, **k))[0] for f in (res, t2, t2, res)]
+    dev_ms = [device_ms(lambda f=f: f(*a, **k), runs=2) for f in (res, t2)]
+    d = max(float((x - y).abs().max()) for x, y in zip(res(*a, **k)[:2], t2(*a, **k)[:2]))
+    say(f"[phase 1] T=512, B=256 real-step QP: kernel 4 {ms[0]:.3f} / {ms[3]:.3f} ms (device "
+        f"{dev_ms[0]:.3f}), kernel 6 {ms[1]:.3f} / {ms[2]:.3f} ms (device {dev_ms[1]:.3f}) "
+        f"(4, 6, 6, 4); max|kernel 4 - kernel 6| = {d:.3e}")
 
 
 def closed_loop(prob: Problem, results: dict, stress=False):
@@ -1064,13 +1126,14 @@ def main() -> int:
     lib = _build.load_library()
     for nx, nu in ((12, 4), (4, 1), (4, 2)):
         g = cuda_ocp.resident_geometry(nx, nu, LANES)
-        lib_bytes = lib.ocp_ip_shared_bytes(nx, nu, g.scenarios_per_block)
-        say(f"[phase 0] resident QP kernel at {nx}x{nu}: a team of {g.team} threads a scenario, "
-            f"{g.scenarios_per_block} scenarios ({g.threads} threads) a block, a cluster of "
-            f"{g.cluster} blocks a tile of {LANES}, {g.shared_bytes} bytes of shared memory a block "
-            f"(the library's count: {lib_bytes}); {8 * g.cluster} blocks at B=1024, "
-            f"{2 * g.cluster} at B=256")
-        if lib_bytes != g.shared_bytes:
+        lib_bytes = [getattr(lib, k + "_shared_bytes")(nx, nu, g.scenarios_per_block)
+                     for k in ("ocp_ip", "ocp_ip_streamed2")]
+        say(f"[phase 0] resident QP kernel (and tier 2) at {nx}x{nu}: a team of {g.team} threads a "
+            f"scenario, {g.scenarios_per_block} scenarios ({g.threads} threads) a block, a cluster "
+            f"of {g.cluster} blocks a tile of {LANES}, {g.shared_bytes} bytes of shared memory a "
+            f"block (the library's count: {lib_bytes[0]}, tier 2 {lib_bytes[1]}); "
+            f"{8 * g.cluster} blocks at B=1024, {2 * g.cluster} at B=256")
+        if lib_bytes != [g.shared_bytes] * 2:
             raise RuntimeError("resident_geometry's shared memory disagrees with the library's")
     for kernel, soft, T in (("ocp_ip", False, 50), ("ocp_ip", True, 50),
                             ("ocp_ip_streamed", False, 400), ("ocp_ip_streamed", True, 320),
@@ -1096,12 +1159,12 @@ def main() -> int:
     stress = lambda gp: gp._replace(hypers=gp.hypers._replace(  # noqa: E731
         raw_outputscale=torch.full_like(gp.hypers.raw_outputscale, STRESS_OUTPUTSCALE)))
     closed_loop(Problem("quadrotor-soft", dev, gp_edit=stress), results, stress=True)
+    check_gp_kernel_level(dev, extra)
     check_kernel_level_only(dev, captured, extra)
     say(f"[time] kernel-level checks done at {time.perf_counter() - t_run:.0f} s")
     if "--profile" in sys.argv[1:]:
-        for path_name, prob in problems.items():
-            if prob.family == "quadrotor":
-                profile_step(prob)
+        for prob in problems.values():
+            profile_step(prob)
 
     order = [entry_name(p, k) for p, path in PATHS.items() for k in path.kernels] + list(CHAINS)
     print(json.dumps({"kernels": [results[e] for e in order], "kernel_level_only": extra}))

@@ -35,8 +35,8 @@ _F = ctypes.c_float
 
 # C entry points: name -> argtypes. Every one returns cudaGetLastError() as int.
 SIGNATURES = {
-    # z, Zt, alpha, W, mask, hyp, n, m, d, mean, var, stream
-    "gp_posterior_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # z, Zt, alpha, W, mask, hyp, G, n, m, d, include_noise, mean, var, stream
+    "gp_posterior_launch": [_P] * 6 + [_I] * 5 + [_P] * 3,
     # covdn, A, B, K, Bd, ppf, B, T, nd, nx, nu, wsq, tx, tu, stream
     "tighten_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # family, nx, nu, par8, hyp, X, U, Zs, alpha, n_tiles, T, L, Ms, use_gp, dt, fnext, A, B, stream
@@ -46,14 +46,15 @@ SIGNATURES = {
 for _name in ("lanes_chain", "lanes_chain_bf16", "lanes_chain_16"):
     # x, out, n_blocks, L, n_chain, stream
     SIGNATURES[_name + "_launch"] = [_P, _P, _I, _I, _I, _P]
-# The interior-point kernels: resident (csrc/ocp_ip_resident.cuh), tier-1 and
-# tier-2 streamed (csrc/ocp_ip.cuh), each with hard and with L1-soft state
+# The interior-point kernels: resident and tier-2 (csrc/ocp_ip_resident.cuh),
+# tier-1 streamed (csrc/ocp_ip.cuh), each with hard and with L1-soft state
 # bounds, one source and its entry points each.
 OCP_IP_KERNELS = (
     "ocp_ip", "ocp_ip_soft", "ocp_ip_streamed", "ocp_ip_streamed_soft",
     "ocp_ip_streamed2", "ocp_ip_streamed2_soft",
 )
-OCP_IP_RESIDENT = ("ocp_ip", "ocp_ip_soft")  # csrc/ocp_ip_resident.cuh: team and cluster
+# csrc/ocp_ip_resident.cuh: team and cluster
+OCP_IP_RESIDENT = ("ocp_ip", "ocp_ip_soft", "ocp_ip_streamed2", "ocp_ip_streamed2_soft")
 for _name in OCP_IP_KERNELS:
     # A, B, r, qdiag, qx, rdiag, ru, lx, ux, lu, uu, dx, du, gap, n_iters, ws, n_tiles, T, L,
     # nx, nu, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, [team, cluster,] stream

@@ -31,7 +31,7 @@ from gpmpc_tpu_torch.device import resolve, strict_float32
 from gpmpc_tpu_torch.models import quadrotor
 from gpmpc_tpu_torch.models.jacobians import make_augmented_fd_jac
 from gpmpc_tpu_torch.models.residual import QUADROTOR_SPEC, ResidualSpec
-from gpmpc_tpu_torch.ops.cuda_gp import gp_mean_var, se_kernel
+from gpmpc_tpu_torch.ops.cuda_gp import GpForm, gp_mean_var_multi, pack_form, se_kernel
 from gpmpc_tpu_torch.ops.cuda_tighten import tighten_lanes
 from gpmpc_tpu_torch.ops.linalg import discretize_linear_system, lqr_gain_discrete
 from gpmpc_tpu_torch.ops.sqp import OcpBounds, OcpCost, SqpConfig
@@ -160,33 +160,47 @@ def gp_variances(gp: GpModel, z_slices: torch.Tensor, bf16: bool = False) -> tor
     return torch.stack(covs, dim=0).reshape((G,) + tuple(batch_shape))
 
 
+# The packed variance forms of the last few shared GPs (`variance_form`):
+# (the GpModel's leaves the form was built from, their versions, the form).
+_FORMS: list = []
+_FORMS_KEPT = 8
+
+
+def variance_form(gp: GpModel) -> GpForm:
+    """The shared GP's variance form packed for the GP kernel (live points
+    only, softplus hyperparameters, the kernel's layout), built once per
+    GpModel: a later call with the same leaf tensors, unmodified in place,
+    returns the same form. A form is never reused for other leaves, or for
+    leaves written in place since (their version counters differ). A tensor
+    made under `torch.inference_mode` has no version counter and is matched
+    by identity alone, so such a leaf must not be written in place."""
+    leaves = (gp.var_Z, gp.alpha_s, gp.var_mat, gp.var_mask, *gp.hypers)
+    versions = tuple(None if t.is_inference() else t._version for t in leaves)
+    for i, (kept, kept_versions, form) in enumerate(_FORMS):
+        if versions == kept_versions and all(a is b for a, b in zip(leaves, kept)):
+            _FORMS.insert(0, _FORMS.pop(i))
+            return form
+    form = pack_form(
+        gp.var_Z, gp.alpha_s, gp.var_mat, softplus(gp.hypers.raw_lengthscale),
+        softplus(gp.hypers.raw_outputscale), softplus(gp.hypers.raw_noise) + 1e-6, gp.var_mask,
+    )
+    _FORMS.insert(0, (leaves, versions, form))
+    del _FORMS[_FORMS_KEPT:]
+    return form
+
+
 def batched_variances(gp: GpModel, z_slices: torch.Tensor) -> torch.Tensor:
     """Tightening variances (G, B, T) for z_slices (G, B, T, D). Shared GP:
-    one `gp_mean_var` launch per GP over all B*T queries, with the variance
-    form padded to a multiple of 128 (padded entries are masked out). GP
-    population: each scenario's own quadratic form in plain torch, as in the
-    reference (there is no shared Gram to stage once)."""
+    one `gp_mean_var_multi` launch for all G GPs over all B*T queries, on the
+    GpModel's packed variance form (`variance_form`). GP population: each
+    scenario's own quadratic form in plain torch, as in the reference (there
+    is no shared Gram to stage once)."""
     if gp_is_batched(gp):
         per_scenario = torch.func.vmap(gp_variances)(gp, z_slices.movedim(1, 0))  # (B, G, T)
         return per_scenario.movedim(0, 1)
     G, B, T, D = z_slices.shape
-    Mv = gp.var_Z.shape[1]
-    pad = (-Mv) % 128
-    var_Z = torch.nn.functional.pad(gp.var_Z, (0, 0, 0, pad))
-    var_mat = torch.nn.functional.pad(gp.var_mat, (0, pad, 0, pad))
-    var_mask = torch.nn.functional.pad(gp.var_mask, (0, pad))
-    alpha = torch.nn.functional.pad(gp.alpha_s, (0, pad))
-    ell = softplus(gp.hypers.raw_lengthscale)
-    sf2 = softplus(gp.hypers.raw_outputscale)
-    noise = softplus(gp.hypers.raw_noise) + 1e-6
-    covs = []
-    for i in range(G):
-        _, var = gp_mean_var(
-            z_slices[i].reshape(B * T, D), var_Z[i], alpha[i], var_mat[i],
-            ell[i], sf2[i], noise[i], var_mask[i], include_noise=False,
-        )
-        covs.append(var.reshape(B, T))
-    return torch.stack(covs, dim=0)
+    _, var = gp_mean_var_multi(z_slices.reshape(G, B * T, D).contiguous(), variance_form(gp))
+    return var.reshape(G, B, T)
 
 
 def _gp_disturbance_batch(

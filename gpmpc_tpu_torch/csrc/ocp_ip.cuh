@@ -1,9 +1,8 @@
-// Device code of the two streamed OCP-QP interior-point kernels
-// (ocp_ip_streamed*.cu, ocp_ip_streamed2*.cu), and the element algebra of the
-// interior point that the resident kernel (ocp_ip_resident.cuh) shares. One
-// scenario per thread, one block per L-scenario tile; templated on
-// Cfg<NX, NU, SOFT, TIER> and instantiated by each source for (12, 4), (4, 1)
-// and (4, 2).
+// Device code of the tier-1 streamed OCP-QP interior-point kernel
+// (ocp_ip_streamed*.cu), and the element algebra of the interior point that
+// the resident kernel and tier 2 (ocp_ip_resident.cuh) share. One scenario
+// per thread, one block per L-scenario tile; templated on Cfg<NX, NU, SOFT>
+// and instantiated by each source for (12, 4), (4, 1) and (4, 2).
 //
 // Each interior-point iteration: barrier weights, dynamics residual, a
 // backward Riccati sweep (diagonal Q/R plus barrier, an NU x NU Cholesky per
@@ -19,17 +18,15 @@
 //    the complementarity gradients are formed over the same den; step lengths
 //    and gaps take the extra pairs (e, nu); the centering floors move to 1e-8,
 //    below which float32 barrier weights break the Riccati recursion.
-//  * TIER (STREAMED / STREAMED2): the streamed kernels keep no factorization
-//    stores (P r, the Guu factors and Gxu: 76 T floats per scenario at 12x4):
-//    the Mehrotra corrector repeats the full matrix sweep, and the dynamics
-//    residual is formed inside the first backward sweep of an iteration.
-//    They hint the next stage's read-only data into L2 ahead of use
-//    (`prefetch.global.L2`): A and B in STREAMED, every per-stage read-only
-//    array in STREAMED2, whose horizons put the QP data of a batch past the
-//    L2's size. The hint takes no shared memory: at 12x4 and L = 128 the
-//    Riccati matrices below already hold 172 KB of the block's 227 KB, and one
-//    stage of A and B is 96 KB, so staging them in shared memory would only
-//    fit at a narrower tile.
+//  * Streamed: the kernel keeps no factorization stores (P r, the Guu
+//    factors and Gxu: 76 T floats per scenario at 12x4): the Mehrotra
+//    corrector repeats the full matrix sweep, and the dynamics residual is
+//    formed inside the first backward sweep of an iteration. It hints the
+//    next stage's A and B into L2 ahead of use (`prefetch.global.L2`). The
+//    hint takes no shared memory: at 12x4 and L = 128 the Riccati matrices
+//    below already hold 172 KB of the block's 227 KB, and one stage of A and
+//    B is 96 KB, so staging them in shared memory would only fit at a
+//    narrower tile.
 //
 // Common design:
 //  * the tile-wide adaptive exit is a block-wide vote,
@@ -57,11 +54,9 @@ namespace gpmpc {
 namespace ocp {
 
 enum Mode { AFFINE = 0, CORRECTOR = 1, PLAIN = 2 };
-enum Tier { STREAMED = 1, STREAMED2 = 2 };
-
-template <int NX_, int NU_, bool SOFT_, int TIER_>
+template <int NX_, int NU_, bool SOFT_>
 struct Cfg {
-  static constexpr int NX = NX_, NU = NU_, TIER = TIER_;
+  static constexpr int NX = NX_, NU = NU_;
   static constexpr bool SOFT = SOFT_;
 };
 
@@ -318,23 +313,10 @@ __device__ __forceinline__ void prefetch_rows(const ConstLaneView& v, long first
 
 // The read-only data of stage k that a streamed sweep is about to need.
 template <class C>
-__device__ __forceinline__ void prefetch_stage(const Ip<C>& ip, int k, bool backward) {
+__device__ __forceinline__ void prefetch_stage(const Ip<C>& ip, int k) {
   constexpr int NX = C::NX, NU = C::NU;
   prefetch_rows(ip.A, (long)k * NX * NX, NX * NX);
   prefetch_rows(ip.B, (long)k * NX * NU, NX * NU);
-  if constexpr (C::TIER == STREAMED2) {
-    if (backward) {
-      prefetch_rows(ip.r, (long)k * NX, NX);
-      prefetch_rows(ip.qdiag, (long)k * NX, NX);
-      prefetch_rows(ip.qx, (long)k * NX, NX);
-      prefetch_rows(ip.lx, (long)k * NX, NX);
-      prefetch_rows(ip.ux, (long)k * NX, NX);
-      prefetch_rows(ip.rdiag, (long)k * NU, NU);
-      prefetch_rows(ip.ru, (long)k * NU, NU);
-      prefetch_rows(ip.lu, (long)k * NU, NU);
-      prefetch_rows(ip.uu, (long)k * NU, NU);
-    }
-  }
 }
 
 // Backward Riccati sweep + forward rollout of the Newton system; writes the
@@ -355,7 +337,7 @@ __device__ void newton(const Ip<C>& ip, int mode, float cent, bool compute_rdyn,
   for (int k = T - 1; k >= 0; --k) {
     float Frp[NX], gx[NX], gu[NU], kf[NU];
     float Gxu[NX][NU];
-    if (k > 0) prefetch_stage(ip, k - 1, true);
+    if (k > 0) prefetch_stage(ip, k - 1);
     if (compute_rdyn) {
       for (int i = 0; i < NX; ++i) {
         float s = 0.0f;
@@ -448,7 +430,7 @@ __device__ void newton(const Ip<C>& ip, int mode, float cent, bool compute_rdyn,
     ddx_o[i] = 0.0f;
   }
   for (int k = 0; k < T; ++k) {
-    if (k + 1 < T) prefetch_stage(ip, k + 1, false);
+    if (k + 1 < T) prefetch_stage(ip, k + 1);
     float du[NU], xn[NX];
     for (int u = 0; u < NU; ++u) {
       float s = ip.kff[k * NU + u];
@@ -700,17 +682,17 @@ __global__ void kernel(const float* A, const float* B, const float* r, const flo
 }
 
 // Floats of workspace per scenario, or kUnsupported.
-template <bool SOFT, int TIER>
+template <bool SOFT>
 long workspace_floats(int T, int nx, int nu) {
   long n = kUnsupported;
   dispatch_nx_nu(nx, nu, [&](auto nx_c, auto nu_c) {
-    n = ws_layout<Cfg<decltype(nx_c)::value, decltype(nu_c)::value, SOFT, TIER>>(T).total;
+    n = ws_layout<Cfg<decltype(nx_c)::value, decltype(nu_c)::value, SOFT>>(T).total;
     return 0;
   });
   return n;
 }
 
-template <bool SOFT, int TIER>
+template <bool SOFT>
 int launch(const float* A, const float* B, const float* r, const float* qdiag, const float* qx,
            const float* rdiag, const float* ru, const float* lx, const float* ux, const float* lu,
            const float* uu, float* dx, float* du, float* gap, int* n_iters, float* ws, int n_tiles,
@@ -718,7 +700,7 @@ int launch(const float* A, const float* B, const float* r, const float* qdiag, c
            float adaptive_tol, int mehrotra, float soft_rho, void* stream) {
   return dispatch_nx_nu(nx, nu, [&](auto nx_c, auto nu_c) {
     constexpr int NX = decltype(nx_c)::value, NU = decltype(nu_c)::value;
-    using C = Cfg<NX, NU, SOFT, TIER>;
+    using C = Cfg<NX, NU, SOFT>;
     const size_t smem = sizeof(float) * (size_t)(NX * NX + NX * (NX + NU)) * L;
     cudaError_t err = cudaFuncSetAttribute(kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
@@ -732,9 +714,9 @@ int launch(const float* A, const float* B, const float* r, const float* qdiag, c
 
 // The two C entry points of one kernel variant: NAME_workspace_floats and
 // NAME_launch (arguments as `launch` above).
-#define GPMPC_OCP_IP_ENTRY_POINTS(NAME, SOFT, TIER)                                               \
+#define GPMPC_OCP_IP_ENTRY_POINTS(NAME, SOFT)                                                     \
   extern "C" long NAME##_workspace_floats(int T, int nx, int nu) {                                \
-    return gpmpc::ocp::workspace_floats<SOFT, TIER>(T, nx, nu);                                   \
+    return gpmpc::ocp::workspace_floats<SOFT>(T, nx, nu);                                         \
   }                                                                                               \
   extern "C" int NAME##_launch(                                                                   \
       const float* A, const float* B, const float* r, const float* qdiag, const float* qx,        \
@@ -742,7 +724,7 @@ int launch(const float* A, const float* B, const float* r, const float* qdiag, c
       const float* uu, float* dx, float* du, float* gap, int* n_iters, float* ws, int n_tiles,    \
       int T, int L, int nx, int nu, int n_ip, float mu0, float sigma, float tau,                  \
       float adaptive_tol, int mehrotra, float soft_rho, void* stream) {                           \
-    return gpmpc::ocp::launch<SOFT, TIER>(A, B, r, qdiag, qx, rdiag, ru, lx, ux, lu, uu, dx, du,  \
+    return gpmpc::ocp::launch<SOFT>(A, B, r, qdiag, qx, rdiag, ru, lx, ux, lu, uu, dx, du,        \
                                           gap, n_iters, ws, n_tiles, T, L, nx, nu, n_ip, mu0,     \
                                           sigma, tau, adaptive_tol, mehrotra, soft_rho, stream);  \
   }

@@ -1,7 +1,8 @@
 // The resident OCP-QP interior-point kernel (kernel 4, hard and soft), as
 // designed for Hopper: a team of threads per scenario and a 128-scenario tile
 // spread over a thread-block cluster. ocp_ip.cu and ocp_ip_soft.cu instantiate
-// it; the streamed tiers keep the one-thread-per-scenario code of ocp_ip.cuh,
+// it, and so do the tier-2 sources (kernel 6, ocp_ip_streamed2*.cu) under their
+// own names; tier 1 keeps the one-thread-per-scenario code of ocp_ip.cuh,
 // whose element algebra (Terms, pair_*, x_terms, chol) this header shares.
 //
 // Replaces: gpmpc_tpu/ops/pallas_ocp.py:1807 solve_ocp_qp_lanes (body

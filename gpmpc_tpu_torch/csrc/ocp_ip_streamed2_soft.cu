@@ -1,22 +1,22 @@
 // Box-constrained OCP-QP interior point for the longest horizons the lanes
 // path serves, tier 2, L1-soft state bounds.
 //
-// Replaces: gpmpc_tpu/ops/pallas_ocp.py::solve_ocp_qp_lanes_streamed2
-// (_ip_kernel_body_streamed2). The arithmetic of tier 1 (no factorization
-// stores, two matrix sweeps per Mehrotra iteration, the dynamics residual
-// inside the first sweep).
+// Replaces: gpmpc_tpu/ops/pallas_ocp.py:1607 solve_ocp_qp_lanes_streamed2
+// with soft_rho set (body _ip_kernel_body_streamed2, :1021, soft branches):
+// the state boxes become L1 penalties of weight rho in the bounded-multiplier
+// form; input boxes stay hard. As for the hard kernel, the TPU kernel's
+// corrector repeats the matrix sweep, and this one keeps the affine sweep's
+// stores: the same solution and per-tile iteration count.
 //
-// What bounds it on an H100: the sequential Riccati chain per scenario and
-// device-memory traffic: at these horizons the QP data of a batch (~1 KB per
-// scenario-stage) and the workspace (~0.64 KB per scenario-stage hard) pass
-// the L2's 50 MB, so every sweep reads them from device memory.
+// What bounds it on an H100: as the hard kernel, operations in a chain of
+// small products per scenario and the QP data's device-memory traffic; the
+// soft algebra adds ~30 flops and four divisions per state element and pass,
+// and four more (T+1) NX workspace arrays per scenario.
 //
-// Design: ocp_ip.cuh, here as Cfg<NX, NU, SOFT = true, STREAMED2>. What differs
-// from tier 1 on this card: the backward sweep hints every read-only array of
-// the next stage into L2 (r, qdiag, qx, rdiag, ru and the four boxes beside A
-// and B), not A and B alone. The gains K already live in the device-memory
-// workspace in every tier. All flat offsets are 64-bit (lanes.cuh), and the
-// wrapper refuses a call whose workspace does not fit the card's free memory.
-#include "ocp_ip.cuh"
+// Design: ocp_ip_resident.cuh, here as Cfg<NX, NU, SOFT = true> under tier
+// 2's names (see ocp_ip_streamed2.cu). The tile-wide exit is always on (the
+// wrapper passes adaptive_tol >= 1e-8): it is also the numerical stop of the
+// soft mode.
+#include "ocp_ip_resident.cuh"
 
-GPMPC_OCP_IP_ENTRY_POINTS(ocp_ip_streamed2_soft, true, gpmpc::ocp::STREAMED2)
+GPMPC_OCP_IP_RESIDENT_ENTRY_POINTS(ocp_ip_streamed2_soft, true)

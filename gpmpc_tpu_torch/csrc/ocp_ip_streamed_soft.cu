@@ -14,11 +14,11 @@
 // its smaller workspace (160 T floats per scenario at 12x4 against the
 // resident kernel's 252 T), not by where A and B live.
 //
-// Design: ocp_ip.cuh, here as Cfg<NX, NU, SOFT = true, STREAMED>. There is no
+// Design: ocp_ip.cuh, here as Cfg<NX, NU, SOFT = true>. There is no
 // chunked copy of A and B into the block: the sweep hints the next stage's A
 // and B into L2 while it works on the current one (prefetch_stage), which
 // hides their device-memory latency behind ~10k FMAs and takes no shared
 // memory.
 #include "ocp_ip.cuh"
 
-GPMPC_OCP_IP_ENTRY_POINTS(ocp_ip_streamed_soft, true, gpmpc::ocp::STREAMED)
+GPMPC_OCP_IP_ENTRY_POINTS(ocp_ip_streamed_soft, true)

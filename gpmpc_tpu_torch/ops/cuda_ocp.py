@@ -8,15 +8,18 @@ Mehrotra, a fixed iteration count or the tile-wide adaptive exit, and hard or
 L1-soft state bounds (`soft_rho`). The CUDA kernels share
 two headers; each of the six variants (three tiers, hard and soft) has
 its own source and entry points, instantiated for the (nx, nu) pairs in
-`_wrap.KERNEL_SHAPES`. The resident kernel (`csrc/ocp_ip_resident.cuh`)
-gives each scenario a team of threads and spreads a tile over a thread-block
-cluster (`resident_geometry`); the streamed tiers (`csrc/ocp_ip.cuh`) run one
-thread per scenario and one block per tile. Beside each wrapper stands the same algorithm in
-plain PyTorch (`*_plain`), which the wrapper runs for CPU tensors: the
-streamed tiers keep no factorization between the two sweeps of a Mehrotra
-iteration, so their corrector repeats the matrix sweep. Unlike the reference,
-which takes one tile per call, all of them take every tile at once: arrays
-lead with n_tiles.
+`_wrap.KERNEL_SHAPES`. The resident kernel and tier 2
+(`csrc/ocp_ip_resident.cuh`) give each scenario a team of threads and spread
+a tile over a thread-block cluster (`resident_geometry`): tier 2 is the
+resident kernel instantiated under its own names. Tier 1 (`csrc/ocp_ip.cuh`)
+runs one thread per scenario and one block per tile. Beside each wrapper
+stands the same algorithm in plain PyTorch (`*_plain`), which the wrapper
+runs for CPU tensors: the streamed tiers' plain versions keep the TPU
+kernels' arithmetic, with no factorization between the two sweeps of a
+Mehrotra iteration, so their corrector repeats the matrix sweep (the tier-2
+kernel keeps the affine sweep's factorization, whose matrices are the same).
+Unlike the reference, which takes one tile per call, all of them take every
+tile at once: arrays lead with n_tiles.
 """
 
 from __future__ import annotations
@@ -338,9 +341,11 @@ def _ip_plain(qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, refac
         return g / m_total
 
     mu = torch.full((n, L), mu0, dtype=f32, device=dev)
+    iters = torch.zeros(n, dtype=torch.int32, device=dev)  # per tile, as the kernels count them
     for _ in range(n_ip):
         if adaptive_tol is None:
             st, mu = ip_iter(st, mu)
+            iters += 1
             continue
         active = ~torch.all(mu <= adaptive_tol, dim=1)  # (n,) tile-wide vote
         if not bool(active.any()):
@@ -349,7 +354,8 @@ def _ip_plain(qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, refac
         act = active[:, None, None, None]
         st = {k: torch.where(act, new[k], v) for k, v in st.items()}
         mu = torch.where(active[:, None], new_mu, mu)
-    return st["dx"], st["du"], final_gap(st)
+        iters += active.to(torch.int32)
+    return st["dx"], st["du"], final_gap(st), iters
 
 
 def solve_ocp_qp_lanes_plain(
@@ -366,7 +372,9 @@ def solve_ocp_qp_lanes_plain(
     stops iterating once every lane in it has mu <= adaptive_tol. `soft_rho`
     is the L1 penalty weight that makes the state bounds soft; it floors
     `adaptive_tol` at 1e-8, so the tile-wide exit is then always on."""
-    return _ip_plain(qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, refactor=False)
+    *out, solve_ocp_qp_lanes_plain.last_iterations = _ip_plain(
+        qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, refactor=False)
+    return tuple(out)
 
 
 def solve_ocp_qp_lanes_streamed_plain(
@@ -382,7 +390,9 @@ def solve_ocp_qp_lanes_streamed_plain(
     """Plain version of the tier-1 streamed kernel: the resident interior
     point without factorization stores (two matrix sweeps per Mehrotra
     iteration)."""
-    return _ip_plain(qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, refactor=True)
+    *out, solve_ocp_qp_lanes_streamed_plain.last_iterations = _ip_plain(
+        qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, refactor=True)
+    return tuple(out)
 
 
 def solve_ocp_qp_lanes_streamed2_plain(
@@ -395,8 +405,12 @@ def solve_ocp_qp_lanes_streamed2_plain(
     mehrotra: bool = False,
     soft_rho: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of the tier-2 streamed kernel; its arithmetic is tier 1's."""
-    return _ip_plain(qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, refactor=True)
+    """Plain version of the tier-2 kernel: the TPU kernel's arithmetic, which is
+    tier 1's (the CUDA kernel keeps the affine sweep's factorization for the
+    corrector; its matrices are the ones the repeated sweep forms)."""
+    *out, solve_ocp_qp_lanes_streamed2_plain.last_iterations = _ip_plain(
+        qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, refactor=True)
+    return tuple(out)
 
 
 class ResidentGeometry(NamedTuple):
@@ -424,15 +438,16 @@ RESIDENT_MAX_CLUSTER = 16  # past the portable 8: the kernel allows the H100's 1
 
 
 def resident_geometry(nx: int, nu: int, L: int) -> ResidentGeometry:
-    """The resident kernel's launch geometry for tiles of L lanes: the team is
-    the power of two at or above nx + nu; a tile is split over the fewest
-    blocks (at most 16, a cluster) that keep a block at or under its
-    scenarios-per-block target. Raises for a tile the cluster cannot split
-    evenly or a block past 256 threads. Shared memory, as the kernel lays it
-    out (csrc/ocp_ip_resident.cuh::Cfg): two stage slabs of [A_k | B_k] for
-    the block's scenarios, rows padded to 16-byte quads; per scenario W, the
-    dynamics residual, F, K, Guu and gu, and two state vectors; each
-    scenario's area an odd number of quads; and two vote slots."""
+    """The resident kernel's launch geometry (kernel 4, and tier 2 on the
+    same code) for tiles of L lanes: the team is the power of two at or above
+    nx + nu; a tile is split over the fewest blocks (at most 16, a cluster)
+    that keep a block at or under its scenarios-per-block target. Raises for
+    a tile the cluster cannot split evenly or a block past 256 threads.
+    Shared memory, as the kernel lays it out (csrc/ocp_ip_resident.cuh::Cfg):
+    two stage slabs of [A_k | B_k] for the block's scenarios, rows padded to
+    16-byte quads; per scenario W, the dynamics residual, F, K, Guu and gu,
+    and two state vectors; each scenario's area an odd number of quads; and
+    two vote slots."""
     if (nx, nu) not in RESIDENT_SCENARIOS_PER_BLOCK:
         raise ValueError(f"ocp_ip kernel is instantiated for (nx, nu) in "
                          f"{tuple(RESIDENT_SCENARIOS_PER_BLOCK)}, got ({nx}, {nu})")
@@ -581,17 +596,24 @@ def solve_ocp_qp_lanes_streamed2(
     mehrotra: bool = False,
     soft_rho: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Tier-2 streamed kernel (`csrc/ocp_ip_streamed2.cu`, `..._soft.cu`), for
-    the longest horizons of the lanes path. Its workspace is the largest a
-    wrapper allocates, so it is checked against the card's free memory first."""
+    """Tier-2 kernel (`csrc/ocp_ip_streamed2.cu`, `..._soft.cu`), for the
+    longest horizons of the lanes path: the resident kernel under tier 2's
+    names (`resident_geometry`, the Mehrotra stores kept). Its workspace is
+    the largest a wrapper allocates, so it is checked against the card's
+    free memory first."""
     return _solve_on_card(
         solve_ocp_qp_lanes_streamed2, "ocp_ip_streamed2", solve_ocp_qp_lanes_streamed2_plain,
         qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, check_free=True,
+        resident=True,
     )
 
 
-# launches: kernel launches so far. last_iterations: (n_tiles,) int32 on the
-# card, the interior-point iterations each tile of the last launch ran.
+# launches: kernel launches so far. last_iterations: (n_tiles,) int32, the
+# interior-point iterations each tile of the last call ran (the plain
+# versions count them as the kernels do).
 for _w in (solve_ocp_qp_lanes, solve_ocp_qp_lanes_streamed, solve_ocp_qp_lanes_streamed2):
     _w.launches = 0
+    _w.last_iterations = None
+for _w in (solve_ocp_qp_lanes_plain, solve_ocp_qp_lanes_streamed_plain,
+           solve_ocp_qp_lanes_streamed2_plain):
     _w.last_iterations = None

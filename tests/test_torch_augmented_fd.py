@@ -168,9 +168,9 @@ def test_gp_variances_and_disturbance_diagonals_match(family, population):
 
 def test_population_variances_use_no_kernel_wrapper(monkeypatch):
     def boom(*a, **k):
-        raise AssertionError("the population branch must not reach gp_mean_var")
+        raise AssertionError("the population branch must not reach the GP kernel's wrapper")
 
-    monkeypatch.setattr(t_gpmpc, "gp_mean_var", boom)
+    monkeypatch.setattr(t_gpmpc, "gp_mean_var_multi", boom)
     d = gp_leaves("quadrotor", 2)
     gp_t = convert.gp_model_from_numpy(d, "cpu")
     assert gp_t.trained.shape == (2,) and gp_t.Zs.dim() == 4

@@ -19,6 +19,19 @@ from gpmpc_tpu_torch.ops import cuda_gp
 F32 = np.float32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _warm_intra_op_threads():
+    """One unchecked parallel op before this module's comparisons. On an
+    AVX-512 virtual machine the first parallel elementwise op of a fresh
+    process was seen to come out ~1.5e-4 relative off in the chunks of
+    torch's intra-op worker threads (never the calling thread's), with every
+    later op exact (scripts/check_first_parallel_op_torch.py measures it).
+    When this module ran first in its process, that op was the first case's
+    kernel row, and its variance missed the 1e-4 bar. After this op every
+    worker thread has done its first vector work."""
+    torch.exp(torch.zeros(1 << 20))
+
+
 def make_problem(n=70, m=128, d=3, seed=0, ell=0.9):
     """tests/test_pallas_gp.py's problem: 50 active of m padded points."""
     rng = np.random.default_rng(seed)
@@ -53,9 +66,9 @@ def test_plain_matches_jax_reference(n, ard, include_noise, d):
     np.testing.assert_allclose(mean_t.numpy(), np.asarray(mean_j, F32), atol=1e-4)
     np.testing.assert_allclose(var_t.numpy(), np.asarray(var_j, F32), atol=1e-4)
     # the wrapper takes the plain route for CPU tensors, without counting a launch
-    before = cuda_gp.gp_mean_var.launches
+    before = cuda_gp.gp_mean_var_multi.launches
     mean_w, var_w = cuda_gp.gp_mean_var(*t_args, include_noise=include_noise)
-    assert cuda_gp.gp_mean_var.launches == before
+    assert cuda_gp.gp_mean_var_multi.launches == before
     np.testing.assert_array_equal(mean_w.numpy(), mean_t.numpy())
     np.testing.assert_array_equal(var_w.numpy(), var_t.numpy())
 
@@ -110,3 +123,153 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="no kernel and no plain route"):
         cuda_gp.gp_mean_var(*meta)
+
+
+def make_multi(G=3, n=300, d=3, m=128, n_live=50, seed=0):
+    """G GPs of m padded points with n_live live ones each, scattered (the
+    live points are not a prefix: the mask has holes); masked points keep
+    nonzero inputs and W entries, which the posterior must ignore."""
+    rng = np.random.default_rng(seed)
+    Z = rng.normal(size=(G, m, d)).astype(F32)
+    mask = np.zeros((G, m), F32)
+    W = np.zeros((G, m, m), F32)
+    alpha = np.zeros((G, m), F32)
+    ell = np.linspace(0.7, 1.6, G * d).reshape(G, d).astype(F32)
+    sf2 = np.linspace(0.8, 1.5, G).astype(F32)
+    noise = np.linspace(0.03, 0.08, G).astype(F32)
+    for g in range(G):
+        live = np.sort(rng.choice(m, size=n_live - 3 * g, replace=False))
+        mask[g, live] = 1.0
+        diff = (Z[g][:, None, :] - Z[g][None, :, :]) / ell[g]
+        K = sf2[g] * np.exp(-0.5 * (diff**2).sum(-1)) * np.outer(mask[g], mask[g])
+        K += np.diag(noise[g] * mask[g] + (1 - mask[g]))
+        W[g] = np.linalg.inv(K).astype(F32)
+        alpha[g] = (W[g] @ (rng.normal(size=m) * mask[g])).astype(F32)
+    z = rng.normal(size=(G, n, d)).astype(F32)
+    return z, (Z, alpha, W, ell, sf2, noise, mask)
+
+
+@pytest.mark.parametrize("include_noise", [False, True])
+@pytest.mark.parametrize("d", [3, 6])
+def test_multi_plain_matches_jax_reference_per_gp(d, include_noise):
+    """The multi-GP plain version on the packed (compacted) form against
+    `gp_mean_var_reference` GP by GP: G = 3, N = 300, non-prefix masks."""
+    z, leaves = make_multi(d=d, seed=d)
+    form = cuda_gp.pack_form(*(torch.as_tensor(a) for a in leaves))
+    assert form.Z.shape[1] == 56  # the most live points (50), rounded up to a multiple of 8
+    before = cuda_gp.gp_mean_var_multi.launches
+    mean_t, var_t = cuda_gp.gp_mean_var_multi(torch.as_tensor(z), form, include_noise)
+    assert cuda_gp.gp_mean_var_multi.launches == before  # the CPU route counts no launch
+    assert mean_t.shape == var_t.shape == (3, 300)
+    Z, alpha, W, ell, sf2, noise, mask = leaves
+    for g in range(3):
+        mean_j, var_j = gp_mean_var_reference(
+            *(jnp.asarray(a) for a in (z[g], Z[g], alpha[g], W[g], ell[g], sf2[g], noise[g],
+                                       mask[g])), include_noise=include_noise)
+        np.testing.assert_allclose(mean_t[g].numpy(), np.asarray(mean_j, F32), atol=1e-4)
+        np.testing.assert_allclose(var_t[g].numpy(), np.asarray(var_j, F32), atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [3, 6])
+def test_compaction_changes_nothing(d):
+    """The compacted form (live points only) against the form that keeps every
+    point. A masked point's terms are exact zeros in both sums, so the two
+    differ only by the order the float32 matrix products sum in at the two
+    sizes: held to the standard bound of a float32 sum of M terms,
+    M 2^-23 sum_j |term_j|, per query (here the terms reach ~1e3 where the
+    results are ~1)."""
+    z, leaves = make_multi(d=d, seed=10 + d)
+    t = [torch.as_tensor(a) for a in leaves]
+    full = cuda_gp.pack_form(*t, compact=False)
+    packed = cuda_gp.pack_form(*t)
+    assert full.Z.shape[1] == 128 and packed.Z.shape[1] == 56
+    zt = torch.as_tensor(z)
+    k = torch.stack([cuda_gp.se_kernel(zt[g], full.Z[g], full.lengthscale[g], full.outputscale[g])
+                     * full.mask[g] for g in range(3)]).abs()
+    terms = ((k * full.alpha.abs()[:, None, :]).sum(-1),  # of the mean, then of k W k^T
+             torch.einsum("gni,gij,gnj->gn", k, full.W.abs(), k))
+    for a, b, s in zip(cuda_gp.gp_mean_var_multi_plain(zt, packed),
+                       cuda_gp.gp_mean_var_multi_plain(zt, full), terms):
+        assert bool(((a - b).abs() <= 128 * 2.0**-23 * s).all())
+
+
+def _bench_gp_pair():
+    """The quadrotor bench GP (G = 3) with a non-prefix variance mask, as the
+    JAX package's GpModel and the port's."""
+    with np.load(convert.bench_gp_path("quadrotor")) as d:
+        flat = dict(d)
+    flat["var_mask"] = flat["var_mask"].copy()
+    flat["var_mask"][:, [0, 7, 21]] = 0.0  # holes: the live points are not a prefix
+    leaf = lambda k: jnp.asarray(flat[k])  # noqa: E731
+    gp_j = JGpModel(
+        Z=leaf("Z"), y=leaf("y"), mask=leaf("mask"),
+        hypers=JGPHypers(leaf("raw_lengthscale"), leaf("raw_outputscale"), leaf("raw_noise")),
+        Zs=leaf("Zs"), alpha_s=leaf("alpha_s"), var_Z=leaf("var_Z"), var_mat=leaf("var_mat"),
+        var_mask=leaf("var_mask"), trained=jnp.asarray(True),
+    )
+    return gp_j, convert.gp_model_from_numpy(flat, device="cpu")
+
+
+def test_batched_variances_matches_jax_pallas_interpret():
+    """The port's one-call `batched_variances` against the reference's
+    per-GP Pallas kernel in interpret mode: G = 3, B = 4, T = 5, on the bench
+    GP with holes in its variance mask (bar: the repo's Pallas GP test's)."""
+    gp_j, gp_t = _bench_gp_pair()
+    z = np.random.default_rng(2).normal(0, 0.5, (3, 4, 5, 3)).astype(F32)
+    v_j = j_batched_variances(gp_j, jnp.asarray(z), backend="pallas", interpret=True)
+    v_t = t_batched_variances(gp_t, torch.as_tensor(z))
+    assert v_t.shape == (3, 4, 5)
+    np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j, F32), atol=1e-4)
+
+
+def test_variance_form_is_built_once_and_never_stale():
+    """Two GpModels used one after the other each give their own variances;
+    the same GpModel reuses its packed form; a leaf written in place gets a
+    new one."""
+    from gpmpc_tpu_torch.control import gpmpc as t_gpmpc
+
+    _, gp_a = _bench_gp_pair()
+    gp_b = gp_a._replace(var_mat=gp_a.var_mat * 0.5, var_Z=gp_a.var_Z + 0.1)
+    z = torch.as_tensor(np.random.default_rng(3).normal(0, 0.5, (3, 2, 4, 3)).astype(F32))
+    want = {id(g): t_gpmpc.gp_variances(g, z) for g in (gp_a, gp_b)}
+    for g in (gp_a, gp_b, gp_a, gp_b):
+        np.testing.assert_allclose(t_batched_variances(g, z).numpy(), want[id(g)].numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    assert t_gpmpc.variance_form(gp_a) is t_gpmpc.variance_form(gp_a)
+    assert t_gpmpc.variance_form(gp_a) is not t_gpmpc.variance_form(gp_b)
+    form = t_gpmpc.variance_form(gp_a)
+    gp_a.var_mat.mul_(0.25)
+    assert t_gpmpc.variance_form(gp_a) is not form
+    np.testing.assert_allclose(t_batched_variances(gp_a, z).numpy(),
+                               t_gpmpc.gp_variances(gp_a, z).numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("made_in", ["inference_mode", "grad_mode"])
+def test_variance_form_under_inference_mode(made_in):
+    """A step taken under `torch.inference_mode`, with the GpModel loaded
+    there too (its leaves then have no version counter) or loaded before:
+    the shared GP's variances come out as `gp_variances` gives them, and the
+    packed form is built once."""
+    from gpmpc_tpu_torch.control import gpmpc as t_gpmpc
+
+    z = torch.as_tensor(np.random.default_rng(4).normal(0, 0.5, (3, 2, 4, 3)).astype(F32))
+    with torch.inference_mode(made_in == "inference_mode"):
+        _, gp = _bench_gp_pair()
+    with torch.inference_mode():
+        got = [t_batched_variances(gp, z) for _ in range(2)]
+        assert t_gpmpc.variance_form(gp) is t_gpmpc.variance_form(gp)
+        want = t_gpmpc.gp_variances(gp, z)
+    for v in got:
+        np.testing.assert_allclose(v.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_multi_wrapper_rejects_what_the_kernel_does_not_take():
+    z, leaves = make_multi(G=2, n=10)
+    form = cuda_gp.pack_form(*(torch.as_tensor(a) for a in leaves))
+    zt = torch.as_tensor(z)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_gp.gp_mean_var_multi(zt[:1], form)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_gp.gp_mean_var_multi(zt.transpose(0, 1).contiguous().transpose(0, 1), form)
+    with pytest.raises(ValueError, match="no kernel and no plain route"):
+        cuda_gp.gp_mean_var_multi(zt.to("meta"), cuda_gp.GpForm(*(f.to("meta") for f in form)))

@@ -58,13 +58,55 @@ def test_gp_kernel_matches_plain(dev, n, ard, family):
         ell, softplus(gp.hypers.raw_outputscale[0]), softplus(gp.hypers.raw_noise[0]),
         F.pad(gp.var_mask[0], (0, pad)),
     )
-    before = cuda_gp.gp_mean_var.launches
+    before = cuda_gp.gp_mean_var_multi.launches
     mean_k, var_k = cuda_gp.gp_mean_var(*args, include_noise=True)
     mean_p, var_p = cuda_gp.gp_mean_var_plain(*args, include_noise=True)
     torch.cuda.synchronize()
-    assert cuda_gp.gp_mean_var.launches == before + 1
+    assert cuda_gp.gp_mean_var_multi.launches == before + 1
     assert _maxdiff(mean_k, mean_p) <= 1e-4
     assert _maxdiff(var_k, var_p) <= 1e-4
+
+
+def _gp_leaves(dev, G, D, seed, m=128, n_live=40):
+    """G GPs of m padded points, n_live - 3 g live ones each at scattered
+    positions (not a prefix); masked points keep nonzero inputs and W."""
+    rng = np.random.default_rng(seed)
+    Z = rng.normal(size=(G, m, D))
+    mask = np.zeros((G, m))
+    W, alpha = np.zeros((G, m, m)), np.zeros((G, m))
+    ell = np.linspace(0.7, 1.6, G * D).reshape(G, D)
+    sf2, noise = np.linspace(0.8, 1.5, G), np.linspace(0.03, 0.08, G)
+    for g in range(G):
+        mask[g, np.sort(rng.choice(m, size=n_live - 3 * g, replace=False))] = 1.0
+        diff = (Z[g][:, None, :] - Z[g][None, :, :]) / ell[g]
+        K = sf2[g] * np.exp(-0.5 * (diff**2).sum(-1)) * np.outer(mask[g], mask[g])
+        W[g] = np.linalg.inv(K + np.diag(noise[g] * mask[g] + (1 - mask[g])))
+        alpha[g] = W[g] @ (rng.normal(size=m) * mask[g])
+    return [_t(a, dev) for a in (Z, alpha, W, ell, sf2, noise, mask)]
+
+
+@pytest.mark.parametrize("n", [300, 25_637])  # 25,637: not a multiple of the 128-query tile
+@pytest.mark.parametrize("G,D", [(2, 3), (3, 3), (2, 6), (3, 6)])
+def test_gp_multi_kernel_matches_plain(dev, G, D, n):
+    """All G GPs in one launch on the packed form (live points only, 40, 37
+    and 34 of 128, scattered), against G calls of the plain version."""
+    form = cuda_gp.pack_form(*_gp_leaves(dev, G, D, seed=G * 10 + D))
+    assert form.Z.shape[1] == 40
+    z = _t(np.random.default_rng(n).normal(0, 0.6, (G, n, D)), dev)
+    before = cuda_gp.gp_mean_var_multi.launches
+    mean_k, var_k = cuda_gp.gp_mean_var_multi(z, form, include_noise=True)
+    mean_p, var_p = cuda_gp.gp_mean_var_multi_plain(z, form, include_noise=True)
+    torch.cuda.synchronize()
+    assert cuda_gp.gp_mean_var_multi.launches == before + 1
+    assert mean_k.shape == var_k.shape == (G, n)
+    assert _maxdiff(mean_k, mean_p) <= 1e-4
+    assert _maxdiff(var_k, var_p) <= 1e-4
+
+
+def test_gp_multi_kernel_refuses_more_than_128_live_points(dev):
+    form = cuda_gp.pack_form(*_gp_leaves(dev, 1, 3, seed=0, m=136, n_live=136))
+    with pytest.raises(NotImplementedError, match="M=136 live points"):
+        cuda_gp.gp_mean_var_multi(_t(np.zeros((1, 10, 3)), dev), form)
 
 
 # (nx, nu, uncertain rows) of the quadrotor, the cartpole and the two-link arm
@@ -316,6 +358,46 @@ def test_streamed_ocp_kernels_match_plain(dev, tier, nx, nu, kw):
     assert _maxdiff(du_k, du_p) <= 5e-4
     assert _maxdiff(dx_k, dx_p) <= 5e-4
     assert float(du_k.abs().max()) <= 0.3 + 1e-4
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+@pytest.mark.parametrize("nx,nu", [(12, 4), (4, 1), (4, 2)])
+def test_tier2_kernel_matches_plain_with_per_tile_counts(dev, nx, nu, soft):
+    """Kernel 6 (the resident kernel under tier 2's names) in all six
+    instantiations just past tier 1's caps, T = 401 (321 soft): two tiles
+    that exit at different IP iterations (the second has three times larger
+    gradients), the second with 28 padded lanes (no dynamics and no
+    gradient). The per-tile counts equal the plain version's, and the
+    solutions agree within 5e-4."""
+    T = 321 if soft else 401
+    qp = _qp(dev, 2, T, seed=11, nx=nx, nu=nu, box=0.15 if soft else 1.5, scale=0.1)
+    qp.qx[1] *= 3.0
+    qp.ru[1] *= 3.0
+    for f in ("A", "B", "r", "qx", "ru"):
+        getattr(qp, f)[1, ..., 100:] = 0.0
+    kw = dict(n_ip=10, mehrotra=True, adaptive_tol=1e-6)
+    if soft:
+        kw["soft_rho"] = 2.0 if nx == 12 else 0.5
+    fn, plain = cuda_ocp.solve_ocp_qp_lanes_streamed2, cuda_ocp.solve_ocp_qp_lanes_streamed2_plain
+    before = fn.launches
+    dx_k, du_k, gap_k = fn(qp, **kw)
+    dx_p, du_p, _ = plain(qp, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    counts_k, counts_p = fn.last_iterations.tolist(), plain.last_iterations.tolist()
+    print(f"tier 2 {nx}x{nu} {'soft' if soft else 'hard'} T={T}: iterations {counts_k} / {counts_p}")
+    assert counts_k == counts_p and counts_p[0] != counts_p[1]
+    assert bool(torch.isfinite(gap_k).all())
+    assert _maxdiff(du_k, du_p) <= 5e-4 and _maxdiff(dx_k, dx_p) <= 5e-4
+
+
+def test_tier2_shared_bytes_match_the_library(dev):
+    lib = _build.load_library()
+    for nx, nu in ((12, 4), (4, 1), (4, 2)):
+        g = cuda_ocp.resident_geometry(nx, nu, LANES)
+        for name in ("ocp_ip", "ocp_ip_streamed2", "ocp_ip_soft", "ocp_ip_streamed2_soft"):
+            assert getattr(lib, name + "_shared_bytes")(nx, nu, g.scenarios_per_block) == \
+                g.shared_bytes
 
 
 def test_streamed_kernel_matches_resident_at_T100(dev):

@@ -97,6 +97,29 @@ def test_mehrotra_adaptive_exit_matches_pallas_kernel_per_tile(nx, nu, scale):
         np.testing.assert_allclose(gap[i].numpy(), np.asarray(gap_j, F32), rtol=1e-2, atol=1e-10)
 
 
+@pytest.mark.parametrize("plain", ["solve_ocp_qp_lanes_plain", "solve_ocp_qp_lanes_streamed_plain",
+                                   "solve_ocp_qp_lanes_streamed2_plain"])
+def test_plain_versions_count_each_tiles_iterations(plain):
+    """The plain versions count the IP iterations each tile ran as the kernels
+    do (`last_iterations`, which the on-card checks hold the kernels' counts
+    to): the fewest iterations after which a tile's solution is that of the
+    full run, and n_ip for every tile without the adaptive exit."""
+    fn = getattr(cuda_ocp, plain)
+    hard = make_batch(5)
+    hard["qx"] *= 5.0
+    hard["ru"] *= 5.0
+    qp = to_port([make_batch(2), hard])
+    kw = dict(n_ip=10, adaptive_tol=1e-6, mehrotra=True)
+    du = fn(qp, **kw)[1]
+    counts = fn.last_iterations.tolist()
+    assert counts[0] < counts[1] < 10
+    for tile, m in enumerate(counts):
+        assert torch.equal(fn(qp, **dict(kw, n_ip=m))[1][tile], du[tile])
+        assert not torch.equal(fn(qp, **dict(kw, n_ip=m - 1))[1][tile], du[tile])
+    fn(qp, n_ip=3)
+    assert fn.last_iterations.tolist() == [3, 3]
+
+
 def test_soft_bounds_are_not_ported_and_say_so():
     """(Named for the earlier slices, which refused both.) The SQP's QP
     dispatch now serves soft state bounds and horizons past the resident cap,

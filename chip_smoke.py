@@ -26,10 +26,11 @@ generator). Phases, each printing its own lines:
 
   0. the card's name and power limit (nvidia-smi), then the kernel build:
      one nvcc per source in parallel, each source's time and ptxas's
-     register and spill report for every instantiation; the resident QP
-     kernel's launch geometry at each width (team, scenarios per block,
-     cluster, shared memory, blocks at B=1024 and B=256), which tier 2
-     shares; the workspace the QP wrappers allocate at each horizon cap;
+     register and spill report for every instantiation (kernel 9's on a
+     line of its own); the resident QP kernel's launch geometry at
+     each width (team, scenarios per block, cluster, shared memory, blocks
+     at B=1024 and B=256), which all three QP tiers share; the workspace the
+     QP wrappers allocate at each horizon cap;
   1. per path, each kernel of the path against its plain PyTorch version on
      the card, on inputs captured from the path's first warm-started step and
      on seeded random inputs at the path's shapes (soft QPs with boxes tight
@@ -39,7 +40,7 @@ generator). Phases, each printing its own lines:
      time the card could take (`bound_ms`, see `Bound`) and, for kernel 2,
      one torch.matmul that gives the same variances (`library_ms`, see
      `tighten_library_ms`); for the QP kernels the IP iterations each tile
-     ran, which for kernel 6 must equal the plain version's. The GP entry of
+     ran, which for kernels 5 and 6 must equal the plain version's. The GP entry of
      a path is the multi-GP wrapper (all of a step's GPs in one launch).
      First of all the three chain
      kernels against their plain versions on the reference's data after 4
@@ -48,15 +49,19 @@ generator). Phases, each printing its own lines:
      each chain kernel's time beside its bound, its plain version and one
      `torch.matmul` a round on the same data. Then the QP instantiations no
      path of this script reaches, on random inputs: the narrow widths (4, 1)
-     and (4, 2) of every new kernel, the six horizon caps at 12x4 (the
-     resident kernel at T=50 hard and soft, tier 1 at T=400 and at T=320
-     soft, tier 2 at T=1024 and at T=768 soft), kernels 1-3 at T=400,
+     and (4, 2) of every new kernel, tier 1 at 12x4 and B=1024 at T=200,
+     at its cap T=400 and at T=320 soft (its workspace beside the card's
+     free memory), the other horizon caps at 12x4 (the resident kernel at
+     T=50 hard and soft, tier 2 at T=1024 and at T=768 soft), kernels 1-3
+     at T=400,
      kernel 2 at T=512 and T=1024 (12x4, B=256, beside its yardstick), the
      multi-GP kernel at G = 2 and 3, D = 3 and 6, N = 25,637, on GPs whose
      live points are not a prefix, the resident kernel on the quadrotor
      path's captured QP cut to two tiles (B=256) beside the whole one, the
-     resident kernel called directly on the T=100 QP beside the streamed
-     one, and kernel 4 beside kernel 6 on the T=512 path's QP (printed);
+     resident kernel called directly on the T=100 path's QP beside tier 1
+     (the same solution bit for bit and the same per-tile counts, or the
+     run fails), and kernel 4 beside kernel 6 on the T=512 path's QP
+     (printed);
   2. per path, the closed loop: warm-up and timed steps with every kernel's
      launch count (counts set to 0 just before the path's run and read just
      after: the path's QP wrapper must have launched, the other two not; a
@@ -85,6 +90,7 @@ and `device_ms`), the nvidia-smi line, then as its last line
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -224,6 +230,9 @@ QP_WRAPPERS = {
                          cuda_ocp.solve_ocp_qp_lanes_streamed2_plain,
                          "gpmpc_tpu/ops/pallas_ocp.py:1607"),
 }
+# The QP wrappers whose per-tile IP counts must equal their plain version's:
+# the streamed tiers, whose plain versions keep the TPU kernels' arithmetic.
+COUNTS_GATED = (cuda_ocp.solve_ocp_qp_lanes_streamed, cuda_ocp.solve_ocp_qp_lanes_streamed2)
 # kernel -> (wrapper, plain version, source, TPU kernel it replaces)
 KERNELS = {
     "gp_posterior": (cuda_gp.gp_mean_var_multi, cuda_gp.gp_mean_var_multi_plain,
@@ -263,6 +272,25 @@ OLD_NAMES = {
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def ptxas_entries(log: str) -> list[dict]:
+    """ptxas's report of each kernel in the build's log: source, mangled
+    entry, registers, stack frame and spill bytes."""
+    entries, source = [], None
+    for line in log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif m := re.search(r"Compiling entry function '(\S+)'", line):
+            entries.append(dict(source=source, entry=m.group(1), registers=None, stack=0,
+                                spill_stores=0, spill_loads=0))
+        elif (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                             r"(\d+) bytes spill loads", line)) and entries:
+            entries[-1].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entries:
+            entries[-1]["registers"] = int(m.group(1))
+    return entries
 
 
 def qp_source(wrapper_name: str, soft: bool) -> str:
@@ -657,11 +685,11 @@ def compare(entry, label, kind, fn, plain, a, k, time_plain=True):
         torch.cuda.synchronize()
     err, ok = tolerance_check(kind, out_k, out_p)
     if kind in ("ocp", "ocp_soft"):
-        # per-tile IP iterations; kernel 6 must run exactly the plain version's
+        # per-tile IP iterations; kernels 5 and 6 must run exactly the plain version's
         its_k, its_p = fn.last_iterations.tolist(), plain.last_iterations.tolist()
         say(f"[phase 1] {entry:28s} {label:12s}: IP iterations per tile, kernel {its_k}, plain "
             f"{its_p}")
-        if fn is cuda_ocp.solve_ocp_qp_lanes_streamed2 and its_k != its_p:
+        if fn in COUNTS_GATED and its_k != its_p:
             raise RuntimeError(f"{entry}: per-tile IP iterations differ from the plain version's")
     times = f"kernel {ms_k:.4f} ms (median of {runs_k})"
     if time_plain:
@@ -788,9 +816,10 @@ def check_gp_kernel_level(dev, extra: list) -> None:
 
 def check_kernel_level_only(dev, captured: dict, extra: list) -> None:
     """Phase 1 for the QP instantiations no path of this script reaches, on
-    random inputs; the horizon caps; the resident kernel at B=256 on the
-    quadrotor path's QP; the resident kernel beside the streamed one at
-    T=100; the tightening kernel at T=512 and T=1024 (12x4, B=256)."""
+    random inputs; tier 1 at B=1024 up to its caps; the other horizon caps;
+    the resident kernel at B=256 on the quadrotor path's QP; the resident
+    kernel beside tier 1 at T=100; the tightening kernel at T=512 and
+    T=1024 (12x4, B=256)."""
     # kernel 2 at long horizons: the quadrotor path's matrices, random diagonals
     fn, plain, src, replaces = KERNELS["tighten"]
     mats = captured["quadrotor"]["tighten"][0][1:]
@@ -828,28 +857,47 @@ def check_kernel_level_only(dev, captured: dict, extra: list) -> None:
     err, ms_k, ms_p, out_k, dev_ms = compare("ocp_ip[B=256]", "real step", "ocp", fn, plain, a, k)
     extra.append(result_entry("ocp_ip[B=256]", qp_source("ocp_ip", False), replaces, err, ms_k, ms_p,
                               bound_ocp(a[0], k, out_k, fn.last_iterations), dev_ms=dev_ms))
-    # the horizon caps at 12x4, one tile each, one comparison call each
+    # tier 1 at 12x4, B=1024, up to its caps: the workspace beside the card's
+    # free memory, the kernel beside its plain version
+    fn, plain, replaces = QP_WRAPPERS["ocp_ip_streamed"]
+    for soft, T in ((False, 200), (False, sqp_lanes.MAX_STREAM_HORIZON),
+                    (True, sqp_lanes.MAX_STREAM_HORIZON_SOFT)):
+        name = "ocp_ip_streamed" + ("_soft" if soft else "")
+        ws = 4 * 1024 * getattr(_build.load_library(), name + "_workspace_floats")(T, 12, 4)
+        say(f"[phase 1] {name} at T={T}, B=1024: workspace {ws} bytes, the card has "
+            f"{torch.cuda.mem_get_info(dev)[0]} free")
+        entry = f"{name}[T={T},B=1024]"
+        a, k = random_qp_call(dev, 1024 // LANES, T, 12, 4, soft)
+        kind = "ocp_soft" if soft else "ocp"
+        err, ms_k, ms_p, out_k, dev_ms = compare(entry, "random", kind, fn, plain, a, k)
+        extra.append(result_entry(entry, qp_source("ocp_ip_streamed", soft), replaces, err, ms_k,
+                                  ms_p, bound_ocp(a[0], k, out_k, fn.last_iterations),
+                                  dev_ms=dev_ms))
+    # the other horizon caps at 12x4, one tile each, one comparison call each
     for name, soft, T in (("ocp_ip", False, sqp_lanes.MAX_LANES_HORIZON),
                           ("ocp_ip", True, sqp_lanes.MAX_LANES_HORIZON),
-                          ("ocp_ip_streamed", False, sqp_lanes.MAX_STREAM_HORIZON),
-                          ("ocp_ip_streamed", True, sqp_lanes.MAX_STREAM_HORIZON_SOFT),
                           ("ocp_ip_streamed2", False, sqp_lanes.MAX_STREAM2_HORIZON),
                           ("ocp_ip_streamed2", True, sqp_lanes.MAX_STREAM2_HORIZON_SOFT)):
         fn, plain, _ = QP_WRAPPERS[name]
         a, k = random_qp_call(dev, 1, T, 12, 4, soft)
         compare(f"{name}{'_soft' if soft else ''}[12x4]", f"cap T={T}", "ocp_soft" if soft else "ocp",
                 fn, plain, a, k, time_plain=False)
-    # whether the tier earns its keep on this card: both kernels on the QP of
-    # the T=100 path's first warm-started step, in turns
+    # tier 1 is the resident kernel under its own names: on the QP of the
+    # T=100 path's first warm-started step both give the same solution bit for
+    # bit and the same per-tile counts; timed in turns
     a, k = captured["quadrotor-T100"]["qp"]
     res, stre = cuda_ocp.solve_ocp_qp_lanes, cuda_ocp.solve_ocp_qp_lanes_streamed
     ms = [timed(lambda f=f: f(*a, **k))[0] for f in (res, stre, stre, res)]
-    d = max(float((x - y).abs().max()) for x, y in zip(res(*a, **k)[:2], stre(*a, **k)[:2]))
+    out_r = res(*a, **k)
+    out_s = stre(*a, **k)
+    same = all(torch.equal(x, y) for x, y in zip(out_r, out_s))
+    its = (res.last_iterations.tolist(), stre.last_iterations.tolist())
     say(f"[phase 1] T=100, B=256 real-step QP: resident kernel {ms[0]:.3f} / {ms[3]:.3f} ms, tier-1 "
-        f"streamed kernel {ms[1]:.3f} / {ms[2]:.3f} ms (resident, streamed, streamed, resident); "
-        f"max|resident - streamed| = {d:.3e}")
-    if not d <= TOL["ocp"]:
-        raise RuntimeError("the resident and the streamed kernel disagree at T=100")
+        f"kernel {ms[1]:.3f} / {ms[2]:.3f} ms (resident, tier 1, tier 1, resident); solutions "
+        f"{'the same bit for bit' if same else 'DIFFERENT'}, IP iterations per tile {its[0]} / "
+        f"{its[1]}")
+    if not same or its[0] != its[1]:
+        raise RuntimeError("the resident kernel and tier 1 disagree on the T=100 QP")
     # kernel 4 beside kernel 6 (the same code under tier 2's names) on the QP
     # of the T=512 path's first warm-started step, in turns; printed, not gated
     a, k = captured["quadrotor-T512"]["qp"]
@@ -1123,17 +1171,22 @@ def main() -> int:
     for line in _build.BuildInfo.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(f"[phase 0] ptxas: {line.strip()}")
+    for e in ptxas_entries(_build.BuildInfo.log):
+        if "team_chain16_kernel" in e["entry"]:
+            say(f"[phase 0] ptxas, kernel 9 ({e['entry']}): {e['registers']} registers, "
+                f"{e['stack']} bytes stack frame, {e['spill_stores']} / {e['spill_loads']} bytes "
+                "spill stores / loads")
     lib = _build.load_library()
     for nx, nu in ((12, 4), (4, 1), (4, 2)):
         g = cuda_ocp.resident_geometry(nx, nu, LANES)
         lib_bytes = [getattr(lib, k + "_shared_bytes")(nx, nu, g.scenarios_per_block)
-                     for k in ("ocp_ip", "ocp_ip_streamed2")]
-        say(f"[phase 0] resident QP kernel (and tier 2) at {nx}x{nu}: a team of {g.team} threads a "
-            f"scenario, {g.scenarios_per_block} scenarios ({g.threads} threads) a block, a cluster "
-            f"of {g.cluster} blocks a tile of {LANES}, {g.shared_bytes} bytes of shared memory a "
-            f"block (the library's count: {lib_bytes[0]}, tier 2 {lib_bytes[1]}); "
-            f"{8 * g.cluster} blocks at B=1024, {2 * g.cluster} at B=256")
-        if lib_bytes != [g.shared_bytes] * 2:
+                     for k in _build.OCP_IP_KERNELS]
+        say(f"[phase 0] resident QP kernel (all three tiers) at {nx}x{nu}: a team of {g.team} "
+            f"threads a scenario, {g.scenarios_per_block} scenarios ({g.threads} threads) a block, "
+            f"a cluster of {g.cluster} blocks a tile of {LANES}, {g.shared_bytes} bytes of shared "
+            f"memory a block (the library's count for {', '.join(_build.OCP_IP_KERNELS)}: "
+            f"{lib_bytes}); {8 * g.cluster} blocks at B=1024, {2 * g.cluster} at B=256")
+        if lib_bytes != [g.shared_bytes] * len(lib_bytes):
             raise RuntimeError("resident_geometry's shared memory disagrees with the library's")
     for kernel, soft, T in (("ocp_ip", False, 50), ("ocp_ip", True, 50),
                             ("ocp_ip_streamed", False, 400), ("ocp_ip_streamed", True, 320),

@@ -46,20 +46,17 @@ SIGNATURES = {
 for _name in ("lanes_chain", "lanes_chain_bf16", "lanes_chain_16"):
     # x, out, n_blocks, L, n_chain, stream
     SIGNATURES[_name + "_launch"] = [_P, _P, _I, _I, _I, _P]
-# The interior-point kernels: resident and tier-2 (csrc/ocp_ip_resident.cuh),
-# tier-1 streamed (csrc/ocp_ip.cuh), each with hard and with L1-soft state
-# bounds, one source and its entry points each.
+# The interior-point kernels, the resident kernel (csrc/ocp_ip_resident.cuh)
+# under each QP tier's names: resident, tier 1 and tier 2, each with hard and
+# with L1-soft state bounds, one source and its entry points each.
 OCP_IP_KERNELS = (
     "ocp_ip", "ocp_ip_soft", "ocp_ip_streamed", "ocp_ip_streamed_soft",
     "ocp_ip_streamed2", "ocp_ip_streamed2_soft",
 )
-# csrc/ocp_ip_resident.cuh: team and cluster
-OCP_IP_RESIDENT = ("ocp_ip", "ocp_ip_soft", "ocp_ip_streamed2", "ocp_ip_streamed2_soft")
 for _name in OCP_IP_KERNELS:
     # A, B, r, qdiag, qx, rdiag, ru, lx, ux, lu, uu, dx, du, gap, n_iters, ws, n_tiles, T, L,
-    # nx, nu, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, [team, cluster,] stream
-    _geometry = [_I, _I] if _name in OCP_IP_RESIDENT else []
-    SIGNATURES[_name + "_launch"] = [_P] * 16 + [_I] * 6 + [_F] * 4 + [_I, _F] + _geometry + [_P]
+    # nx, nu, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, team, cluster, stream
+    SIGNATURES[_name + "_launch"] = [_P] * 16 + [_I] * 6 + [_F] * 4 + [_I, _F, _I, _I, _P]
 
 
 class KernelBuildError(RuntimeError):
@@ -173,14 +170,13 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.cudaGetErrorString_wrapper.argtypes = [ctypes.c_int]
     lib.cudaGetErrorString_wrapper.restype = ctypes.c_char_p
-    for name in OCP_IP_KERNELS:  # (T, nx, nu) -> floats of workspace per scenario
-        fn = getattr(lib, name + "_workspace_floats")
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        fn.restype = ctypes.c_long
-    for name in OCP_IP_RESIDENT:  # (nx, nu, scenarios per block) -> shared bytes of a block
-        fn = getattr(lib, name + "_shared_bytes")
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        fn.restype = ctypes.c_long
+    for name in OCP_IP_KERNELS:
+        # (T, nx, nu) -> floats of workspace per scenario; (nx, nu, scenarios
+        # per block) -> shared bytes of a block
+        for suffix in ("_workspace_floats", "_shared_bytes"):
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+            fn.restype = ctypes.c_long
     return lib
 
 

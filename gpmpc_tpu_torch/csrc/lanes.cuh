@@ -5,8 +5,6 @@
 // tile_base + i * L + lane. A kernel puts consecutive lanes in consecutive
 // threads of a warp (threadIdx.x): neighbouring threads touch neighbouring
 // addresses and every warp access is one coalesced 128-byte transaction.
-// `lane_view` is the view of the simplest mapping, one block per tile and
-// one thread per lane.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -49,14 +47,6 @@ struct ConstLaneView {
 // `per_lane` floats per scenario: offset of (tile, 0, lane).
 __device__ __forceinline__ long lane_offset(int tile, int lane, long per_lane, int L) {
   return (long)tile * per_lane * L + lane;
-}
-
-__device__ __forceinline__ LaneView lane_view(float* p, long per_lane, int L) {
-  return LaneView{p + lane_offset(blockIdx.x, threadIdx.x, per_lane, L), L};
-}
-
-__device__ __forceinline__ ConstLaneView lane_view(const float* p, long per_lane, int L) {
-  return ConstLaneView{p + lane_offset(blockIdx.x, threadIdx.x, per_lane, L), L};
 }
 
 // Asynchronous 4-byte copies from global to shared memory (sm_80 and up):

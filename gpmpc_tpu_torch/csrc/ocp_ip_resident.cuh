@@ -1,9 +1,10 @@
 // The resident OCP-QP interior-point kernel (kernel 4, hard and soft), as
 // designed for Hopper: a team of threads per scenario and a 128-scenario tile
 // spread over a thread-block cluster. ocp_ip.cu and ocp_ip_soft.cu instantiate
-// it, and so do the tier-2 sources (kernel 6, ocp_ip_streamed2*.cu) under their
-// own names; tier 1 keeps the one-thread-per-scenario code of ocp_ip.cuh,
-// whose element algebra (Terms, pair_*, x_terms, chol) this header shares.
+// it, and so do the tier-1 sources (kernel 5, ocp_ip_streamed*.cu) and the
+// tier-2 sources (kernel 6, ocp_ip_streamed2*.cu) under their own names: all
+// three QP tiers are this kernel. The element algebra (Terms, pair_*,
+// x_terms, chol) is ocp_ip.cuh's.
 //
 // Replaces: gpmpc_tpu/ops/pallas_ocp.py:1807 solve_ocp_qp_lanes (body
 // _ip_kernel_body, :158), every mode: plain centering or Mehrotra, a fixed

@@ -1,24 +1,29 @@
 // Box-constrained OCP-QP interior point for horizons past the resident cap,
 // tier 1, hard state bounds.
 //
-// Replaces: gpmpc_tpu/ops/pallas_ocp.py::solve_ocp_qp_lanes_streamed
-// (_ip_kernel_body_streamed). The same interior point as the resident kernel
-// with another arithmetic: no factorization stores, so the Mehrotra corrector
-// repeats the full matrix sweep, and the dynamics residual is formed inside
-// the first backward sweep of an iteration.
+// Replaces: gpmpc_tpu/ops/pallas_ocp.py:1711 solve_ocp_qp_lanes_streamed
+// (body _ip_kernel_body_streamed, :517). The TPU kernel keeps no
+// factorization stores, since VMEM could not hold them past the resident cap,
+// so its Mehrotra corrector repeats the matrix sweep. The corrector's
+// matrices are the affine sweep's, so keeping the stores computes the same
+// solution and the same per-tile iteration count; the plain version
+// (ops/cuda_ocp.py::solve_ocp_qp_lanes_streamed_plain) keeps the TPU
+// kernel's arithmetic (refactor=True: the corrector repeats the sweep).
 //
-// What bounds it on an H100: the sequential Riccati chain per scenario, now
-// two matrix sweeps per Mehrotra iteration (T stages x ~4k FMAs each at
-// NX = 12), and the per-scenario workspace in device memory, which at long
-// horizons no longer stays in L2. On this card the tier earns its keep by
-// its smaller workspace (160 T floats per scenario at 12x4 against the
-// resident kernel's 252 T), not by where A and B live.
+// What bounds it on an H100: operations, about 11.5k per stage and iteration
+// at 12x4 (chip_smoke.py::bound_ocp), of which a scenario's Riccati stage is
+// a chain of dependent small products. The Mehrotra stores fit the card at
+// this tier's caps: the workspace is 252 T floats a scenario at 12x4, about
+// 0.4 GB at T = 400, B = 1024.
 //
-// Design: ocp_ip.cuh, here as Cfg<NX, NU, SOFT = false>. There is no
-// chunked copy of A and B into the block: the sweep hints the next stage's A
-// and B into L2 while it works on the current one (prefetch_stage), which
-// hides their device-memory latency behind ~10k FMAs and takes no shared
-// memory.
-#include "ocp_ip.cuh"
+// Design: the resident kernel's (ocp_ip_resident.cuh), instantiated under
+// tier 1's names as Cfg<NX, NU, SOFT = false>: a team of threads per
+// scenario, a 128-lane tile over a thread-block cluster with the exit voted
+// through distributed shared memory, [A_k | B_k] staged a stage ahead with
+// cp.async, the Mehrotra stores in the device-memory workspace, 64-bit
+// offsets into every lanes-layout array. All three tiers are this one
+// kernel; ops/sqp_lanes.py keeps the reference's horizon caps, so a horizon
+// goes to the same tier in both packages.
+#include "ocp_ip_resident.cuh"
 
-GPMPC_OCP_IP_ENTRY_POINTS(ocp_ip_streamed, false)
+GPMPC_OCP_IP_RESIDENT_ENTRY_POINTS(ocp_ip_streamed, false)

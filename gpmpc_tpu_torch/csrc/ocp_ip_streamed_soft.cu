@@ -1,24 +1,23 @@
 // Box-constrained OCP-QP interior point for horizons past the resident cap,
 // tier 1, L1-soft state bounds.
 //
-// Replaces: gpmpc_tpu/ops/pallas_ocp.py::solve_ocp_qp_lanes_streamed
-// (_ip_kernel_body_streamed). The same interior point as the resident kernel
-// with another arithmetic: no factorization stores, so the Mehrotra corrector
-// repeats the full matrix sweep, and the dynamics residual is formed inside
-// the first backward sweep of an iteration.
+// Replaces: gpmpc_tpu/ops/pallas_ocp.py:1711 solve_ocp_qp_lanes_streamed
+// with soft_rho set (body _ip_kernel_body_streamed, :517, soft branches): the
+// state boxes become L1 penalties of weight rho in the bounded-multiplier
+// form; input boxes stay hard. As for the hard kernel, the TPU kernel's
+// corrector repeats the matrix sweep, and this one keeps the affine sweep's
+// stores: the same solution and per-tile iteration count. The plain version
+// keeps the TPU kernel's arithmetic (refactor=True).
 //
-// What bounds it on an H100: the sequential Riccati chain per scenario, now
-// two matrix sweeps per Mehrotra iteration (T stages x ~4k FMAs each at
-// NX = 12), and the per-scenario workspace in device memory, which at long
-// horizons no longer stays in L2. On this card the tier earns its keep by
-// its smaller workspace (160 T floats per scenario at 12x4 against the
-// resident kernel's 252 T), not by where A and B live.
+// What bounds it on an H100: as the hard kernel, operations in a chain of
+// dependent small products per stage and scenario; the soft algebra adds ~30
+// flops and four divisions per state element and pass, and four more (T+1)
+// NX workspace arrays per scenario.
 //
-// Design: ocp_ip.cuh, here as Cfg<NX, NU, SOFT = true>. There is no
-// chunked copy of A and B into the block: the sweep hints the next stage's A
-// and B into L2 while it works on the current one (prefetch_stage), which
-// hides their device-memory latency behind ~10k FMAs and takes no shared
-// memory.
-#include "ocp_ip.cuh"
+// Design: ocp_ip_resident.cuh, here as Cfg<NX, NU, SOFT = true> under tier
+// 1's names (see ocp_ip_streamed.cu). The tile-wide exit is always on (the
+// wrapper passes adaptive_tol >= 1e-8): it is also the numerical stop of the
+// soft mode.
+#include "ocp_ip_resident.cuh"
 
-GPMPC_OCP_IP_ENTRY_POINTS(ocp_ip_streamed_soft, true)
+GPMPC_OCP_IP_RESIDENT_ENTRY_POINTS(ocp_ip_streamed_soft, true)

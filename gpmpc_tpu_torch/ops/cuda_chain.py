@@ -92,7 +92,11 @@ def lanes_chain_bf16(x: torch.Tensor, n_chain: int) -> torch.Tensor:
 
 def lanes_chain_16(x: torch.Tensor, n_chain: int) -> torch.Tensor:
     """Kernel wrapper with `lanes_chain_16_plain`'s signature: on the card
-    `chain_kernel` at N = 16, one block per (tile, stage) and slice of lanes."""
+    `team_chain16_kernel`, the mapping of the port's QP kernels: a team of
+    threads per scenario, each member keeping its rows of the matrix in
+    registers and reading the rest from the scenario's one shared buffer;
+    one block per (tile, stage) and slice of lanes. It computes the padded
+    function in full, bit for bit what one thread per scenario computed."""
     return _chain(lanes_chain_16, lanes_chain_16_plain, "lanes_chain_16", x, n_chain, N_PAD,
                   torch.float32)
 

@@ -5,19 +5,18 @@ Port of `gpmpc_tpu/ops/pallas_ocp.py`'s three solvers: `solve_ocp_qp_lanes`
 (the resident kernel), `solve_ocp_qp_lanes_streamed` (tier 1) and
 `solve_ocp_qp_lanes_streamed2` (tier 2), each with plain centering or
 Mehrotra, a fixed iteration count or the tile-wide adaptive exit, and hard or
-L1-soft state bounds (`soft_rho`). The CUDA kernels share
-two headers; each of the six variants (three tiers, hard and soft) has
-its own source and entry points, instantiated for the (nx, nu) pairs in
-`_wrap.KERNEL_SHAPES`. The resident kernel and tier 2
-(`csrc/ocp_ip_resident.cuh`) give each scenario a team of threads and spread
-a tile over a thread-block cluster (`resident_geometry`): tier 2 is the
-resident kernel instantiated under its own names. Tier 1 (`csrc/ocp_ip.cuh`)
-runs one thread per scenario and one block per tile. Beside each wrapper
-stands the same algorithm in plain PyTorch (`*_plain`), which the wrapper
-runs for CPU tensors: the streamed tiers' plain versions keep the TPU
-kernels' arithmetic, with no factorization between the two sweeps of a
-Mehrotra iteration, so their corrector repeats the matrix sweep (the tier-2
-kernel keeps the affine sweep's factorization, whose matrices are the same).
+L1-soft state bounds (`soft_rho`). The three tiers are one CUDA kernel,
+`csrc/ocp_ip_resident.cuh` (its element algebra in `csrc/ocp_ip.cuh`),
+instantiated under each tier's names: each of the six variants (three tiers,
+hard and soft) has its own source and entry points, instantiated for the
+(nx, nu) pairs in `_wrap.KERNEL_SHAPES`. It gives each scenario a team of
+threads and spreads a tile over a thread-block cluster (`resident_geometry`).
+Beside each wrapper stands the same algorithm in plain PyTorch (`*_plain`),
+which the wrapper runs for CPU tensors: the streamed tiers' plain versions
+keep the TPU kernels' arithmetic, with no factorization between the two
+sweeps of a Mehrotra iteration, so their corrector repeats the matrix sweep
+(the kernel keeps the affine sweep's factorization, whose matrices are the
+same, so the solution and the per-tile iteration counts are the same).
 Unlike the reference, which takes one tile per call, all of them take every
 tile at once: arrays lead with n_tiles.
 """
@@ -387,9 +386,10 @@ def solve_ocp_qp_lanes_streamed_plain(
     mehrotra: bool = False,
     soft_rho: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of the tier-1 streamed kernel: the resident interior
-    point without factorization stores (two matrix sweeps per Mehrotra
-    iteration)."""
+    """Plain version of the tier-1 kernel: the TPU kernel's arithmetic, with
+    no factorization stores (two matrix sweeps per Mehrotra iteration; the
+    CUDA kernel keeps the affine sweep's factorization for the corrector, and
+    its matrices are the ones the repeated sweep forms)."""
     *out, solve_ocp_qp_lanes_streamed_plain.last_iterations = _ip_plain(
         qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, refactor=True)
     return tuple(out)
@@ -406,8 +406,7 @@ def solve_ocp_qp_lanes_streamed2_plain(
     soft_rho: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the tier-2 kernel: the TPU kernel's arithmetic, which is
-    tier 1's (the CUDA kernel keeps the affine sweep's factorization for the
-    corrector; its matrices are the ones the repeated sweep forms)."""
+    tier 1's."""
     *out, solve_ocp_qp_lanes_streamed2_plain.last_iterations = _ip_plain(
         qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, refactor=True)
     return tuple(out)
@@ -438,9 +437,9 @@ RESIDENT_MAX_CLUSTER = 16  # past the portable 8: the kernel allows the H100's 1
 
 
 def resident_geometry(nx: int, nu: int, L: int) -> ResidentGeometry:
-    """The resident kernel's launch geometry (kernel 4, and tier 2 on the
-    same code) for tiles of L lanes: the team is the power of two at or above
-    nx + nu; a tile is split over the fewest blocks (at most 16, a cluster)
+    """The resident kernel's launch geometry (kernels 4, 5 and 6: all three
+    QP tiers run its code) for tiles of L lanes: the team is the power of two
+    at or above nx + nu; a tile is split over the fewest blocks (at most 16, a cluster)
     that keep a block at or under its scenarios-per-block target. Raises for
     a tile the cluster cannot split evenly or a block past 256 threads.
     Shared memory, as the kernel lays it out (csrc/ocp_ip_resident.cuh::Cfg):
@@ -480,13 +479,14 @@ _QP_FIELDS_U = ("rdiag", "ru", "lu", "uu")  # (n, T, nu, L)
 
 
 def _solve_on_card(wrapper, kernel, plain, qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra,
-                   soft_rho, check_free=False, resident=False):
+                   soft_rho):
     """Shared body of the three wrappers: checks, the plain route for CPU
-    tensors, workspace and outputs, the launch, the wrapper's count and the
-    iterations each tile ran. The workspace's size is the library's
-    (`workspace_floats` of `csrc/ocp_ip_resident.cuh` or `csrc/ocp_ip.cuh`);
-    with `check_free` it is held against the card's free memory before
-    anything is allocated. `resident` launches with `resident_geometry`."""
+    tensors, workspace and outputs, the launch with `resident_geometry`, the
+    wrapper's count and the iterations each tile ran. The workspace's size is
+    the library's (`workspace_floats` of `csrc/ocp_ip_resident.cuh`); it is
+    allocated first, and a workspace the card cannot hold raises ValueError
+    (the allocator's own check: querying the card's free memory on every
+    call cost the host 0.04 ms a call, PERF.md)."""
     dev = qp.A.device
     n, T, nx, _, L = qp.A.shape
     nu = qp.B.shape[3]
@@ -505,31 +505,20 @@ def _solve_on_card(wrapper, kernel, plain, qp, n_ip, mu0, sigma, tau, adaptive_t
     check_widths(kernel, nx, nu)
     if n == 0 or T == 0:
         raise ValueError(f"{kernel} kernel needs n_tiles > 0 and T > 0 (n_tiles={n}, T={T})")
-    if resident:
-        geom = resident_geometry(nx, nu, L)
-        extra = (geom.team, geom.cluster)
-    else:
-        smem = 4 * (nx * nx + nx * (nx + nu)) * L
-        if smem > 232448 or L > 1024:
-            raise ValueError(
-                f"{kernel} kernel needs {smem} <= 232448 bytes of shared memory per block and "
-                f"L <= 1024 (nx={nx}, nu={nu}, L={L})"
-            )
-        extra = ()
+    geom = resident_geometry(nx, nu, L)
     soft = soft_rho is not None
     if soft:
         adaptive_tol = max(adaptive_tol or 0.0, 1e-8)
     name = kernel + ("_soft" if soft else "")
     lib = _build.load_library()
     ws_floats = getattr(lib, name + "_workspace_floats")(T, nx, nu)
-    if check_free:
-        ws_bytes, free = 4 * n * ws_floats * L, torch.cuda.mem_get_info(dev)[0]
-        if ws_bytes > free:
-            raise ValueError(
-                f"{name}: the workspace of {n} tiles at T={T} takes {ws_bytes} bytes, the card "
-                f"has {free} free; solve fewer scenarios per call"
-            )
-    ws = torch.empty(n, ws_floats, L, dtype=torch.float32, device=dev)
+    try:
+        ws = torch.empty(n, ws_floats, L, dtype=torch.float32, device=dev)
+    except torch.OutOfMemoryError as e:
+        raise ValueError(
+            f"{name}: the workspace of {n} tiles at T={T} takes {4 * n * ws_floats * L} bytes, "
+            f"more than the card can allocate; solve fewer scenarios per call"
+        ) from e
     dx = torch.empty(n, T + 1, nx, L, dtype=torch.float32, device=dev)
     du = torch.empty(n, T, nu, L, dtype=torch.float32, device=dev)
     gap = torch.empty(n, L, dtype=torch.float32, device=dev)
@@ -539,7 +528,7 @@ def _solve_on_card(wrapper, kernel, plain, qp, n_ip, mu0, sigma, tau, adaptive_t
         name + "_launch", *(p(t) for t in qp), p(dx), p(du), p(gap), p(n_iters), p(ws),
         n, T, L, nx, nu, int(n_ip), float(mu0), float(sigma), float(tau),
         -1.0 if adaptive_tol is None else float(adaptive_tol), int(mehrotra),
-        float(soft_rho) if soft else 0.0, *extra, _build.stream_handle(dev),
+        float(soft_rho) if soft else 0.0, geom.team, geom.cluster, _build.stream_handle(dev),
     )
     wrapper.launches += 1
     wrapper.last_iterations = n_iters
@@ -563,7 +552,7 @@ def solve_ocp_qp_lanes(
     per-scenario workspace allocated here."""
     return _solve_on_card(
         solve_ocp_qp_lanes, "ocp_ip", solve_ocp_qp_lanes_plain,
-        qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, resident=True,
+        qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho,
     )
 
 
@@ -577,9 +566,11 @@ def solve_ocp_qp_lanes_streamed(
     mehrotra: bool = False,
     soft_rho: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Tier-1 streamed kernel (`csrc/ocp_ip_streamed.cu`, `..._soft.cu`): the
-    same interior point with no factorization stores and a smaller workspace,
-    for horizons past the resident cap."""
+    """Tier-1 kernel (`csrc/ocp_ip_streamed.cu`, `..._soft.cu`), for horizons
+    past the resident cap: the resident kernel under tier 1's names
+    (`resident_geometry`, the Mehrotra stores kept). Its plain version keeps
+    the TPU kernel's arithmetic, whose corrector repeats the matrix sweep:
+    the same solution and per-tile iteration counts."""
     return _solve_on_card(
         solve_ocp_qp_lanes_streamed, "ocp_ip_streamed", solve_ocp_qp_lanes_streamed_plain,
         qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho,
@@ -598,13 +589,10 @@ def solve_ocp_qp_lanes_streamed2(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Tier-2 kernel (`csrc/ocp_ip_streamed2.cu`, `..._soft.cu`), for the
     longest horizons of the lanes path: the resident kernel under tier 2's
-    names (`resident_geometry`, the Mehrotra stores kept). Its workspace is
-    the largest a wrapper allocates, so it is checked against the card's
-    free memory first."""
+    names (`resident_geometry`, the Mehrotra stores kept)."""
     return _solve_on_card(
         solve_ocp_qp_lanes_streamed2, "ocp_ip_streamed2", solve_ocp_qp_lanes_streamed2_plain,
-        qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho, check_free=True,
-        resident=True,
+        qp, n_ip, mu0, sigma, tau, adaptive_tol, mehrotra, soft_rho,
     )
 
 

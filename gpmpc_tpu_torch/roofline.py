@@ -11,12 +11,14 @@ kernels, which mapping onto the card wins?
                             counterpart of `mxu_blockdiag`); float32, TF32 off
   c) cuda_lanes           : `ops/cuda_chain.py::lanes_chain`, one thread per
                             scenario, operands in shared memory in lanes layout:
-                            the mapping of the port's QP kernels
+                            the port's first mapping of its QP kernels
   d) cuda_lanes_bf16_pair : `lanes_chain_bf16`, two scenarios per 32-bit
                             register in packed bf16
-  e) cuda_lanes_pad16     : `lanes_chain_16`, the blocks embedded in 16 x 16
-                            (16-byte shared-memory accesses against (16/12)^3
-                            of the operations)
+  e) cuda_lanes_pad16     : `lanes_chain_16`, the blocks embedded in 16 x 16,
+                            on the QP kernels' mapping since their redesign: a
+                            team of threads per scenario, rows in registers,
+                            one shared buffer read as 16-byte broadcasts
+                            ((16/12)^3 of the operations)
 
 Each row runs `n_chain` dependent rounds of acc <- 0.5 acc @ acc + 0.5 acc over
 B = 1280 scenarios and T independent stages, at the reference's sizes and on

@@ -79,41 +79,42 @@ def test_roofline_script_imports_no_jax():
 
 def test_chain_kernels_have_their_source_and_entry_points():
     """The three chain kernels are hand-written CUDA in csrc/lanes_chain.cu
-    (one `__global__` template, one instantiation behind each entry point),
-    bound by the build, and call no library."""
+    (two `__global__` templates: one thread per scenario for kernels 7 and 8,
+    a team of threads per scenario synchronized with `__syncwarp` for kernel
+    9; one instantiation behind each entry point), bound by the build, and
+    call no library."""
     from gpmpc_tpu_torch import _build
 
     text = (REPO / "gpmpc_tpu_torch" / "csrc" / "lanes_chain.cu").read_text()
     for name, inst in (("lanes_chain", "launch_chain<F32, 12,"),
                        ("lanes_chain_bf16", "launch_chain<Bf16x2, 12,"),
-                       ("lanes_chain_16", "launch_chain<F32, 16,")):
+                       ("lanes_chain_16", "launch_team_chain16(")):
         entry = text.split(f'extern "C" int {name}_launch(')[1].split('extern "C"')[0]
         assert inst in entry
         assert name + "_launch" in _build.SIGNATURES
-    assert text.count("__global__ void") == 1
+    assert text.count("__global__ void") == 2 and "__syncwarp(team)" in text
     for library in ("cublas", "cutlass", "cudnn"):
         assert library not in text.lower()
 
 
 def test_every_ip_kernel_variant_has_its_source():
     """The build compiles csrc/*.cu: each interior-point entry point the build
-    binds has a source of its name that defines it through its shared header:
-    the resident kernel's ocp_ip_resident.cuh (a team of threads per
-    scenario, a cluster per tile), the streamed tiers' ocp_ip.cuh. The old
-    one-thread-per-scenario resident tier is gone from ocp_ip.cuh."""
+    binds has a source of its name that instantiates the resident kernel
+    (ocp_ip_resident.cuh: a team of threads per scenario, a cluster per tile)
+    under its own names, for all three QP tiers. ocp_ip.cuh keeps the element
+    algebra they share and no kernel: the one-thread-per-scenario tiers are
+    gone."""
     from gpmpc_tpu_torch import _build
 
     csrc = REPO / "gpmpc_tpu_torch" / "csrc"
     for name in _build.OCP_IP_KERNELS:
         text = (csrc / f"{name}.cu").read_text()
-        if name in _build.OCP_IP_RESIDENT:
-            assert f"GPMPC_OCP_IP_RESIDENT_ENTRY_POINTS({name}," in text
-            assert '#include "ocp_ip_resident.cuh"' in text
-        else:
-            assert f"GPMPC_OCP_IP_ENTRY_POINTS({name}," in text and '#include "ocp_ip.cuh"' in text
+        assert f"GPMPC_OCP_IP_RESIDENT_ENTRY_POINTS({name}," in text
+        assert '#include "ocp_ip_resident.cuh"' in text
         assert name + "_launch" in _build.SIGNATURES
-    assert (csrc / "ocp_ip.cuh").exists()
-    assert "RESIDENT" not in (csrc / "ocp_ip.cuh").read_text()
+    algebra = (csrc / "ocp_ip.cuh").read_text()
+    for gone in ("RESIDENT", "__global__", "GPMPC_OCP_IP_ENTRY_POINTS"):
+        assert gone not in algebra
     resident = (csrc / "ocp_ip_resident.cuh").read_text()
     for feature in ("cudaLaunchAttributeClusterDimension", "map_shared_rank", "cp.async",
                     "__shfl_xor_sync"):

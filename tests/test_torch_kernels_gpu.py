@@ -391,32 +391,88 @@ def test_tier2_kernel_matches_plain_with_per_tile_counts(dev, nx, nu, soft):
     assert _maxdiff(du_k, du_p) <= 5e-4 and _maxdiff(dx_k, dx_p) <= 5e-4
 
 
+@pytest.mark.parametrize("T", [100, "cap"])
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+@pytest.mark.parametrize("nx,nu", [(12, 4), (4, 1), (4, 2)])
+def test_tier1_kernel_matches_plain_with_per_tile_counts(dev, nx, nu, soft, T):
+    """Kernel 5 (the resident kernel under tier 1's names) in all six
+    instantiations at T = 100 and at tier 1's caps (400, 320 soft): two tiles
+    that exit at different IP iterations (the second has three times larger
+    gradients), the second with 28 padded lanes (no dynamics and no
+    gradient). Its plain version keeps the TPU kernel's arithmetic (the
+    corrector repeats the matrix sweep); the per-tile counts equal the plain
+    version's, and the solutions agree within 5e-4."""
+    if T == "cap":
+        T = 320 if soft else 400
+    qp = _qp(dev, 2, T, seed=13, nx=nx, nu=nu, box=0.15 if soft else 1.5,
+             scale=0.3 if T <= 100 else 0.1)
+    qp.qx[1] *= 3.0
+    qp.ru[1] *= 3.0
+    for f in ("A", "B", "r", "qx", "ru"):
+        getattr(qp, f)[1, ..., 100:] = 0.0
+    kw = dict(n_ip=10, mehrotra=True, adaptive_tol=1e-6)
+    if soft:
+        kw["soft_rho"] = 2.0 if nx == 12 else 0.5
+    fn, plain = cuda_ocp.solve_ocp_qp_lanes_streamed, cuda_ocp.solve_ocp_qp_lanes_streamed_plain
+    before = fn.launches
+    dx_k, du_k, gap_k = fn(qp, **kw)
+    dx_p, du_p, _ = plain(qp, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    counts_k, counts_p = fn.last_iterations.tolist(), plain.last_iterations.tolist()
+    print(f"tier 1 {nx}x{nu} {'soft' if soft else 'hard'} T={T}: iterations {counts_k} / "
+          f"{counts_p}")
+    assert counts_k == counts_p and counts_p[0] != counts_p[1]
+    assert bool(torch.isfinite(gap_k).all())
+    assert _maxdiff(du_k, du_p) <= 5e-4 and _maxdiff(dx_k, dx_p) <= 5e-4
+
+
 def test_tier2_shared_bytes_match_the_library(dev):
+    """Every QP tier's library reports the shared memory `resident_geometry`
+    gives its block: the three tiers are one kernel."""
     lib = _build.load_library()
     for nx, nu in ((12, 4), (4, 1), (4, 2)):
         g = cuda_ocp.resident_geometry(nx, nu, LANES)
-        for name in ("ocp_ip", "ocp_ip_streamed2", "ocp_ip_soft", "ocp_ip_streamed2_soft"):
+        for name in _build.OCP_IP_KERNELS:
             assert getattr(lib, name + "_shared_bytes")(nx, nu, g.scenarios_per_block) == \
                 g.shared_bytes
 
 
 def test_streamed_kernel_matches_resident_at_T100(dev):
-    """The tiers are the same interior point: on one QP they agree."""
+    """Tier 1 is the resident kernel under its own names: on one QP the two
+    give the same solution bit for bit and run the same per-tile counts."""
     qp = _qp(dev, 2, 100, seed=1, scale=0.3)
     kw = dict(n_ip=10, mehrotra=True, adaptive_tol=1e-6)
-    dx_r, du_r, _ = cuda_ocp.solve_ocp_qp_lanes(qp, **kw)
-    dx_s, du_s, _ = cuda_ocp.solve_ocp_qp_lanes_streamed(qp, **kw)
-    assert _maxdiff(du_r, du_s) <= 5e-4 and _maxdiff(dx_r, dx_s) <= 5e-4
+    res, tier1 = cuda_ocp.solve_ocp_qp_lanes, cuda_ocp.solve_ocp_qp_lanes_streamed
+    out_r = res(qp, **kw)
+    out_s = tier1(qp, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(r, s) for r, s in zip(out_r, out_s))
+    assert res.last_iterations.tolist() == tier1.last_iterations.tolist()
 
 
-def test_workspace_past_the_card_raises(dev, monkeypatch):
-    """A tier-2 call whose workspace does not fit the card's free memory
-    raises before it allocates."""
-    qp = _qp(dev, 1, 100, seed=0, scale=0.3)
-    need = 4 * LANES * _build.load_library().ocp_ip_streamed2_workspace_floats(100, 12, 4)
-    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d=None: (need - 1, 80 << 30))
-    with pytest.raises(ValueError, match="workspace of 1 tiles at T=100"):
-        cuda_ocp.solve_ocp_qp_lanes_streamed2(qp, n_ip=1)
+@pytest.mark.parametrize("tier", list(TIERS))
+def test_workspace_past_the_card_raises(dev, tier):
+    """A call of any QP tier whose workspace the card cannot hold raises
+    ValueError, with no launch. The allocator is held to the memory it has
+    reserved plus half the workspace; at T = 400 the workspace (52 MB) is
+    larger than any free block of a cached segment, so it needs a new one."""
+    fn = TIERS[tier][0]
+    qp = _qp(dev, 1, 400, seed=0, scale=0.1)
+    name = {"resident": "ocp_ip"}.get(tier, "ocp_ip_" + tier)
+    need = 4 * LANES * getattr(_build.load_library(), name + "_workspace_floats")(400, 12, 4)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    before = fn.launches
+    allowed = torch.cuda.memory_reserved(dev) + need // 2
+    torch.cuda.set_per_process_memory_fraction(allowed / total, dev)
+    try:
+        with pytest.raises(ValueError, match="workspace of 1 tiles at T=400"):
+            fn(qp, n_ip=1)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    assert fn.launches == before
 
 
 def test_kernels_refuse_widths_they_are_not_built_for(dev):
@@ -474,6 +530,25 @@ def test_chain_kernels_agree_with_plain_in_where_200_rounds_are_non_finite(dev, 
     finite = torch.isfinite(out_p.float())
     assert torch.equal(torch.isfinite(out_k.float()), finite)
     assert 0.0 < float(finite.float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("n_chain", [0, 1, 4])
+@pytest.mark.parametrize("lanes", [40, 64, 128, 192])
+def test_padded_chain_kernel_matches_plain_at_every_tile_width(dev, lanes, n_chain):
+    """Kernel 9 (a team of threads per scenario, one shared buffer each) at
+    tiles a block takes whole (40, 64), in two slices (128) and in three
+    (192): within 1e-5 of max(1, |plain|) after a few rounds, and its input
+    exactly after none."""
+    x = _chain_input(dev, lanes, True, torch.float32)
+    before = cuda_chain.lanes_chain_16.launches
+    out_k = cuda_chain.lanes_chain_16(x, n_chain)
+    out_p = cuda_chain.lanes_chain_16_plain(x, n_chain)
+    torch.cuda.synchronize()
+    assert cuda_chain.lanes_chain_16.launches == before + 1 and out_k.shape == x.shape
+    rel = (out_k - out_p).abs() / out_p.abs().clamp_min(1.0)
+    assert bool(torch.isfinite(out_k).all()) and float(rel.max()) <= 1e-5
+    if n_chain == 0:
+        assert torch.equal(out_k, x)
 
 
 def test_chain_kernels_slice_wide_tiles_and_refuse_odd_bf16_tiles(dev):

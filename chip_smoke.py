@@ -26,8 +26,10 @@ generator). Phases, each printing its own lines:
 
   0. the card's name and power limit (nvidia-smi), then the kernel build:
      one nvcc per source in parallel, each source's time and ptxas's
-     register and spill report for every instantiation (kernel 9's on a
-     line of its own); the resident QP kernel's launch geometry at
+     register and spill report for every instantiation (kernels 7, 8 and
+     9's on lines of their own; a stack frame or a spill of kernel 7 or 8,
+     which keep their whole matrix in registers, fails the run); the
+     resident QP kernel's launch geometry at
      each width (team, scenarios per block, cluster, shared memory, blocks
      at B=1024 and B=256), which all three QP tiers share; the workspace the
      QP wrappers allocate at each horizon cap;
@@ -47,7 +49,10 @@ generator). Phases, each printing its own lines:
      rounds (the chain leaves float32 after some ten) and, after 200 rounds, in
      where they are non-finite; the five roofline rows as their JSON lines;
      each chain kernel's time beside its bound, its plain version and one
-     `torch.matmul` a round on the same data. Then the QP instantiations no
+     `torch.matmul` a round on the same data, and kernels 7 and 8's share
+     of the bound beside the ceiling their instruction mix allows
+     (`chain_ceiling`); after the paths, the chain's rate per SM against the
+     resident QP kernel's (`chain_share`). Then the QP instantiations no
      path of this script reaches, on random inputs: the narrow widths (4, 1)
      and (4, 2) of every new kernel, tier 1 at 12x4 and B=1024 at T=200,
      at its cap T=400 and at T=320 soft (its workspace beside the card's
@@ -244,6 +249,21 @@ KERNELS = {
 }
 LINEARIZE_CLOSURES = {"cartpole": "gpmpc_tpu/ops/pallas_linearize.py:170",
                       "twolink": "gpmpc_tpu/ops/pallas_linearize.py:235"}
+
+
+def chain_ceiling(dtype) -> float:
+    """Share of the peak that kernel 7's or 8's instruction mix allows: the
+    N^3 terms of a round against every instruction of the round on the FMA
+    pipe. In float32 a term is one FFMA (the first of a row an FMUL) and the
+    blend an FMUL and an FFMA an entry; in packed bf16 the first product of a
+    row is one HMUL2, every other term an HMUL2 and an HADD2 (each rounds, as
+    the reference does), and the blend two HMUL2 and an HADD2 an entry.
+    scripts/bench_chain_geometry_torch.py counts them in the SASS."""
+    n = 12
+    per_term, blend = (2, 3) if dtype == torch.bfloat16 else (1, 2)
+    return n**3 / (n * n + n * n * (n - 1) * per_term + n * n * blend)
+
+
 # chain kernel -> (wrapper, plain version, TPU kernel it replaces, roofline row,
 # scenarios per tile, stages, matrix width, dtype, peak operations/s)
 PEAK_FLOPS_BF16X2 = 133.8e12  # H100 SXM packed bf16 outside the tensor cores (NVIDIA H100
@@ -291,6 +311,15 @@ def ptxas_entries(log: str) -> list[dict]:
         elif (m := re.search(r"Used (\d+) registers", line)) and entries:
             entries[-1]["registers"] = int(m.group(1))
     return entries
+
+
+def chain_kernel_number(entry: str) -> int | None:
+    """7, 8 or 9 for the mangled name of a lane chain kernel, else None."""
+    if "team_chain16_kernel" in entry:
+        return 9
+    if "chain_kernel" in entry:
+        return 8 if "Bf16x2" in entry else 7
+    return None
 
 
 def qp_source(wrapper_name: str, soft: bool) -> str:
@@ -1083,32 +1112,39 @@ def check_chains(dev, results: dict) -> dict:
         t_b, t_f = 2 * tensor_bytes(x) / PEAK_BYTES_PER_S, flops / peak
         bnd = Bound(1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations",
                     2 * tensor_bytes(x), int(flops))
+        dev_ms = device_ms(lambda: fn(x, roofline.N_CHAIN))
+        ceiling = "" if n == 16 else (
+            f", the instruction mix's ceiling {100 * chain_ceiling(dtype):.1f} %")
         say(f"[phase 1] {name:28s} {roofline.N_CHAIN} rounds: kernel {ms_k:.4f} ms (median of "
             f"{runs_k}), plain {ms_p:.4f} ms (median of {runs_p}), one torch.matmul a round "
-            f"{ms_l:.4f} ms (median of {runs_l}); peak {peak / 1e12:.1f} TFLOP/s")
+            f"{ms_l:.4f} ms (median of {runs_l}); on the device {dev_ms:.4f} ms, "
+            f"{100 * bnd.ms / dev_ms:.1f} % of its bound {bnd.ms:.5f} ms at "
+            f"{peak / 1e12:.1f} TFLOP/s{ceiling}")
         results[name] = result_entry(
             name, "gpmpc_tpu_torch/csrc/lanes_chain.cu", replaces, results[name]["max_abs_err"],
-            ms_k, ms_p, bnd, launches=launches[name], library_ms=ms_l,
-            dev_ms=device_ms(lambda: fn(x, roofline.N_CHAIN)))
+            ms_k, ms_p, bnd, launches=launches[name], library_ms=ms_l, dev_ms=dev_ms)
     return gflops
 
 
 def chain_share(prob: Problem, gflops: dict) -> None:
     """What share of the measured lane-chain rate the resident QP kernel's
-    products reach, per SM at work: the chain runs one 128-thread block a
-    (tile, stage) pair and keeps every SM busy (its 250 blocks run in two
-    waves of at most 132); the QP kernel runs a cluster of blocks a tile
-    (`cuda_ocp.resident_geometry`), at B=1024 fewer blocks than SMs, so the
-    rates are compared per SM that holds a block."""
+    products reach, per SM at work. The chain (kernel 7) launches the blocks
+    `cuda_chain.chain_geometry` gives its tiles of 128 lanes; at the probe's
+    size they are more than the card has SMs and few enough for one wave
+    (1,000 warps), so every SM works. The QP kernel runs a cluster of blocks a
+    tile (`cuda_ocp.resident_geometry`), at B=1024 fewer blocks than SMs, so
+    the rates are compared per SM that holds a block."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    chain_blocks = (roofline.B // 128) * roofline.T
-    chain_resident = chain_blocks / -(-chain_blocks // sms)
-    chain_rate = gflops["cuda_lanes"] / chain_resident
+    cg = cuda_chain.chain_geometry("f32", roofline.LANES)
+    chain_blocks = cg.blocks(roofline.B // roofline.LANES * roofline.T)
+    chain_sms = min(sms, chain_blocks)
+    chain_rate = gflops["cuda_lanes"] / chain_sms
     g = cuda_ocp.resident_geometry(prob.model.nx, prob.model.nu, LANES)
     qp_blocks = min(sms, (prob.path.B // LANES) * g.cluster)
     qp_rate = prob.rates["qp"] / 1e9 / qp_blocks
     say(f"[phase 1] per SM at work: the lane chain reaches {chain_rate:.2f} GFLOP/s "
-        f"({gflops['cuda_lanes']:.1f} over {chain_resident:.0f} SMs), the resident QP kernel on "
+        f"({gflops['cuda_lanes']:.1f} over {chain_sms} SMs: {chain_blocks} blocks of "
+        f"{cg.slots_per_block} threads), the resident QP kernel on "
         f"{prob.path_name} {qp_rate:.3f} GFLOP/s ({prob.rates['qp'] / 1e9:.2f} over {qp_blocks} SMs, "
         f"one block of {g.threads} threads each): {100 * qp_rate / chain_rate:.2f} % of the chain's "
         "rate")
@@ -1172,10 +1208,13 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(f"[phase 0] ptxas: {line.strip()}")
     for e in ptxas_entries(_build.BuildInfo.log):
-        if "team_chain16_kernel" in e["entry"]:
-            say(f"[phase 0] ptxas, kernel 9 ({e['entry']}): {e['registers']} registers, "
-                f"{e['stack']} bytes stack frame, {e['spill_stores']} / {e['spill_loads']} bytes "
-                "spill stores / loads")
+        if (kernel := chain_kernel_number(e["entry"])) is None:
+            continue
+        say(f"[phase 0] ptxas, kernel {kernel} ({e['entry']}): {e['registers']} registers, "
+            f"{e['stack']} bytes stack frame, {e['spill_stores']} / {e['spill_loads']} bytes "
+            "spill stores / loads")
+        if kernel in (7, 8) and (e["stack"] or e["spill_stores"] or e["spill_loads"]):
+            raise RuntimeError(f"kernel {kernel} keeps its matrix in local memory, not registers")
     lib = _build.load_library()
     for nx, nu in ((12, 4), (4, 1), (4, 2)):
         g = cuda_ocp.resident_geometry(nx, nu, LANES)

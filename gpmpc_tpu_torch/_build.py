@@ -43,9 +43,11 @@ SIGNATURES = {
     "linearize_launch": [_I, _I, _I] + [_P] * 6 + [_I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
 }
 # The lane-wise matmul chains of the roofline probe (csrc/lanes_chain.cu).
-for _name in ("lanes_chain", "lanes_chain_bf16", "lanes_chain_16"):
-    # x, out, n_blocks, L, n_chain, stream
-    SIGNATURES[_name + "_launch"] = [_P, _P, _I, _I, _I, _P]
+for _name in ("lanes_chain", "lanes_chain_bf16"):
+    # x, out, n_blocks, L, n_chain, slots_per_block, slices, shared_bytes, stream
+    SIGNATURES[_name + "_launch"] = [_P, _P] + [_I] * 6 + [_P]
+# x, out, n_blocks, L, n_chain, stream
+SIGNATURES["lanes_chain_16_launch"] = [_P, _P, _I, _I, _I, _P]
 # The interior-point kernels, the resident kernel (csrc/ocp_ip_resident.cuh)
 # under each QP tier's names: resident, tier 1 and tier 2, each with hard and
 # with L1-soft state bounds, one source and its entry points each.

@@ -12,8 +12,10 @@
 // csrc/ocp_ip_resident.cuh) run a team of threads per scenario, each member
 // owning rows of the products and reading the rows it needs from the team's
 // shared memory as 16-byte broadcasts. lanes_chain_16 runs that mapping;
-// lanes_chain and lanes_chain_bf16 keep the earlier one, one thread per
-// scenario with both matrices in shared memory.
+// lanes_chain and lanes_chain_bf16 run one thread per scenario that keeps the
+// whole matrix in registers as the right operand and reads only the left
+// rows from shared memory, the lever ROADMAP.md's R1 names for the QP
+// kernel's stages (operands in registers, shared memory to hand results on).
 //
 // What bounds them on an H100: the float32 (or packed bf16) FMA pipe. Device
 // memory is read and written once (2 N^2 values per scenario against
@@ -21,36 +23,56 @@
 //
 // lanes_chain and lanes_chain_bf16 (chain_kernel): the TPU kernels hold all
 // stages of a tile in one program; stages are independent, so here one block
-// takes one (tile, stage) pair (and, where two buffers of the whole tile do
-// not fit in shared memory or a tile is wider than 128 slots, a slice of its
-// lanes: blockIdx.y) and one thread one 32-bit lane slot of it: one float32
-// scenario, or two bf16 scenarios in one __nv_bfloat162. The matrix and its
-// successor live in shared memory, because both in registers would be
-// 2 N^2 = 288 values a thread at N = 12. Shared memory holds each row as
-// quads of four columns, quad (i, q) of slot l at ((i * N / 4 + q) * Lb + l)
-// * 16 bytes, so a row is N / 4 conflict-free 16-byte loads: with one 4-byte
-// load an entry the kernel is bound by the count of shared-memory loads, not
-// by FMAs (PERF.md has both versions' times). A round forms kRows output rows
-// at a time: the kRows x N block of `acc` they need and their kRows x N sums
-// sit in registers, each row k of the right operand is read once and used for
-// kRows * N FMAs, then the block goes to the second buffer and the buffers
-// swap. A thread touches only its own slot, so there is no synchronization.
+// takes a slice of the lanes of one (tile, stage) pair (blockIdx.x the pair,
+// blockIdx.y the slice) and one thread one 32-bit lane slot of it: one
+// float32 scenario, or two bf16 scenarios in one __nv_bfloat162. The thread
+// keeps the WHOLE N x N matrix in registers (144 32-bit values at N = 12) as
+// the right operand of a round, and the slot has ONE N x N buffer in shared
+// memory that holds the same matrix, as N / 4 quads of four columns a row
+// (quad (i, q) of slot l at ((i * N / 4 + q) * Lb + l) * 16 bytes: a warp's
+// 16-byte accesses are 512 contiguous bytes, conflict-free). New row i is
+// s_j = a[i][0] a[0][j], then k = 1 .. N - 1 in that order, then the blend
+// with a[i][j]: its left operand, old row i, is read from the buffer (a row
+// ahead, while the row before is formed), every right operand comes from
+// registers, and the new row goes into the buffer over old row i, which no
+// later row of the round reads (they take row i from registers). After row
+// N - 1 the thread reads the new matrix back into registers. That is 3 N^2 / 4
+// = 108 shared accesses a round for N^3 = 1,728 terms, 16 terms to a 16-byte
+// access, so the arithmetic pipe and not the shared-memory pipe sets the pace
+// (the first design, both matrices in shared memory and several output rows
+// at a time, moved 144 and 180 accesses a round). A thread touches only its
+// own slot, so there is no synchronization, in a part warp too. Every index
+// into `a` is a compile-time constant (k and j unrolled in full, kChainRows
+// rows at a time), or nvcc would put `a` in local memory. Taking the left
+// operand from registers as well needs the whole round unrolled (its row
+// index must be a constant): measured, float32 ran as fast and bf16 spilled
+// and ran at half the speed (PERF.md).
 //
-//  * lanes_chain: float32, N = 12, six rows at a time (under 255 registers
-//    without spills); 147 KB of shared memory at L = 128, one block an SM.
+// Each entry is formed in the first design's order, term for term, so the
+// output is that kernel's bit for bit (the halvings of the blend are exact, so
+// contraction cannot change it). A block takes at most kChainSlots slots, and
+// its shared memory (576 bytes a slot) is a quarter of the first design's two
+// buffers: residency is set by registers, and narrow blocks spread the probe's
+// 1,000 (float32) or 500 (bf16) warps over every SM in one wave. The slicing
+// is decided in one place, cuda_chain.chain_geometry, which the launcher
+// checks and takes.
+//
+//  * lanes_chain: float32, fmaf a term.
 //  * lanes_chain_bf16: every multiply and add rounded to bf16, as the
 //    reference's bf16 arithmetic rounds them: __hmul2_rn and __hadd2_rn, two
-//    roundings a term. __hfma2 would round once and halve the operations; it
-//    is not used because it computes a different function (the _rn forms also
-//    keep ptxas from contracting the pair into an fma). Four rows at a time.
+//    roundings and two instructions a term. __hfma2 would round once and halve
+//    the instructions; it is not used because it computes a different function
+//    (the _rn forms also keep ptxas from contracting the pair into an fma). So
+//    no kernel of this function passes half the packed-bf16 FMA rate.
 //
 // lanes_chain_16 (team_chain16_kernel): float32, the 12 x 12 blocks embedded
 // in 16 x 16, computed in full (the zero blocks are not skipped: the kernel
-// is right for any input). Two buffers of 128 scenarios would not fit in a
-// block's shared memory at N = 16, and one thread per scenario ran two warps
-// an SM. Here a team of kTeam16 threads, inside one warp, takes one scenario:
-// member m owns rows m R .. m R + R - 1 (R = 16 / kTeam16) and keeps them in
-// registers from round to round. The scenario has ONE 16 x 16 buffer in
+// is right for any input). One thread per scenario with both matrices in
+// shared memory ran two warps an SM at N = 16, and a whole 16 x 16
+// matrix is more registers than a thread has. Here a team of kTeam16
+// threads, inside one warp, takes one scenario: member m owns rows
+// m R .. m R + R - 1 (R = 16 / kTeam16) and keeps them in registers from
+// round to round. The scenario has ONE 16 x 16 buffer in
 // shared memory (1 KB), in the quad layout above. A round: every member reads
 // all 16 rows of the right operand and forms its rows' sums, then blends them
 // into its registers; __syncwarp over the team;
@@ -68,8 +90,15 @@
 
 namespace {
 
-constexpr size_t kSmemLimit = 232448;  // bytes of shared memory one block may use on sm_90
-constexpr int kMaxThreads = 128;       // slots a block takes at most
+// Both instantiations of chain_kernel: the slots a block takes at most
+// (cuda_chain.CHAIN_SLOTS mirrors it), the blocks an SM must hold at that
+// width (the launch bound's two numbers, so ptxas gives a thread at most
+// 65,536 / (slots x blocks) = 255 registers), and the rows of a round
+// unrolled together: the fastest without spills of the variants measured on
+// the card (PERF.md, scripts/bench_chain_geometry_torch.py).
+constexpr int kChainSlots = 64;
+constexpr int kChainMinBlocks = 4;
+constexpr int kChainRows = 4;
 
 struct F32 {
   using T = float;
@@ -93,96 +122,97 @@ struct alignas(16) Quad {  // four neighbouring columns of one row of one slot
   T v[4];
 };
 
-// x, out (n_blocks, N, N, L) of Ops::T, L slots a tile; blockIdx.y picks the
-// slice of blockDim.x slots. kRows output rows are formed together in
-// registers.
-template <class Ops, int N, int kRows>
-__global__ void __launch_bounds__(kMaxThreads)
+// x, out (n_blocks, 12, 12, L) of Ops::T, L slots a tile; block
+// (blockIdx.x, blockIdx.y) takes slots blockIdx.y * Lb .. + Lb - 1 of matrix
+// blockIdx.x, Lb = blockDim.x <= kChainSlots, one slot a thread; kChainRows
+// rows of a round are unrolled together.
+template <class Ops>
+__global__ void __launch_bounds__(kChainSlots, kChainMinBlocks)
     chain_kernel(const typename Ops::T* __restrict__ x, typename Ops::T* __restrict__ out,
                  int n_chain, int L) {
   using T = typename Ops::T;
   using Q4 = Quad<T>;
-  constexpr int Q = N / 4;
-  static_assert(N % 4 == 0 && N % kRows == 0, "rows are whole quads, row blocks tile the matrix");
+  constexpr int N = 12, Q = N / 4;
+  static_assert(N % kChainRows == 0, "the unrolled rows tile the matrix");
   extern __shared__ float4 smem[];
   const int Lb = blockDim.x;
-  const int lane = threadIdx.x;
-  const long base = (long)blockIdx.x * N * N * L + blockIdx.y * Lb + lane;
-  Q4* cur = reinterpret_cast<Q4*>(smem) + lane;
-  Q4* nxt = cur + N * Q * Lb;
-  for (int e = 0; e < N * Q; ++e) {
-    const T* p = x + base + (long)(4 * e) * L;
-    Q4 v;
+  const long base = (long)blockIdx.x * N * N * L + (long)blockIdx.y * Lb + threadIdx.x;
+  Q4* buf = reinterpret_cast<Q4*>(smem) + threadIdx.x;  // quad (i, q) at buf[(i * Q + q) * Lb]
+  T a[N][N];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) v.v[c] = p[(long)c * L];
-    cur[e * Lb] = v;
-  }
-  for (int round = 0; round < n_chain; ++round) {
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      Q4 v;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        v.v[c] = a[i][4 * q + c] = x[base + (long)(i * N + 4 * q + c) * L];
+      buf[(i * Q + q) * Lb] = v;
+    }
+  auto load_row = [&](T* row, int i) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const Q4 v = buf[(i * Q + q) * Lb];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) row[4 * q + c] = v.v[c];
+    }
+  };
 #pragma unroll 1
-    for (int i0 = 0; i0 < N; i0 += kRows) {
-      T a[kRows][N], s[kRows][N];
+  for (int round = 0; round < n_chain; ++round) {
+    T next[N];  // the next row's left operand, loaded a row ahead
+    load_row(next, 0);
+#pragma unroll 1
+    for (int i0 = 0; i0 < N; i0 += kChainRows) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
+      for (int r = 0; r < kChainRows; ++r) {
+        const int i = i0 + r;
+        T l[N], s[N];  // old row i (the left operand), then new row i's sums
 #pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          const Q4 v = cur[((i0 + r) * Q + q) * Lb];
+        for (int j = 0; j < N; ++j) l[j] = next[j];
+        load_row(next, i + 1 < N ? i + 1 : i);  // old row i + 1 is not written yet
 #pragma unroll
-          for (int c = 0; c < 4; ++c) a[r][4 * q + c] = v.v[c];
-        }
+        for (int j = 0; j < N; ++j) s[j] = Ops::first(l[0], a[0][j]);
 #pragma unroll
-      for (int k = 0; k < N; ++k) {
+        for (int k = 1; k < N; ++k)
 #pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          const Q4 b = cur[(k * Q + q) * Lb];
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-#pragma unroll
-            for (int r = 0; r < kRows; ++r)
-              s[r][4 * q + c] = k == 0 ? Ops::first(a[r][0], b.v[c])
-                                       : Ops::acc(s[r][4 * q + c], a[r][k], b.v[c]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
+          for (int j = 0; j < N; ++j) s[j] = Ops::acc(s[j], l[k], a[k][j]);
 #pragma unroll
         for (int q = 0; q < Q; ++q) {
           Q4 v;
 #pragma unroll
-          for (int c = 0; c < 4; ++c) v.v[c] = Ops::blend(s[r][4 * q + c], a[r][4 * q + c]);
-          nxt[((i0 + r) * Q + q) * Lb] = v;
+          for (int c = 0; c < 4; ++c) v.v[c] = Ops::blend(s[4 * q + c], l[4 * q + c]);
+          buf[(i * Q + q) * Lb] = v;  // no later row of this round reads old row i
         }
+      }
     }
-    Q4* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  for (int e = 0; e < N * Q; ++e) {
-    const Q4 v = cur[e * Lb];
-    T* p = out + base + (long)(4 * e) * L;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) p[(long)c * L] = v.v[c];
+    for (int i = 0; i < N; ++i) load_row(a[i], i);  // the new matrix, the next right operand
   }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) out[base + (long)(i * N + j) * L] = a[i][j];
 }
 
-// A block takes the widest slice of the tile's L slots that divides L, is at
-// most kMaxThreads wide and whose two buffers fit in shared memory.
-template <class Ops, int N, int kRows>
-int launch_chain(const void* x, void* out, int n_blocks, int L, int n_chain, void* stream) {
+// Launches chain_kernel over n_blocks matrices of L slots, each split into
+// `slices` blocks of slots_per_block threads with shared_bytes of shared
+// memory: cuda_chain.chain_geometry's numbers, which must tile L, stay within
+// kChainSlots and give one 12 x 12 buffer a slot, or nothing launches.
+template <class Ops>
+int launch_chain(const void* x, void* out, int n_blocks, int L, int n_chain, int slots_per_block,
+                 int slices, int shared_bytes, void* stream) {
   using T = typename Ops::T;
-  if (L < 1 || n_blocks < 1) return gpmpc::kUnsupported;
-  int slices = 1;
-  while (L % slices || L / slices > kMaxThreads ||
-         sizeof(T) * 2 * N * N * (size_t)(L / slices) > kSmemLimit)
-    ++slices;
-  if (slices > 65535) return gpmpc::kUnsupported;
-  const int Lb = L / slices;
-  const size_t smem = sizeof(T) * 2 * N * N * (size_t)Lb;
-  auto kernel = chain_kernel<Ops, N, kRows>;
+  if (n_blocks < 1 || slots_per_block < 1 || slots_per_block > kChainSlots || slices < 1 ||
+      slices > 65535 || (long)slots_per_block * slices != L ||
+      (size_t)shared_bytes != sizeof(T) * 12 * 12 * (size_t)slots_per_block)
+    return gpmpc::kUnsupported;
+  auto kernel = chain_kernel<Ops>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(n_blocks, slices), Lb, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), n_chain, L);
+  kernel<<<dim3(n_blocks, slices), slots_per_block, shared_bytes,
+           static_cast<cudaStream_t>(stream)>>>(static_cast<const T*>(x), static_cast<T*>(out),
+                                                n_chain, L);
   return (int)cudaGetLastError();
 }
 
@@ -293,17 +323,22 @@ int launch_team_chain16(const float* x, float* out, int n_blocks, int L, int n_c
 
 }  // namespace
 
-// x, out (n_blocks, 12, 12, L) float32.
+// x, out (n_blocks, 12, 12, L) float32: a slot is a lane.
 extern "C" int lanes_chain_launch(const void* x, void* out, int n_blocks, int L, int n_chain,
+                                  int slots_per_block, int slices, int shared_bytes,
                                   void* stream) {
-  return launch_chain<F32, 12, 6>(x, out, n_blocks, L, n_chain, stream);
+  return launch_chain<F32>(x, out, n_blocks, L, n_chain, slots_per_block, slices, shared_bytes,
+                           stream);
 }
 
-// x, out (n_blocks, 12, 12, L) bf16 with L even: a thread takes lanes 2 p and 2 p + 1.
+// x, out (n_blocks, 12, 12, L) bf16 with L even: a slot is lanes 2 p and
+// 2 p + 1, so the geometry counts L / 2 slots.
 extern "C" int lanes_chain_bf16_launch(const void* x, void* out, int n_blocks, int L, int n_chain,
+                                       int slots_per_block, int slices, int shared_bytes,
                                        void* stream) {
   if (L % 2) return gpmpc::kUnsupported;
-  return launch_chain<Bf16x2, 12, 4>(x, out, n_blocks, L / 2, n_chain, stream);
+  return launch_chain<Bf16x2>(x, out, n_blocks, L / 2, n_chain, slots_per_block, slices,
+                              shared_bytes, stream);
 }
 
 // x, out (n_blocks, 16, 16, L) float32.

@@ -14,9 +14,14 @@ tensors.
 The map l -> 0.5 l^2 + 0.5 l is unstable at 1, so on matrices near the
 identity the chain leaves float32 after some ten rounds: it is there to be
 timed, and comparisons are made after a few rounds.
+
+Kernels 7 and 8 take their launch geometry from `chain_geometry`, in one
+place: how many blocks a (tile, stage) pair is cut into, and how wide each is.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -26,6 +31,47 @@ from gpmpc_tpu_torch.ops.cuda_ocp import _mm
 
 N = 12  # the quadrotor's state width
 N_PAD = 16
+
+# Slots (threads: one float32 lane, or two bf16 lanes) a block of
+# csrc/lanes_chain.cu::chain_kernel takes at most: the kernel's kChainSlots,
+# its launch bound, which its launcher checks.
+CHAIN_SLOTS = 64
+KINDS = ("f32", "bf16")
+
+
+class ChainGeometry(NamedTuple):
+    """Launch geometry of kernel 7 or 8 for tiles of L lanes: each (tile,
+    stage) pair is `slices` blocks of `slots_per_block` threads, one 32-bit
+    slot a thread, with `shared_bytes` of shared memory a block (one 12 x 12
+    buffer a slot)."""
+
+    slots_per_block: int
+    slices: int
+    shared_bytes: int
+
+    def blocks(self, pairs: int) -> int:
+        """Blocks of a launch over `pairs` (tile, stage) pairs."""
+        return pairs * self.slices
+
+
+def chain_geometry(kind: str, L: int) -> ChainGeometry:
+    """Geometry of `chain_kernel` ("f32": kernel 7, "bf16": kernel 8) for
+    tiles of L lanes: L slots in float32, L / 2 in packed bf16 (an odd L is
+    refused). A block takes the widest part of a tile's slots that divides
+    them and is at most CHAIN_SLOTS wide; the launcher checks these numbers
+    and launches nothing else."""
+    if kind not in KINDS:
+        raise ValueError(f"chain kind {kind!r}: expected one of {KINDS}")
+    if not isinstance(L, int) or L < 1:
+        raise ValueError(f"tile width L={L!r}: expected a positive int")
+    if kind == "bf16" and L % 2:
+        raise ValueError(f"lanes_chain_bf16: no kernel instantiation for an odd tile width "
+                         f"(L={L}): a slot holds two bf16 lanes")
+    slots = L // 2 if kind == "bf16" else L
+    slices = next(s for s in range(1, slots + 1)
+                  if slots % s == 0 and slots // s <= CHAIN_SLOTS)
+    per_block = slots // slices
+    return ChainGeometry(per_block, slices, 4 * N * N * per_block)
 
 
 def _mm_each_op(x, y):
@@ -60,7 +106,11 @@ def lanes_chain_16_plain(x: torch.Tensor, n_chain: int) -> torch.Tensor:
     return _chain_plain(x, n_chain, _mm)
 
 
-def _chain(wrapper, plain, entry: str, x: torch.Tensor, n_chain: int, n: int, dtype) -> torch.Tensor:
+def _chain(wrapper, plain, entry: str, x: torch.Tensor, n_chain: int, n: int, dtype,
+           kind: str | None = None) -> torch.Tensor:
+    """Shared body of the wrappers: checks, the plain route for CPU tensors,
+    the launch (with `chain_geometry(kind, L)` where `kind` is given) and the
+    wrapper's count."""
     if not isinstance(n_chain, int) or n_chain < 0:
         raise ValueError(f"n_chain: expected a non-negative int, got {n_chain!r}")
     check("x", x, (None, None, n, n, None), x.device, dtype)
@@ -69,25 +119,31 @@ def _chain(wrapper, plain, entry: str, x: torch.Tensor, n_chain: int, n: int, dt
     tiles, T, _, _, L = x.shape
     if tiles * T == 0:
         raise ValueError(f"{entry} kernel needs at least one tile and one stage")
+    geometry = () if kind is None else tuple(chain_geometry(kind, L))
     out = torch.empty_like(x)
     _build.launch(entry + "_launch", _build.ptr(x), _build.ptr(out), tiles * T, L, n_chain,
-                  _build.stream_handle(x.device))
+                  *geometry, _build.stream_handle(x.device))
     wrapper.launches += 1
     return out
 
 
 def lanes_chain(x: torch.Tensor, n_chain: int) -> torch.Tensor:
     """Kernel wrapper with `lanes_chain_plain`'s signature. CPU tensors take the
-    plain version; CUDA tensors launch `chain_kernel`, one block per
-    (tile, stage) and slice of at most 128 lanes, one thread per lane."""
-    return _chain(lanes_chain, lanes_chain_plain, "lanes_chain", x, n_chain, N, torch.float32)
+    plain version; CUDA tensors launch `chain_kernel`: a thread per lane
+    holding its whole matrix in registers, one shared 12 x 12 buffer per lane
+    for the old rows (the left operands) and the new ones, blocks as
+    `chain_geometry("f32", L)` cuts the tiles."""
+    return _chain(lanes_chain, lanes_chain_plain, "lanes_chain", x, n_chain, N, torch.float32,
+                  "f32")
 
 
 def lanes_chain_bf16(x: torch.Tensor, n_chain: int) -> torch.Tensor:
     """Kernel wrapper with `lanes_chain_bf16_plain`'s signature: on the card
-    `chain_kernel` in packed bf16, one thread per pair of lanes (L even)."""
+    `chain_kernel` in packed bf16, a thread per pair of lanes (L even)
+    holding both lanes' whole matrices in registers as `__nv_bfloat162`,
+    blocks as `chain_geometry("bf16", L)` cuts the tiles."""
     return _chain(lanes_chain_bf16, lanes_chain_bf16_plain, "lanes_chain_bf16", x, n_chain, N,
-                  torch.bfloat16)
+                  torch.bfloat16, "bf16")
 
 
 def lanes_chain_16(x: torch.Tensor, n_chain: int) -> torch.Tensor:

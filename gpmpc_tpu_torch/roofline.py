@@ -10,10 +10,13 @@ kernels, which mapping onto the card wins?
                             operands, `torch.matmul`, masked each round (the
                             counterpart of `mxu_blockdiag`); float32, TF32 off
   c) cuda_lanes           : `ops/cuda_chain.py::lanes_chain`, one thread per
-                            scenario, operands in shared memory in lanes layout:
-                            the port's first mapping of its QP kernels
-  d) cuda_lanes_bf16_pair : `lanes_chain_bf16`, two scenarios per 32-bit
-                            register in packed bf16
+                            scenario holding its whole matrix in registers
+                            as the right operand, one shared buffer per
+                            scenario for the old rows (the left operands)
+                            and the new ones; narrow blocks
+                            (`cuda_chain.chain_geometry`) keep every SM busy
+  d) cuda_lanes_bf16_pair : `lanes_chain_bf16`, the same mapping with two
+                            scenarios per 32-bit register in packed bf16
   e) cuda_lanes_pad16     : `lanes_chain_16`, the blocks embedded in 16 x 16,
                             on the QP kernels' mapping since their redesign: a
                             team of threads per scenario, rows in registers,

@@ -15,6 +15,9 @@ product and every partial sum to bf16 in the same order, so they are expected
 to agree exactly).
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -136,3 +139,73 @@ def test_reference_sizes_and_flop_count():
 def test_roofline_rows_are_device_times_only():
     with pytest.raises(ValueError, match="not a CUDA device"):
         next(roofline.iter_rows("cpu"))
+
+
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on sm_90
+
+
+@pytest.mark.parametrize("kind,L", [(kind, L) for kind in ("f32", "bf16")
+                                    for L in (2, 40, 64, 96, 128, 192, 256, 1280)])
+def test_chain_geometry_tiles_every_slot_once(kind, L):
+    """Kernels 7 and 8: the blocks of a (tile, stage) pair cover its slots
+    (L in float32, L / 2 in packed bf16) once, each block at most the
+    kernel's width, with one 12 x 12 buffer of 32-bit values a slot."""
+    g = cuda_chain.chain_geometry(kind, L)
+    slots = L // 2 if kind == "bf16" else L
+    assert slots % g.slots_per_block == 0 and g.slots_per_block * g.slices == slots
+    assert 1 <= g.slots_per_block <= cuda_chain.CHAIN_SLOTS
+    assert g.shared_bytes == 4 * 12 * 12 * g.slots_per_block <= SMEM_LIMIT
+    # the widest block that divides the slots and fits
+    assert all(slots % w or w > cuda_chain.CHAIN_SLOTS
+               for w in range(g.slots_per_block + 1, slots + 1))
+    tiles, T = 3, 25
+    assert g.blocks(tiles * T) == tiles * T * g.slices
+
+
+def test_chain_slots_is_the_kernels_launch_bound():
+    """CHAIN_SLOTS mirrors the one constant of csrc/lanes_chain.cu that sets
+    chain_kernel's block width and launch bound."""
+    text = (Path(cuda_chain.__file__).parents[1] / "csrc" / "lanes_chain.cu").read_text()
+    assert re.findall(r"constexpr int kChainSlots = (\d+);", text) == [str(cuda_chain.CHAIN_SLOTS)]
+    assert "__launch_bounds__(kChainSlots, kChainMinBlocks)" in text
+
+
+def test_chain_geometry_at_the_probe_fills_the_card_in_one_wave():
+    """At the probe's size both kernels launch more blocks than the H100 has
+    SMs (132), and few enough warps that one wave holds them all."""
+    for kind, lanes in (("f32", roofline.LANES), ("bf16", 2 * roofline.LANES)):
+        g = cuda_chain.chain_geometry(kind, lanes)
+        blocks = g.blocks(roofline.B // lanes * roofline.T)
+        assert blocks >= 132
+        warps = blocks * -(-g.slots_per_block // 32)
+        assert warps == (1000 if kind == "f32" else 500)
+
+
+@pytest.mark.parametrize("kind,L,match", [("bf16", 7, "odd tile width"),
+                                          ("bf16", 1, "odd tile width"),
+                                          ("f32", 0, "positive"), ("f16", 8, "kind")])
+def test_chain_geometry_refuses_what_no_kernel_takes(kind, L, match):
+    with pytest.raises(ValueError, match=match):
+        cuda_chain.chain_geometry(kind, L)
+
+
+@pytest.mark.parametrize("name,kind,lanes", [("lanes_chain", "f32", 128),
+                                             ("lanes_chain", "f32", 40),
+                                             ("lanes_chain_bf16", "bf16", 256),
+                                             ("lanes_chain_bf16", "bf16", 192)])
+def test_wrappers_launch_with_chain_geometry(monkeypatch, name, kind, lanes):
+    """On the kernel route the wrapper hands the launcher `chain_geometry`'s
+    numbers and counts one launch (the launch itself stubbed: no card here)."""
+    calls = []
+    monkeypatch.setattr(cuda_chain, "route", lambda device: "kernel")
+    monkeypatch.setattr(cuda_chain._build, "launch", lambda entry, *a: calls.append((entry, a)))
+    monkeypatch.setattr(cuda_chain._build, "stream_handle", lambda device: 0)
+    wrapper = getattr(cuda_chain, name)
+    x = lanes_data(lanes).to(torch.bfloat16 if kind == "bf16" else torch.float32)
+    before = wrapper.launches
+    out = wrapper(x, 3)
+    assert out.shape == x.shape and wrapper.launches == before + 1
+    (entry, args), = calls
+    assert entry == name + "_launch"
+    assert args[2:5] == (TILES * STAGES, lanes, 3)
+    assert args[5:8] == tuple(cuda_chain.chain_geometry(kind, lanes)) and args[8] == 0

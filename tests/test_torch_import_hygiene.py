@@ -79,15 +79,15 @@ def test_roofline_script_imports_no_jax():
 
 def test_chain_kernels_have_their_source_and_entry_points():
     """The three chain kernels are hand-written CUDA in csrc/lanes_chain.cu
-    (two `__global__` templates: one thread per scenario for kernels 7 and 8,
-    a team of threads per scenario synchronized with `__syncwarp` for kernel
-    9; one instantiation behind each entry point), bound by the build, and
-    call no library."""
+    (two `__global__` templates: one thread per 32-bit slot with the whole
+    matrix in registers for kernels 7 and 8, a team of threads per scenario
+    synchronized with `__syncwarp` for kernel 9; one instantiation behind each
+    entry point), bound by the build, and call no library."""
     from gpmpc_tpu_torch import _build
 
     text = (REPO / "gpmpc_tpu_torch" / "csrc" / "lanes_chain.cu").read_text()
-    for name, inst in (("lanes_chain", "launch_chain<F32, 12,"),
-                       ("lanes_chain_bf16", "launch_chain<Bf16x2, 12,"),
+    for name, inst in (("lanes_chain", "launch_chain<F32>("),
+                       ("lanes_chain_bf16", "launch_chain<Bf16x2>("),
                        ("lanes_chain_16", "launch_team_chain16(")):
         entry = text.split(f'extern "C" int {name}_launch(')[1].split('extern "C"')[0]
         assert inst in entry

@@ -551,9 +551,31 @@ def test_padded_chain_kernel_matches_plain_at_every_tile_width(dev, lanes, n_cha
         assert torch.equal(out_k, x)
 
 
+@pytest.mark.parametrize("n_chain", [0, 1, 4])
+@pytest.mark.parametrize("kind,lanes", [(kind, lanes) for kind in ("f32", "bf16")
+                                        for lanes in (2, 40, 64, 128, 192, 256)])
+def test_chain_kernels_7_and_8_match_plain_at_every_tile_width(dev, kind, lanes, n_chain):
+    """Kernels 7 and 8 (one thread a 32-bit slot, the whole matrix in
+    registers) at the tile widths their slicing produces (`chain_geometry`):
+    one block of 1, 20, 32 or 40 slots (1, 20 and 40 end in a part warp), one
+    of 64, and two to four slices: float32 within 1e-5 of max(1, |plain|) and bf16 within 2 bf16
+    ulps after a few rounds, and the input exactly after none."""
+    fn, plain, _, _, dtype = CHAINS["lanes_chain" if kind == "f32" else "lanes_chain_bf16"]
+    x = _chain_input(dev, lanes, False, dtype)
+    before = fn.launches
+    out_k, out_p = fn(x, n_chain), plain(x, n_chain)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and out_k.dtype == dtype and out_k.shape == x.shape
+    tol = 2 * 2.0**-8 if dtype == torch.bfloat16 else 1e-5
+    rel = (out_k.float() - out_p.float()).abs() / out_p.float().abs().clamp_min(1.0)
+    assert bool(torch.isfinite(out_k.float()).all()) and float(rel.max()) <= tol
+    if n_chain == 0:
+        assert torch.equal(out_k, x)
+
+
 def test_chain_kernels_slice_wide_tiles_and_refuse_odd_bf16_tiles(dev):
-    """A block takes at most 128 lane slots whose two buffers fit in shared
-    memory, so wider tiles run as slices; packed bf16 needs an even width."""
+    """Tiles wider than a block run as slices (`chain_geometry`, and kernel
+    9's own slicing); packed bf16 needs an even width."""
     x = _chain_input(dev, 256, False, torch.float32, tiles=1, stages=2)
     out_k, out_p = cuda_chain.lanes_chain(x, 4), cuda_chain.lanes_chain_plain(x, 4)
     assert float((out_k - out_p).abs().max()) <= 1e-5 * float(out_p.abs().max())

@@ -61,7 +61,12 @@ generator). Phases, each printing its own lines:
      at T=400,
      kernel 2 at T=512 and T=1024 (12x4, B=256, beside its yardstick), the
      multi-GP kernel at G = 2 and 3, D = 3 and 6, N = 25,637, on GPs whose
-     live points are not a prefix, the resident kernel on the quadrotor
+     live points are not a prefix, and past 128 live points (F7: the
+     tiled instantiation at M = 136, 304, 512 and 2,048, on leaves at their
+     own lengthscales and at 40 points' density, held against the float64
+     value within 1e-4 + the plain version's own distance, with planted
+     faults that must fall outside that bar, `gp_f64_check`), the resident
+     kernel on the quadrotor
      path's captured QP cut to two tiles (B=256) beside the whole one, the
      resident kernel called directly on the T=100 path's QP beside tier 1
      (the same solution bit for bit and the same per-tile counts, or the
@@ -110,6 +115,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from gpmpc_tpu_torch import _build, convert, roofline  # noqa: E402
+from gpmpc_tpu_torch import gp as gp_mod  # noqa: E402
 from gpmpc_tpu_torch.control import gpmpc as gpmpc_mod  # noqa: E402
 from gpmpc_tpu_torch.control import mpc as mpc_mod  # noqa: E402
 from gpmpc_tpu_torch.envs import cartpole_env, drone, twolink_env  # noqa: E402
@@ -126,6 +132,7 @@ from gpmpc_tpu_torch.ops import (  # noqa: E402
 )
 from gpmpc_tpu_torch.parallel import batch as batch_mod  # noqa: E402
 from gpmpc_tpu_torch.parallel.batch import batched_gpmpc_step, dispatch_decision  # noqa: E402
+from gpmpc_tpu_torch.parallel.sweep import seed_sweep  # noqa: E402
 
 LANES = 128
 RMSE_BAR = 1e-3
@@ -172,6 +179,7 @@ class SmokePath(NamedTuple):
     degraded: bool = False  # whether that decision must warn (once)
     kernel_linearize: bool = True
     population: bool = False  # a per-scenario GP population
+    learned: bool = False  # the GP is trained in this run (`learned_gp`), not the fixture
 
     @property
     def kernels(self) -> tuple:
@@ -196,7 +204,36 @@ PATHS = {
                                 dispatch="lanes", degraded=True),
     "quadrotor-population": SmokePath("quadrotor", 25, 1024, None, "ocp_ip", 2, 10, 128, 5,
                                       "population", dispatch="lanes", degraded=True, population=True),
+    # BASELINE configs 2 and 4 (bench.py:81-82,120-128): GPs learned on the card from the
+    # untrained controller's episodes (`learned_gp`), then the fused step
+    "quadrotor-learned": SmokePath("quadrotor", 25, 1024, None, "ocp_ip", 2, 10, 128, 5, "learned",
+                                   learned=True),
+    "quadrotor-gp5k": SmokePath("quadrotor", 50, 1024, None, "ocp_ip", 1, 5, 32, 2, "gp5k",
+                                learned=True),
 }
+# The learned paths' controllers and fits: (inducing points, capacity, episode steps collected
+# at B, transitions kept, Adam iterations).
+LEARNED = {"quadrotor-learned": (40, 128, 8, 128, 100), "quadrotor-gp5k": (128, 5120, 5, 5120, 50)}
+# tests/test_learning_loop.py:64-68's two-link controller (exact ARD GP, capacity 512) and its bar
+TWOLINK_EXACT = dict(T=20, steps=150, episodes=2, iterations=500, max_ratio=0.6)
+# The initial states of that test's episodes: envs/twolink_env.py's `env.reset(seed=0)` and
+# `(seed=1)`, drawn by JAX's PRNG, which the port cannot reproduce (held equal to JAX's by
+# tests/test_torch_episode.py::test_twolink_learning_starts_are_the_reference_tests). The bar
+# belongs to these starts: on the port's own draws (torch seeds 0 and 1) the reference's
+# pipeline itself misses it (tests/test_torch_twolink_starts.py, slow, on the CPU).
+TWOLINK_STARTS = (
+    (-1.6196454763412476, 1.0787038803100586, 0.4753497838973999, 0.16368605196475983),
+    (-1.5756747722625732, 1.1218749284744263, 0.45597270131111145, 0.15213492512702942),
+)
+# scripts/eval_seeds.py's quadrotor sweep (16 seeds) at scripts/gp_mpc_config.yaml's settings,
+# the episode cut from 300 steps to 30
+SWEEP = dict(n_seeds=16, T=25, sqp_iters=12, qp_iters=12, n_epochs=3, samples_per_epoch=15,
+             max_inducing=40, gp_iters=500, gp_lr=0.001, n_steps=30)
+# F7: the multi-GP kernel past 128 live points (the tiled instantiation): (G, D, live, N)
+F7_CASES = [(G, D, m, 25_637) for m in (136, 304, 512) for G, D in ((2, 6), (3, 3))] + [
+    (2, 6, 2048, 4096), (3, 3, 2048, 4096)]
+# the leaves at their own lengthscales, and scaled as if 40 points (random_gp_leaves' density)
+F7_DENSITIES = (None, 40)
 
 # Kernel-vs-plain tolerances. GP: the repo's Pallas GP test bar (float32 sums
 # of ~1e2-size terms in another order). Tighten: relative, since the kernel
@@ -218,6 +255,9 @@ TOL["chain_bf16"] = 2 * 2.0**-8
 CHAIN_ROUNDS = 4
 TOL_TEXT = {
     "gp_posterior": "1e-4 on mean and var",
+    "gp_posterior_f64": "per output, from the float64 value, 1e-4 + the distance of the plain "
+                        "version (float32 sums) or of k's rounding alone (tiled, float64 sums); "
+                        "planted faults outside it",
     "tighten": "1e-5 x max(1, max|t|)",
     "linearize": "2e-5 on fnext, 2e-4 on A and B",
     "ocp": "5e-4 on dx and du",
@@ -332,7 +372,7 @@ def entry_name(path_name: str, kernel: str) -> str:
     p = PATHS[path_name]
     if p.tag is None:
         return OLD_NAMES[(path_name, kernel)]
-    if kernel == "qp" and p.dispatch == "lanes-fused":
+    if kernel == "qp" and p.dispatch == "lanes-fused" and not p.learned:
         return f"{p.qp}{'_soft' if p.soft else ''}"
     return f"{p.qp if kernel == 'qp' else kernel}[{p.tag}]"
 
@@ -469,20 +509,31 @@ class Problem:
         self.family, self.env = p.family, c["env"]
         self.env_p = self.env.EnvParams.default()
         self.model = c["model"]()
+        gp_kw = {}
+        if p.learned:
+            n_ind, cap = LEARNED[path_name][:2]
+            gp_kw = dict(sparse_gp=True, max_gp_samples=n_ind, max_gp_points=cap, seed=1)
         ctrl = gpmpc_mod.GPMPC(
             self.model, self.env.make_trajectory(self.env_p, device).cpu().numpy(), c["prior"],
             horizon=p.T, q_mpc=c["q_mpc"], r_mpc=c["r_mpc"], prob=0.95, sqp_iters=6, qp_iters=10,
-            device=device, bounds=c["bounds"], lm_reg=c["lm_reg"], soft_constraints=p.soft,
+            device=device, bounds=c["bounds"], lm_reg=c["lm_reg"], soft_constraints=p.soft, **gp_kw,
         )
         self.consts = ctrl.consts
         self.cfg = ctrl.cfg._replace(qp_tol=1e-6, kernel_linearize=p.kernel_linearize,
                                      qp_mehrotra=True, analytic_jac=analytic_jac)
-        self.gp = convert.load_bench_gp(device, p.family)
+        self.device = device
+        if not p.learned:
+            self.gp = convert.load_bench_gp(device, p.family)
+        elif device.type == "cuda":
+            self.gp = learned_gp(self, ctrl)
+        else:  # phase 3 of a learned path: the card's trained GP, on the CPU
+            self.gp = type(TRAINED[path_name])(*[
+                type(v)(*[h.cpu() for h in v]) if isinstance(v, tuple) else v.cpu()
+                for v in TRAINED[path_name]])
         if gp_edit is not None:
             self.gp = gp_edit(self.gp)
         if p.population:
             self.gp = population_gp(self.gp, p.B, batch or p.B)
-        self.device = device
         self.rates = {}
         self.decision = dispatch_decision(self.cfg, self.model.residual_spec, p.T, p.population)
         if (self.decision.path, self.decision.degraded) != (p.dispatch, p.degraded):
@@ -498,6 +549,67 @@ class Problem:
     def step(self, st, obs, lanes=None):
         return batched_gpmpc_step(self.model, self.cfg, self.consts, self.gp, st, obs,
                                   lanes=lanes or LANES)
+
+
+TRAINED: dict = {}  # the learned paths' GPs, trained on the card
+
+
+def cuda_timed(fn):
+    """(seconds between CUDA events around one call of fn, its result)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3, out
+
+
+def learned_gp(prob: Problem, ctrl):
+    """The GP of a learned path, trained on the card: episodes of the untrained
+    controller (zero GP mean, no tightening: the prior controller) through
+    `batched_episode` at the path's B, a sample of their transitions,
+    `preprocess_data`, `train_gp`. Prints the fit's time, its Adam
+    iterations and freeze steps, and (at 128 points or fewer) the largest
+    raw-hyperparameter difference from a float32 fit of the same data on the
+    CPU with its freeze steps."""
+    name, path, dev = prob.path_name, prob.path, prob.device
+    n_ind, cap, steps, keep, iters = LEARNED[name]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    t0 = time.perf_counter()
+    ep = batch_mod.batched_episode(prob.model, prob.cfg, prob.env_p, prob.consts, ctrl.gp_model, gen,
+                                   steps, path.B, env_mod=prob.env)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    x = ep.obs[:, :-1].reshape(-1, prob.model.nx)
+    u = ep.actions.reshape(-1, prob.model.nu)
+    x_next = ep.obs[:, 1:].reshape(-1, prob.model.nx)
+    pick = torch.randperm(x.shape[0], generator=gen, device=dev)[:keep]
+    xi, ti = ctrl.preprocess_data(x[pick].cpu().numpy(), u[pick].cpu().numpy(),
+                                  x_next[pick].cpu().numpy())
+    fit_s, _ = cuda_timed(lambda: ctrl.train_gp(xi, ti, lr=0.05, iterations=iters))
+    info = ctrl.last_fit_info
+    say(f"[learn] {name}: {steps} steps of the untrained controller at B={path.B} in "
+        f"{collect_s:.2f} s, {keep} of {x.shape[0]} transitions kept; train_gp(lr=0.05, "
+        f"iterations={iters}) on {keep} points (capacity {cap}, {n_ind} FITC points): "
+        f"{fit_s:.3f} s, {info.iterations} Adam iterations until every GP froze (freeze steps "
+        f"{info.freeze_step.tolist()}), {1e3 * fit_s / info.iterations:.2f} ms an iteration "
+        "(CUDA events, the FITC posterior included)")
+    if keep <= 128:
+        cpu = torch.device("cpu")
+        data = gpmpc_mod.pack_training_data(torch.as_tensor(xi), torch.as_tensor(ti), cap,
+                                            prob.model.residual_spec)
+        h_cpu, _, info_cpu = gp_mod.fit_gp(
+            data, gp_mod.init_hypers(device=cpu, batch_shape=(data.y.shape[0],)), iters, 0.05,
+            return_info=True)
+        diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(ctrl.gp_model.hypers, h_cpu))
+        say(f"[learn] {name}: max |raw hyper, card - CPU float32 fit of the same data| = "
+            f"{diff:.3e}; freeze steps card {info.freeze_step.tolist()}, CPU "
+            f"{info_cpu.freeze_step.tolist()}")
+    gp = ctrl.gp_model
+    if not all(bool(torch.isfinite(t).all()) for t in (gp.alpha_s, gp.var_mat, *gp.hypers)):
+        raise RuntimeError(f"{name}: the trained GP is not finite")
+    TRAINED[name] = gp
+    return gp
 
 
 def population_gp(gp, n_scenarios: int, n_keep: int, seed: int = 0):
@@ -626,6 +738,111 @@ def tolerance_check(kind, out_k, out_p) -> tuple[float, bool]:
     return err, err <= TOL["gp" if kind == "gp_posterior" else kind]
 
 
+def _tile_drops(kk, W, alpha):
+    """The largest effect of dropping one piece of a GP's form, per piece, in
+    float64: for each TILE_ROWS x TILE_COLS tile of W (the tiled kernel's
+    tile) max over queries |sum over the tile of k_i W_ij k_j|, and for each
+    TILE_ROWS block of alpha max over queries |sum over the block of k_i
+    alpha_i|. kk (N, M), W (M, M), alpha (M,): (W tiles (M/TI, M/TJ), alpha
+    blocks (M/TI,)), M padded with zeros to whole tiles."""
+    TI, TJ = cuda_gp.TILE_ROWS, cuda_gp.TILE_COLS
+    n, M = kk.shape
+    P = -(-M // TJ) * TJ
+    kp = torch.nn.functional.pad(kk, (0, P - M))
+    Wp = torch.nn.functional.pad(W, (0, P - M, 0, P - M))
+    kI = kp.view(n, P // TI, TI)
+    tiles = torch.stack([
+        (torch.einsum("nIi,Iij->nIj", kI, Wp.view(P // TI, TI, P)[:, :, j0:j0 + TJ])
+         * kp[:, None, j0:j0 + TJ]).sum(-1).abs().amax(0)
+        for j0 in range(0, P, TJ)], dim=1)
+    blocks = (kI * torch.nn.functional.pad(alpha, (0, P - M)).view(P // TI, TI)).sum(-1).abs().amax(0)
+    return tiles, blocks
+
+
+def _k32_f64_sums(z, form, include_noise=False):
+    """`gp_mean_var_multi_plain` with k in float32, as the plain version and
+    the kernels compute it, and every sum in float64: the float32 rounding
+    of k alone, which any evaluation from float32 k carries. Float64
+    (mean (G, N), var (G, N))."""
+    means, vars_ = [], []
+    for g in range(z.shape[0]):
+        kk = (gp_mod.se_kernel(z[g], form.Z[g], form.lengthscale[g], form.outputscale[g])
+              * form.mask[g]).double()
+        means.append(kk @ form.alpha[g].double())
+        v = torch.clamp_min(form.outputscale[g].double() - ((kk @ form.W[g].double()) * kk).sum(-1),
+                            1e-12)
+        vars_.append(v + form.noise[g].double() if include_noise else v)
+    return torch.stack(means), torch.stack(vars_)
+
+
+def gp_f64_check(entry, label, a, k, out_k, out_p) -> tuple[float, bool]:
+    """Kernel 1 against the float64 value of its own float32 inputs, where
+    float32 sums cancel past what 1e-4 from the plain version can hold: the
+    tiled instantiation (F7) and GPs trained here, whose W at the noise
+    floor (entries ~1/noise) cancels in k W k^T. Per output (mean,
+    variance), the kernel lies within 1e-4 + d of the float64 value, with d
+    the largest distance from it of the evaluation in the instantiation's
+    own arithmetic: for the register instantiations (float32 sums) the plain
+    version's (tests/test_torch_kernels_gpu.py's rule), for the tiled one
+    (float64 sums) `_k32_f64_sums`'s, the rounding of k alone, since the
+    plain version's float32 sums can be off by the whole variance there. The
+    bar's power on the same inputs: planted faults, evaluated in float64,
+    must fall outside it (the variance with the whole k W k^T term dropped
+    and with the W tile of the largest effect dropped, the mean with the
+    alpha block of the largest effect dropped, in each GP; the least reading
+    over the GPs counts), or the run fails; the share of all single W-tile
+    drops the bar rejects is printed. (max |kernel - plain|, ok)."""
+    z, form = a[:2]
+    G, _, D = z.shape
+    tiled = cuda_gp.gp_geometry(form.Z.shape[1], D).bucket == 0
+    f64 = cuda_gp.GpForm(*[t.double() for t in form])
+    z64 = z.double()
+    evaluate = lambda f: cuda_gp.gp_mean_var_multi_plain(z64, f, **k)  # noqa: E731
+    out_64 = evaluate(f64)
+    dist = lambda x, y: float((x.double() - y.double()).abs().max())  # noqa: E731
+    d_plain = [dist(p, r) for p, r in zip(out_p, out_64)]
+    d_k32 = [dist(p, r) for p, r in zip(_k32_f64_sums(z, form, **k), out_64)]
+    bars = [1e-4 + d for d in (d_k32 if tiled else d_plain)]
+    errs = [dist(x, r) for x, r in zip(out_k, out_64)]
+    # planted faults, each GP's own
+    W_tile, alpha_block = f64.W.clone(), f64.alpha.clone()
+    rejected, tiles_n = 0, 0
+    TI, TJ = cuda_gp.TILE_ROWS, cuda_gp.TILE_COLS
+    for g in range(G):
+        kk = gp_mod.se_kernel(z64[g], f64.Z[g], f64.lengthscale[g], f64.outputscale[g]) * f64.mask[g]
+        tiles, blocks = _tile_drops(kk, f64.W[g], f64.alpha[g])
+        live = tiles > 0
+        tiles_n += int(live.sum())
+        rejected += int((tiles[live] > bars[1]).sum())
+        I, J = divmod(int(tiles.argmax()), tiles.shape[1])
+        W_tile[g, I * TI:(I + 1) * TI, J * TJ:(J + 1) * TJ] = 0.0
+        alpha_block[g, int(blocks.argmax()) * TI:(int(blocks.argmax()) + 1) * TI] = 0.0
+    # each GP's fault shows in its own outputs: the least of the GPs' readings
+    least = lambda x, y: min(float((x[g] - y[g]).abs().max()) for g in range(G))  # noqa: E731
+    faults = {
+        "k W k^T dropped": least(evaluate(f64._replace(W=torch.zeros_like(f64.W)))[1], out_64[1]),
+        "largest W tile dropped": least(evaluate(f64._replace(W=W_tile))[1], out_64[1]),
+        "largest alpha block dropped": least(evaluate(f64._replace(alpha=alpha_block))[0],
+                                             out_64[0]),
+    }
+    fault_bars = {"k W k^T dropped": bars[1], "largest W tile dropped": bars[1],
+                  "largest alpha block dropped": bars[0]}
+    err = max(dist(x, p) for x, p in zip(out_k, out_p))
+    say(f"[phase 1] {entry:28s} {label:12s}: max|kernel - float64| mean {errs[0]:.3e}, var "
+        f"{errs[1]:.3e}; the plain version's own mean {d_plain[0]:.3e}, var {d_plain[1]:.3e}; "
+        f"k's rounding alone mean {d_k32[0]:.3e}, var {d_k32[1]:.3e}; bar 1e-4 + the "
+        f"{'latter' if tiled else 'former'}: mean {bars[0]:.3e}, var {bars[1]:.3e}; planted "
+        "faults read "
+        + ", ".join(f"{name} {v:.3e} ({v / fault_bars[name]:.3g} bars)" for name, v in faults.items())
+        + f"; single W-tile drops rejected: {rejected} of {tiles_n}")
+    accepted = [name for name, v in faults.items() if not v > fault_bars[name]]
+    if accepted:
+        say(f"[phase 1] {entry:28s} {label:12s}: the bar accepts the planted faults {accepted}")
+    ok = (all(bool(torch.isfinite(o).all()) for o in out_k)
+          and all(e <= b for e, b in zip(errs, bars)) and not accepted)
+    return err, ok
+
+
 def random_qp(dev, n_tiles, T, nx, nu, seed, box=1.5, scale=1.0) -> cuda_ocp.LanesQp:
     """QP data as in tests/test_pallas_ocp.py::make_batch: `scale` contracts
     the dynamics perturbation (long horizons), `box` bounds stages 1..T."""
@@ -701,10 +918,13 @@ def random_inputs(prob: Problem, T: int):
     return inputs
 
 
-def compare(entry, label, kind, fn, plain, a, k, time_plain=True):
+def compare(entry, label, kind, fn, plain, a, k, time_plain=True, live_lanes=None):
     """One kernel-vs-plain comparison on the card; raises on disagreement.
     Returns (max abs err, kernel ms, plain ms or None, kernel outputs, the
-    kernel's device ms or None); the times when `time_plain`."""
+    kernel's device ms or None); the times when `time_plain`. With
+    `live_lanes`, a QP's solution is compared on its first lanes only: the
+    lanes past a batch (zero-padded scenarios, whose boxes are [0, 0]) carry
+    no solution on either side."""
     ms_k, runs_k, out_k = timed(lambda: fn(*a, **k))
     if time_plain:
         ms_p, runs_p, out_p = timed(lambda: plain(*a, **k))
@@ -712,7 +932,13 @@ def compare(entry, label, kind, fn, plain, a, k, time_plain=True):
     else:
         ms_p, runs_p, out_p, dev_ms = None, 0, plain(*a, **k), None
         torch.cuda.synchronize()
-    err, ok = tolerance_check(kind, out_k, out_p)
+    if kind == "gp_posterior_f64":
+        err, ok = gp_f64_check(entry, label, a, k, out_k, out_p)
+    elif live_lanes is not None:
+        err, ok = tolerance_check(kind, [o[..., :live_lanes] for o in out_k[:2]],
+                                  [o[..., :live_lanes] for o in out_p[:2]])
+    else:
+        err, ok = tolerance_check(kind, out_k, out_p)
     if kind in ("ocp", "ocp_soft"):
         # per-tile IP iterations; kernels 5 and 6 must run exactly the plain version's
         its_k, its_p = fn.last_iterations.tolist(), plain.last_iterations.tolist()
@@ -780,7 +1006,8 @@ def check_kernels(prob: Problem, results: dict, captured: dict) -> None:
             src, kind = qp_source(path.qp, soft), "ocp_soft" if soft else "ocp"
         else:
             fn, plain, src, replaces = KERNELS[name]
-            kind = name
+            # a GP trained here sits at its noise floor, where float32 itself is off by ~1e-4
+            kind = "gp_posterior_f64" if name == "gp_posterior" and path.learned else name
             if name == "linearize":
                 replaces = LINEARIZE_CLOSURES.get(prob.family, replaces)
         a, k = cap.args[name]
@@ -799,18 +1026,25 @@ def check_kernels(prob: Problem, results: dict, captured: dict) -> None:
         prob.rates[name] = bnd.flops / (1e-3 * ms_k)  # operations/s the kernel reached
 
 
-def random_gp_leaves(G: int, D: int, seed: int, m: int = 128, n_live: int = 40):
+def random_gp_leaves(G: int, D: int, seed: int, m: int = 128, n_live: int = 40,
+                     density: int | None = None):
     """G GPs of m padded points, `n_live` live ones each (fewer for later GPs)
     at scattered positions, so the live points are not a prefix; the masked
     points keep nonzero inputs and W entries (tests/test_torch_gp.py's
-    make_multi). numpy, float32: (Z, alpha, W, lengthscale, outputscale,
-    noise, mask)."""
+    make_multi). With `density`, the lengthscales shrink by
+    (density / n_live)^(1/D), so that as many points lie within a
+    lengthscale as `density` points would at the unscaled ones (W = K^-1 of
+    a denser GP cancels more of the variance in every float32 sum). numpy,
+    float32: (Z, alpha, W, lengthscale, outputscale, noise, mask)."""
     rng = np.random.default_rng(seed)
     Z = rng.normal(size=(G, m, D)).astype(np.float32)
     mask = np.zeros((G, m), np.float32)
     W = np.zeros((G, m, m), np.float32)
     alpha = np.zeros((G, m), np.float32)
-    ell = np.linspace(0.7, 1.6, G * D).reshape(G, D).astype(np.float32)
+    ell = np.linspace(0.7, 1.6, G * D).reshape(G, D)
+    if density is not None:
+        ell = ell * (density / n_live) ** (1.0 / D)
+    ell = ell.astype(np.float32)
     sf2 = np.linspace(0.8, 1.5, G).astype(np.float32)
     noise = np.linspace(0.03, 0.08, G).astype(np.float32)
     for g in range(G):
@@ -839,6 +1073,24 @@ def check_gp_kernel_level(dev, extra: list) -> None:
             a, k = (z, form), {"include_noise": True}
             err, ms_k, ms_p, out_k, dev_ms = compare(entry, f"M={form.Z.shape[1]}", "gp_posterior",
                                                      fn, plain, a, k)
+            extra.append(result_entry(entry, src, replaces, err, ms_k, ms_p, bound_gp(a, out_k),
+                                      dev_ms=dev_ms))
+    # F7: past 128 live points, the tiled instantiation (any M)
+    for density in F7_DENSITIES:
+        for G, D, m, n in F7_CASES:
+            leaves = [t(a) for a in random_gp_leaves(G, D, seed=m + 10 * G + D, m=m + 16,
+                                                     n_live=m, density=density)]
+            form = cuda_gp.pack_form(*leaves)
+            geometry = cuda_gp.gp_geometry(form.Z.shape[1], D)
+            if geometry.bucket != 0:
+                raise RuntimeError(f"M={form.Z.shape[1]}: expected the tiled instantiation, got "
+                                   f"{geometry}")
+            z = t(np.random.default_rng(m + G + D).normal(0, 0.6, (G, n, D)).astype(np.float32))
+            scaled = "" if density is None else f",density={density}"
+            entry = f"gp_posterior_tiled[G={G},D={D},M={m},N={n}{scaled}]"
+            a, k = (z, form), {"include_noise": True}
+            err, ms_k, ms_p, out_k, dev_ms = compare(entry, f"M={form.Z.shape[1]}",
+                                                     "gp_posterior_f64", fn, plain, a, k)
             extra.append(result_entry(entry, src, replaces, err, ms_k, ms_p, bound_gp(a, out_k),
                                       dev_ms=dev_ms))
 
@@ -1058,6 +1310,166 @@ def analytic_jacobian_run(dev, rec_u) -> None:
         raise RuntimeError("the analytic-Jacobian run disagrees with the forward-mode run")
 
 
+def reset_launches() -> dict:
+    """Every kernel wrapper of the paths by name, its launch count set to 0."""
+    wrappers = {k: v[0] for k, v in KERNELS.items()}
+    wrappers.update({k: v[0] for k, v in QP_WRAPPERS.items()})
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
+
+
+def check_captured(path: SmokePath, path_name: str, cap, launches: dict, results: dict,
+                   gp_kind: str = "gp_posterior") -> None:
+    """Phase 1 on a run's captured inputs (`Capture`): each kernel of the
+    path against its plain version, with the launches of the path's run."""
+    soft = path.soft is not None
+    for name in path.kernels:
+        if name == "qp":
+            fn, plain, replaces = QP_WRAPPERS[path.qp]
+            src, kind = qp_source(path.qp, soft), "ocp_soft" if soft else "ocp"
+        else:
+            fn, plain, src, replaces = KERNELS[name]
+            kind = gp_kind if name == "gp_posterior" else name
+            if name == "linearize":
+                replaces = LINEARIZE_CLOSURES.get(path.family, replaces)
+        a, k = cap.args[name]
+        entry = entry_name(path_name, name)
+        live = path.B if name == "qp" and path.B % LANES else None
+        err, ms_k, ms_p, out_k, dev_ms = compare(entry, "real step", kind, fn, plain, a, k,
+                                                 live_lanes=live)
+        library_ms = tighten_library_ms(a) if name == "tighten" else None
+        results[entry] = result_entry(entry, src, replaces, err, ms_k, ms_p,
+                                      kernel_bound(name, fn, a, k, out_k), library_ms=library_ms,
+                                      dev_ms=dev_ms)
+        results[entry]["launches"] = launches[path.qp if name == "qp" else name]
+        if results[entry]["launches"] <= 0:
+            raise RuntimeError(f"{entry}: launched no time on {path_name}'s run")
+
+
+def twolink_exact_learned(dev, results: dict) -> None:
+    """tests/test_learning_loop.py's two-link controller on the card (T=20,
+    exact ARD GPs of capacity 512, 8 SQP and 10 IP iterations, lm_reg 0.5,
+    kernel linearization), from that test's initial states (`TWOLINK_STARTS`):
+    two 150-step episodes of the untrained controller through the stateful
+    `select_action`, `train_gp(lr=0.05, iterations=500)` on their 300
+    transitions, 150 steps of the trained controller from the first
+    episode's start. Kernel 1 runs at 304 live points (the tiled
+    instantiation, F7). Gate: the tail-cost ratio against the untrained
+    controller's first episode < 0.6 (the JAX test's bar), clamp_frac 0."""
+    c, cfg = FAMILIES["twolink"], TWOLINK_EXACT
+    env_p = twolink_env.EnvParams.default()
+    ctrl = gpmpc_mod.GPMPC(
+        c["model"](), twolink_env.make_trajectory(env_p, dev).cpu().numpy(), None, horizon=cfg["T"],
+        q_mpc=c["q_mpc"], r_mpc=c["r_mpc"], sparse_gp=False, max_gp_samples=40, seed=1,
+        sqp_iters=8, qp_iters=10, max_gp_points=512, ard_gp=True, lm_reg=0.5,
+        bounds=c["bounds"], device=dev,
+    )
+    # the fused path (kernel 3 at Ms = 512, the exact GP's capacity); the
+    # stateful controller's default linearizes with forward-mode torch.func,
+    # which costs ~0.48 s a B = 1 step on the host of an NVIDIA H100 80GB HBM3 machine
+    ctrl.cfg = ctrl.cfg._replace(kernel_linearize=True)
+    n = cfg["steps"]
+
+    def rollout(seed):
+        es, _ = twolink_env.env_reset(env_p, 1, torch.Generator(device=dev), dev)
+        es = es._replace(x=torch.tensor([TWOLINK_STARTS[seed]], dtype=torch.float32, device=dev))
+        obs = es.x
+        ctrl.reset()
+        X, U, costs = [obs[0].cpu().numpy()], [], []
+        for _ in range(n):
+            u = ctrl.select_action(X[-1])
+            es, obs, reward, *_ = twolink_env.env_step(env_p, es, torch.as_tensor(u, device=dev)[None])
+            X.append(obs[0].cpu().numpy())
+            U.append(u)
+            costs.append(-float(reward[0]))
+        return np.asarray(X), np.asarray(U), np.asarray(costs)
+
+    t0 = time.perf_counter()
+    eps = [rollout(seed) for seed in range(cfg["episodes"])]
+    collect_s = time.perf_counter() - t0
+    cost_prior = eps[0][2]
+    xi, ti = ctrl.preprocess_data(np.concatenate([e[0][:-1] for e in eps]),
+                                  np.concatenate([e[1] for e in eps]),
+                                  np.concatenate([e[0][1:] for e in eps]))
+    fit_s, _ = cuda_timed(lambda: ctrl.train_gp(xi, ti, lr=0.05, iterations=cfg["iterations"]))
+    info = ctrl.last_fit_info
+    form = gpmpc_mod.variance_form(ctrl.gp_model)
+    say(f"[learn] twolink-exact-learned: {cfg['episodes']} x {n} steps of the untrained controller "
+        f"({collect_s:.1f} s, {1e3 * collect_s / (cfg['episodes'] * n):.1f} ms a select_action); "
+        f"train_gp(lr=0.05, iterations={cfg['iterations']}) on {xi.shape[0]} points (exact ARD, "
+        f"capacity 512): {fit_s:.3f} s, {info.iterations} Adam iterations (freeze steps "
+        f"{info.freeze_step.tolist()}), {1e3 * fit_s / max(info.iterations, 1):.2f} ms an "
+        f"iteration; kernel 1's form holds {form.Z.shape[1]} points (instantiation "
+        f"{cuda_gp.gp_geometry(form.Z.shape[1], form.Z.shape[2])})")
+    path = SmokePath("twolink", cfg["T"], 1, None, "ocp_ip", 0, n, 0, 0, "exact-learned",
+                     learned=True)
+    wrappers = reset_launches()
+    with Capture(path) as cap:
+        t0 = time.perf_counter()
+        _, _, cost_gp = rollout(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    tail = slice(-max(n // 3, 10), None)
+    ratio = float(cost_gp[tail].mean() / cost_prior[tail].mean())
+    clamp = float(ctrl._last_info.clamp_frac)
+    say(f"[learn] twolink-exact-learned: {n} trained steps, {1e3 * wall / n:.1f} ms a select_action "
+        f"(B=1); kernel launches {launches}; tail-cost ratio {ratio:.4f} (prior "
+        f"{cost_prior[tail].mean():.5f} -> GP {cost_gp[tail].mean():.5f}; bar < "
+        f"{cfg['max_ratio']}), clamp_frac {clamp}")
+    PATHS["twolink-exact-learned"] = path
+    check_captured(path, "twolink-exact-learned", cap, launches, results, gp_kind="gp_posterior_f64")
+    if not ratio < cfg["max_ratio"] or clamp != 0.0:
+        raise RuntimeError(f"twolink-exact-learned: tail-cost ratio {ratio} or clamp_frac {clamp}")
+
+
+def quadrotor_sweep(dev, results: dict) -> None:
+    """`seed_sweep(backend="lanes")` at scripts/eval_seeds.py's quadrotor
+    settings (`SWEEP`; the episode cut from 300 steps to 30): every epoch's
+    episodes run the 16 seeds as one GP population (kernels 2 and 4). The
+    cost matrix, each epoch's wall and fit time; the kernels on the first
+    step's captured inputs."""
+    c, cfg = FAMILIES["quadrotor"], SWEEP
+    env_p = drone.EnvParams.default()
+    model = c["model"]()
+    ctrl = gpmpc_mod.GPMPC(model, drone.make_trajectory(env_p, dev).cpu().numpy(), c["prior"],
+                           horizon=cfg["T"], q_mpc=c["q_mpc"], r_mpc=c["r_mpc"],
+                           sqp_iters=cfg["sqp_iters"], qp_iters=cfg["qp_iters"], device=dev)
+    path = SmokePath("quadrotor", cfg["T"], cfg["n_seeds"], None, "ocp_ip", 0, cfg["n_steps"], 0, 0,
+                     "sweep", dispatch="lanes", degraded=True, population=True)
+    wrappers = reset_launches()
+    with Capture(path) as cap, warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the population path's dispatch warning
+        t0 = time.perf_counter()
+        res, epochs = seed_sweep(model, ctrl.cfg, env_p, ctrl.consts, n_seeds=cfg["n_seeds"],
+                                 n_epochs=cfg["n_epochs"], n_steps=cfg["n_steps"],
+                                 samples_per_epoch=cfg["samples_per_epoch"],
+                                 max_inducing=cfg["max_inducing"], sparse=True,
+                                 gp_iters=cfg["gp_iters"], gp_lr=cfg["gp_lr"], master_seed=0,
+                                 backend="lanes", return_info=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    costs = res.costs.cpu().numpy()
+    say(f"[sweep] quadrotor-sweep: {cfg['n_seeds']} seeds x {cfg['n_epochs']} epochs x "
+        f"{cfg['samples_per_epoch']} samples, T={cfg['T']}, {cfg['n_steps']}-step episodes (cut "
+        f"from 300), {cfg['gp_iters']} Adam iterations at lr {cfg['gp_lr']} over "
+        f"{cfg['n_seeds']} x 3 GPs: {wall:.1f} s in all; kernel launches {launches}")
+    for e in epochs:
+        say(f"[sweep] epoch {e.epoch}: wall {e.wall_s:.3f} s, of which the fit "
+            f"{e.fit_s:.3f} s ({e.fit_iterations} Adam iterations until every GP froze, "
+            f"{1e3 * e.fit_s / max(e.fit_iterations, 1):.2f} ms an iteration)")
+    say("[sweep] cost matrix (rows: prior, epoch 1..; columns: seeds): "
+        + json.dumps(np.round(costs, 6).tolist()))
+    say(f"[sweep] mean cost per row {np.round(costs.mean(axis=1), 6).tolist()}, points per row "
+        f"{res.n_points.tolist()}")
+    if not np.isfinite(costs).all() or costs.shape != (cfg["n_epochs"] + 1, cfg["n_seeds"]):
+        raise RuntimeError("quadrotor-sweep: the cost matrix is not finite or misshapen")
+    PATHS["quadrotor-sweep"] = path
+    check_captured(path, "quadrotor-sweep", cap, launches, results)
+
+
 def chain_inputs(dev):
     """Each chain kernel's input at the reference's sizes and on its data,
     in lanes layout and as (B, T, n, n) for the library call."""
@@ -1239,7 +1651,7 @@ def main() -> int:
     t_run = time.perf_counter()
     gflops = check_chains(dev, results)  # phase 1, kernels 7-9 and the roofline rows
     say(f"[time] roofline probe done at {time.perf_counter() - t_run:.0f} s")
-    for path_name in PATHS:
+    for path_name in list(PATHS):
         prob = problems[path_name] = Problem(path_name, dev)
         check_kernels(prob, results, captured)  # phase 1
         rec_obs, rec_u = closed_loop(prob, results)  # phase 2
@@ -1247,6 +1659,10 @@ def main() -> int:
             analytic_jacobian_run(dev, rec_u)
         cpu_parity(path_name, rec_obs, rec_u)  # phase 3
         say(f"[time] {path_name} done at {time.perf_counter() - t_run:.0f} s")
+    twolink_exact_learned(dev, results)
+    say(f"[time] twolink-exact-learned done at {time.perf_counter() - t_run:.0f} s")
+    quadrotor_sweep(dev, results)
+    say(f"[time] quadrotor-sweep done at {time.perf_counter() - t_run:.0f} s")
     chain_share(problems["quadrotor"], gflops)
     stress = lambda gp: gp._replace(hypers=gp.hypers._replace(  # noqa: E731
         raw_outputscale=torch.full_like(gp.hypers.raw_outputscale, STRESS_OUTPUTSCALE)))

@@ -35,8 +35,8 @@ _F = ctypes.c_float
 
 # C entry points: name -> argtypes. Every one returns cudaGetLastError() as int.
 SIGNATURES = {
-    # z, Zt, alpha, W, mask, hyp, G, n, m, d, include_noise, mean, var, stream
-    "gp_posterior_launch": [_P] * 6 + [_I] * 5 + [_P] * 3,
+    # z, Zt, alpha, W, mask, hyp, G, n, m, d, include_noise, bucket, mean, var, stream
+    "gp_posterior_launch": [_P] * 6 + [_I] * 6 + [_P] * 3,
     # covdn, A, B, K, Bd, ppf, B, T, nd, nx, nu, wsq, tx, tu, stream
     "tighten_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # family, nx, nu, par8, hyp, X, U, Zs, alpha, n_tiles, T, L, Ms, use_gp, dt, fnext, A, B, stream

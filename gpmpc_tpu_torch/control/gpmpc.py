@@ -1,18 +1,22 @@
-"""GP-MPC: setup, the GP-augmented dynamics, step preparation (GP variances
-and chance-constraint tightening) and the lanes step.
+"""GP-MPC: setup, GP training, the GP-augmented dynamics, step preparation
+(GP variances and chance-constraint tightening), the lanes step and the
+stateful controller.
 
-Port of the `lanes-fused` and `lanes` slices of `gpmpc_tpu/control/gpmpc.py`:
-`GpModel`, `GpMpcConsts`, the setup half of `GPMPC.__init__`, `gp_residual`,
-`augmented_fd`, `gp_variances`, both branches of `batched_variances` (the
-kernel for a shared GP, per-scenario quadratic forms for a population),
-`_gp_disturbance_batch` (which is also the reference's per-scenario
-`disturbance_diagonals`, batched), `_bounds_from_tightening`,
-`batched_prepare_step` and the three branches of
-`batched_select_action_lanes` (fused kernel linearization; jacfwd or analytic
-Jacobians; a per-scenario GP population), with hard or L1-soft state bounds.
-GP training, the vmapped `select_action` of the `xla` path and the stateful
-controller API are not ported yet (ROADMAP.md Queue 1). All state carries a
-leading scenario axis B; a GP population carries it on every GpModel leaf.
+Port of `gpmpc_tpu/control/gpmpc.py`: `GpModel`, `GpMpcConsts`,
+`empty_gp_model`, the training data's packing (`pack_training_data`,
+`pack_training_buffers`, `preprocess_data_jnp`, named as in the reference so
+a reader finds the counterpart), `train_gp_models` (sparse FITC or exact, ARD
+or isotropic, batched over any leading axes), `gp_residual`, `augmented_fd`,
+`gp_variances`, both branches of `batched_variances` (the kernel for a shared
+GP, per-scenario quadratic forms for a population), `_gp_disturbance_batch`
+(which is also the reference's per-scenario `disturbance_diagonals`,
+batched), `_bounds_from_tightening`, `batched_prepare_step`, the three
+branches of `batched_select_action_lanes` (fused kernel linearization;
+jacfwd or analytic Jacobians; a per-scenario GP population) with hard or
+L1-soft state bounds, and the stateful `GPMPC`. The vmapped `select_action`
+of the `xla` path and the nominal `MPC` (`GPMPC.prior_ctrl`) are not ported
+(ROADMAP.md Queue 1). All state carries a leading scenario axis B; a GP
+population carries it on every GpModel leaf.
 """
 
 from __future__ import annotations
@@ -28,10 +32,22 @@ import torch
 from gpmpc_tpu_torch.control import mpc as mpc_mod
 from gpmpc_tpu_torch.control.mpc import MpcConsts, MpcInfo, MpcState
 from gpmpc_tpu_torch.device import resolve, strict_float32
+from gpmpc_tpu_torch.gp.exact_gp import (
+    GPData,
+    GPHypers,
+    _cho_solve,
+    fit_gp,
+    init_hypers,
+    posterior,
+    softplus,
+)
+from gpmpc_tpu_torch.gp.kernels import se_kernel
+from gpmpc_tpu_torch.gp.sparse import fitc_posterior, select_inducing
 from gpmpc_tpu_torch.models import quadrotor
 from gpmpc_tpu_torch.models.jacobians import make_augmented_fd_jac
+from gpmpc_tpu_torch.models.quadrotor import GRAVITY
 from gpmpc_tpu_torch.models.residual import QUADROTOR_SPEC, ResidualSpec
-from gpmpc_tpu_torch.ops.cuda_gp import GpForm, gp_mean_var_multi, pack_form, se_kernel
+from gpmpc_tpu_torch.ops.cuda_gp import GpForm, gp_mean_var_multi, pack_form
 from gpmpc_tpu_torch.ops.cuda_tighten import tighten_lanes
 from gpmpc_tpu_torch.ops.linalg import discretize_linear_system, lqr_gain_discrete
 from gpmpc_tpu_torch.ops.sqp import OcpBounds, OcpCost, SqpConfig
@@ -41,20 +57,12 @@ from gpmpc_tpu_torch.ops.sqp_lanes import (
     LanesLinearizer,
     jacfwd_linearize,
     lanes_horizon_cap,
+    lanes_serves,
     sqp_solve_batch_lanes,
     sqp_solve_batch_lanes_fused,
 )
 
 F32 = torch.float32
-
-
-class GPHypers(NamedTuple):
-    """Raw (pre-softplus) hyperparameters, leaves shaped (G,) (lengthscale
-    (G, D) for ARD)."""
-
-    raw_lengthscale: torch.Tensor
-    raw_outputscale: torch.Tensor
-    raw_noise: torch.Tensor
 
 
 class GpModel(NamedTuple):
@@ -82,11 +90,6 @@ class GpMpcConsts(NamedTuple):
     dt: torch.Tensor  # ()
 
 
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + e^x) without torch's linear cutoff (matches jax.nn.softplus)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
-
-
 def model_spec(model) -> ResidualSpec:
     return model.residual_spec if model.residual_spec is not None else QUADROTOR_SPEC
 
@@ -110,6 +113,133 @@ def gp_is_batched(gp: GpModel) -> bool:
     """True if every GpModel leaf carries a leading scenario axis (a GP
     population, one model per scenario)."""
     return gp.Zs.dim() == 4
+
+
+def empty_gp_model(
+    max_points: int,
+    max_inducing: int,
+    dtype=torch.float32,
+    ard: bool = False,
+    spec: ResidualSpec = QUADROTOR_SPEC,
+    device=None,
+) -> GpModel:
+    """An untrained ensemble: zero data, zero mean weights (the residual
+    vanishes, so the controller is the prior's) and `trained` False (no
+    tightening). `max_inducing` sizes both the mean inducing set and the
+    variance form (max_inducing == max_points for the exact mode). The
+    lengthscale leaf has the shape training gives it, (G, D) for ARD."""
+    device = resolve(device)
+    M, Ms = max_points, max_inducing
+    G, D = spec.num_gps, spec.gp_input_dim
+    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)  # noqa: E731
+    return GpModel(
+        Z=z(G, M, D), y=z(G, M), mask=z(G, M),
+        hypers=GPHypers(z(G, D) if ard else z(G), z(G), z(G)),
+        Zs=z(G, Ms, D), alpha_s=z(G, Ms), var_Z=z(G, Ms, D), var_mat=z(G, Ms, Ms),
+        var_mask=z(G, Ms), trained=torch.tensor(False, device=device),
+    )
+
+
+def gp_input_from_xu(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """(x, u) -> the quadrotor's 7-dim GP input [T, phi, dphi, phi_cmd,
+    theta, dtheta, theta_cmd]; other families use `model_spec(model).gp_input`."""
+    return QUADROTOR_SPEC.gp_input(x, u)
+
+
+def pack_training_data(
+    xz: torch.Tensor, yg: torch.Tensor, max_points: int, spec: ResidualSpec = QUADROTOR_SPEC
+) -> GPData:
+    """(N, z_dim) inputs and (N, G) targets -> padded per-GP GPData (leaves
+    lead with the GP axis), every one of the N rows active."""
+    n = xz.shape[0]
+    pad = max_points - n
+    z = slice_gp_inputs(xz, spec)  # (G, N, D)
+    return GPData(
+        x=torch.nn.functional.pad(z, (0, 0, 0, pad)),
+        y=torch.nn.functional.pad(yg.T, (0, pad)),
+        mask=torch.nn.functional.pad(
+            torch.ones(spec.num_gps, n, dtype=xz.dtype, device=xz.device), (0, pad)),
+    )
+
+
+def pack_training_buffers(
+    bufx: torch.Tensor, bufy: torch.Tensor, count, spec: ResidualSpec = QUADROTOR_SPEC
+) -> GPData:
+    """Padded (..., cap, z_dim) and (..., cap, G) buffers and the count of
+    active rows (an int, or a tensor of the leading shape) -> masked GPData
+    with leaves (..., G, cap, ...): rows >= count stay in the buffers but
+    are masked out, so a growing dataset never changes shapes."""
+    cap = bufx.shape[-2]
+    count = torch.as_tensor(count, device=bufx.device)
+    mask = (torch.arange(cap, device=bufx.device) < count[..., None]).to(bufx.dtype)
+    mask = mask.expand(bufx.shape[:-2] + (cap,))
+    z = slice_gp_inputs(bufx, spec).movedim(0, -3)  # (..., G, cap, D)
+    return GPData(x=z, y=bufy.transpose(-1, -2),
+                  mask=mask[..., None, :].expand(bufx.shape[:-2] + (spec.num_gps, cap)))
+
+
+def train_gp_models(
+    data: GPData,  # leaves (..., G, M, ...)
+    generator: torch.Generator,
+    sparse: bool,
+    max_inducing: int,
+    n_train: int,
+    lr: float,
+    ard: bool = False,
+    return_info: bool = False,
+):
+    """Fit the hyperparameters, factorize the posteriors and build the
+    mean-inducing set and the variance form: a new GpModel, every leaf a new
+    tensor (nothing of an earlier model is written). Batched over the data's
+    leading axes: G GPs, or S seeds x G GPs in one fit (a GpModel whose
+    leaves lead with S). Sparse: one uniform inducing draw of up to
+    `max_inducing` active rows per leading entry (shared by its G GPs) from
+    `generator`, and the FITC mean and variance form; exact: the whole
+    training set, alpha = K^-1 y and W = K^-1. With `return_info`,
+    (GpModel, the fit's FitInfo)."""
+    with strict_float32():
+        batch = tuple(data.y.shape[:-1])  # (..., G)
+        D = data.x.shape[-1]
+        h0 = init_hypers(data.x.dtype, D if ard else None, data.x.device, batch)
+        hypers, _, info = fit_gp(data, hypers=h0, n_train=n_train, lr=lr, return_info=True)
+        if sparse:
+            idx, s_mask = select_inducing(generator, data.mask[..., 0, :], max_inducing)
+            Zs, alpha_s, W = fitc_posterior(hypers, data, idx[..., None, :], s_mask[..., None, :])
+            var_Z, var_mask = Zs, s_mask[..., None, :].expand(batch + (max_inducing,))
+        else:
+            post = posterior(hypers, data)
+            M = data.x.shape[-2]
+            eye = torch.eye(M, dtype=data.x.dtype, device=data.x.device)
+            with torch.no_grad():
+                W = _cho_solve(post.chol, eye.expand(batch + (M, M)))
+            Zs, alpha_s = data.x, post.alpha
+            var_Z, var_mask = data.x, data.mask
+    c = lambda t: t.detach().clone().contiguous()  # noqa: E731
+    model = GpModel(
+        Z=c(data.x), y=c(data.y), mask=c(data.mask), hypers=GPHypers(*[c(h) for h in hypers]),
+        Zs=c(Zs), alpha_s=c(alpha_s), var_Z=c(var_Z), var_mat=c(W), var_mask=c(var_mask),
+        trained=torch.ones(batch[:-1], dtype=torch.bool, device=data.x.device),
+    )
+    return (model, info) if return_info else model
+
+
+def preprocess_data_jnp(model, acc_a: float, acc_b: float, x: torch.Tensor, u: torch.Tensor,
+                        x_next: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The quadrotor's transition preprocessing, (N, 7) GP inputs and (N, 3)
+    targets: finite-difference state derivatives minus the prior's, the
+    thrust-magnitude residual |v_dot + g e_z| - (a T + b) for the
+    acceleration GP and the phi and theta rate residuals; dt is the model's.
+    Named as in the reference (whose version is its jnp one)."""
+    thrust_cmd = u[:, 0]
+    x_dot = (x_next - x) / model.dt
+    acc = torch.sqrt(x_dot[:, 1] ** 2 + x_dot[:, 3] ** 2 + (x_dot[:, 5] + GRAVITY) ** 2)
+    acc_target = acc - (acc_a * thrust_cmd + acc_b)
+    f_prior = model.fc_func(x, u)
+    phi_target = x_dot[:, 6] - f_prior[:, 6]
+    theta_target = x_dot[:, 7] - f_prior[:, 7]
+    train_input = torch.stack(
+        [thrust_cmd, x[:, 6], x[:, 9], u[:, 1], x[:, 7], x[:, 10], u[:, 2]], dim=1)
+    return train_input, torch.stack((acc_target, phi_target, theta_target), dim=1)
 
 
 def gp_residual(
@@ -375,17 +505,24 @@ def _select_action_lanes(model, cfg, consts, gp, states, obs, lanes):
 
 
 class GPMPC:
-    """Controller setup (the setup half of the reference's `GPMPC.__init__`):
-    `consts` (GpMpcConsts on `device`) and `cfg` (SqpConfig). The parameter
-    list is the reference's, in its order and with its defaults, except
-    `device` (None resolves to the card). `bounds` (((lx, ux), (lu, uu)),
-    default the quadrotor's boxes), `lm_reg` and `soft_constraints` (the L1
-    penalty weight that makes the chance-tightened state bounds soft; None
-    keeps them hard) act as in the reference. The arguments of parts not
-    ported yet are stored as given; those that would change the setup
-    (`sparse_gp`, `ard_gp`, `parallel_scan`, a `step_backend` other than
-    "auto") raise `UnsupportedPathError` when set. The stateful select_action /
-    train_gp API is not ported yet."""
+    """The reference's stateful controller: setup (`consts`, `cfg`, the
+    empty `gp_model`), `preprocess_data`, `train_gp`, `reset`,
+    `reference_trajectory`, `select_action` and the reference-surface
+    properties. The parameter list is the reference's, in its order and
+    with its defaults, except `device` (None resolves to the card). `bounds`
+    (((lx, ux), (lu, uu)), default the quadrotor's boxes), `lm_reg` and
+    `soft_constraints` (the L1 penalty weight that makes the chance-tightened
+    state bounds soft; None keeps them hard) act as in the reference.
+
+    `step_backend`: "lanes" runs each `select_action` as a B = 1 batch of
+    `batched_select_action_lanes` (a ValueError past the lanes horizon cap);
+    "auto" resolves to "lanes" on the card and to "xla" on the CPU; "xla"
+    (the reference's vmapped `select_action`) is not ported and raises
+    `UnsupportedPathError` at the first step. Not ported either: the nominal
+    prior controller (`prior_ctrl`, whose absence a reader of the reference
+    would look for; the untrained controller, whose GP mean is zero and
+    whose tightening is off, solves the same problem) and `parallel_scan`
+    (raises)."""
 
     U_EQ = np.array([0.3234, 0.0, 0.0, 0.0])
 
@@ -413,30 +550,34 @@ class GPMPC:
         lm_reg: float = 0.0,
         step_backend: str = "auto",
     ):
-        unported = {"sparse_gp": sparse_gp, "ard_gp": ard_gp, "parallel_scan": parallel_scan,
-                    "step_backend": step_backend != "auto"}
-        for name, value in unported.items():
-            if value:
-                raise UnsupportedPathError(
-                    f"GPMPC({name}=...) needs a part of the reference that is not ported "
-                    "(ROADMAP.md Queue 1)"
-                )
+        if parallel_scan:
+            raise UnsupportedPathError(
+                "GPMPC(parallel_scan=...) needs a part of the reference that is not ported "
+                "(ROADMAP.md Queue 1)"
+            )
+        if step_backend not in ("auto", "lanes", "xla"):
+            raise ValueError(f"step_backend must be 'auto', 'lanes' or 'xla', got {step_backend!r}")
         self.sparse, self.ard_gp, self.step_backend = sparse_gp, ard_gp, step_backend
         self.max_gp_samples, self.max_gp_points = max_gp_samples, max(max_gp_points, max_gp_samples)
         self.seed, self.output_dir = seed, output_dir
-        device = resolve(device)
+        self.device = device = resolve(device)
         self.spec = model_spec(model)
         # only the quadrotor's thrust map consumes the prior's a and b
-        if self.spec.name == "quadrotor" and (
-            prior_params is None or any(k not in prior_params for k in ("a", "b"))
-        ):
-            raise ValueError("GPMPC requires prior_params to be defined and contain 'a' and 'b'.")
+        if self.spec.name == "quadrotor":
+            if prior_params is None or any(k not in prior_params for k in ("a", "b")):
+                raise ValueError("GPMPC requires prior_params to be defined and contain 'a' and 'b'.")
+            self._acc_a, self._acc_b = float(prior_params["a"]), float(prior_params["b"])
         self.model = model
+        self.dt = model.dt
         self.T = horizon
+        self.np_random = np.random.default_rng(seed)
+        # the inducing draws (JAX's PRNG key chain cannot be reproduced)
+        self._gp_generator = torch.Generator(device=device).manual_seed(seed)
         nx, nu = model.nx, model.nu
         traj = torch.as_tensor(np.array(traj, np.float32))
         if traj.shape[0] < traj.shape[1]:
             traj = traj.T
+        self.traj = traj
 
         inverse_cdf = float(statistics.NormalDist().inv_cdf(1 - (1 / nx - (prob + 1) / (2 * nx))))
         x_eq = np.zeros(nx, np.float32) if model.x_eq is None else np.asarray(model.x_eq, np.float32)
@@ -456,3 +597,147 @@ class GPMPC:
         self.cfg = SqpConfig(
             sqp_iters=sqp_iters, qp_iters=qp_iters, soft_x_penalty=soft_constraints, lm_reg=lm_reg
         )
+        self.gp_model = empty_gp_model(
+            self.max_gp_points, self.max_gp_samples if sparse_gp else self.max_gp_points,
+            ard=ard_gp, spec=self.spec, device=device,
+        )
+        self.state = mpc_mod.init_state(1, horizon, nx, nu, device=device)
+        self._requires_recompile = False  # the reference's API: nothing is ever recompiled here
+        self._last_info = None
+        self.last_fit_info = None
+
+    def _resolve_step_backend(self) -> str:
+        """The step backend this controller runs: "lanes", or a raise."""
+        backend = self.step_backend
+        if backend == "auto":
+            backend = ("lanes" if self.device.type == "cuda" and lanes_serves(self.cfg, self.T)
+                       else "xla")
+        elif backend == "lanes" and not lanes_serves(self.cfg, self.T):
+            raise ValueError(
+                f"step_backend='lanes' forced but horizon T={self.T} exceeds the lanes cap "
+                f"({lanes_horizon_cap(self.cfg)}"
+                f"{' with soft state bounds' if self.cfg.soft_x_penalty is not None else ''}); "
+                "use step_backend='xla' or 'auto'"
+            )
+        if backend == "xla":
+            raise UnsupportedPathError(
+                f"GPMPC step_backend {self.step_backend!r} resolves to 'xla' on {self.device} "
+                "(the reference's vmapped select_action), which is not ported; pass "
+                "step_backend='lanes' (ROADMAP.md Queue 1)"
+            )
+        return backend
+
+    # -- the reference's attribute surface ------------------------------------
+
+    @property
+    def gaussian_process(self):
+        """The trained GP ensemble (one padded GpModel), None before train_gp."""
+        return self.gp_model if bool(self.gp_model.trained) else None
+
+    @property
+    def gp_idx(self):
+        """Per-GP input-slice indices."""
+        return [list(i) for i in self.spec.gp_idx]
+
+    @property
+    def traj_step(self) -> int:
+        return int(self.state.traj_step[0])
+
+    @property
+    def x_prev(self):
+        """Previous solution, (nx, T+1) as in the reference; None before the
+        first solve."""
+        if self.traj_step == 0:
+            return None
+        return self.state.X_warm[0].cpu().numpy().T
+
+    @property
+    def u_prev(self):
+        if self.traj_step == 0:
+            return None
+        return self.state.U_warm[0].cpu().numpy().T
+
+    @property
+    def ref_action(self):
+        """(nu, T) input reference."""
+        return self.consts.mpc.uref.cpu().numpy().T
+
+    @property
+    def lqr_gain(self):
+        return self.consts.lqr_gain.cpu().numpy()
+
+    @property
+    def inverse_cdf(self) -> float:
+        return float(self.consts.inverse_cdf)
+
+    # -- training data ---------------------------------------------------------
+
+    def preprocess_data(self, x, u, x_next):
+        """Rollout transitions -> GP inputs (N, z_dim) and residual targets
+        (N, G) as numpy arrays, through the family's ResidualSpec; the
+        quadrotor's thrust map comes from the `prior_params` given at
+        construction. dt is the model's."""
+        t = lambda a: torch.as_tensor(np.array(a, np.float32), device=self.device)  # noqa: E731
+        x, u, x_next = t(x), t(u), t(x_next)
+        if self.spec.name == "quadrotor":
+            xi, ti = preprocess_data_jnp(self.model, self._acc_a, self._acc_b, x, u, x_next)
+        else:
+            xi, ti = self.spec.make_targets(self.model, x, u, x_next)
+        return xi.cpu().numpy(), ti.cpu().numpy()
+
+    def train_gp(self, x, y, lr: float, iterations: int):
+        """Fit the G GPs to (N, z_dim) inputs and (N, G) targets on this
+        controller's device: a new GpModel (never written into the old one,
+        so a cached variance form of the old model is never reused). The
+        fit's per-GP freeze steps stay in `last_fit_info`."""
+        x = np.asarray(x, np.float32)
+        y = np.asarray(y, np.float32)
+        n = x.shape[0]
+        M = self.max_gp_points
+        if n > M:
+            raise ValueError(f"GP dataset ({n}) exceeds capacity ({M}); raise max_gp_points")
+        G, D = self.spec.num_gps, self.spec.gp_input_dim
+        Z = np.zeros((G, M, D), np.float32)
+        Y = np.zeros((G, M), np.float32)
+        mask = np.zeros((G, M), np.float32)
+        for i, idx in enumerate(self.spec.gp_idx):
+            Z[i, :n, : len(idx)] = x[:, list(idx)]
+            Y[i, :n] = y[:, i]
+            mask[i, :n] = 1.0
+        t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+        self.gp_model, self.last_fit_info = train_gp_models(
+            GPData(x=t(Z), y=t(Y), mask=t(mask)), self._gp_generator, sparse=self.sparse,
+            max_inducing=self.max_gp_samples if self.sparse else M, n_train=int(iterations),
+            lr=float(lr), ard=self.ard_gp, return_info=True,
+        )
+        self._requires_recompile = False
+
+    # -- control -----------------------------------------------------------------
+
+    def reset(self):
+        """A fresh controller state (step 0, no warm start)."""
+        self.state = mpc_mod.init_state(1, self.T, self.model.nx, self.model.nu, device=self.device)
+
+    def reference_trajectory(self) -> np.ndarray:
+        """Reference window at the current step, (nx, T+1)."""
+        window = mpc_mod.reference_window(self.consts.mpc.traj, self.state.traj_step, self.T)
+        return window[0].cpu().numpy().T
+
+    def select_action(self, obs) -> np.ndarray:
+        """One GP-MPC step for one observation (nx,), as a B = 1 batch of
+        `batched_select_action_lanes` (one lane tile); raises on a
+        non-finite action."""
+        self._resolve_step_backend()
+        obs = torch.as_tensor(np.array(obs, np.float32), device=self.device).reshape(1, -1)
+        u, self.state, info = batched_select_action_lanes(
+            self.model, self.cfg, self.consts, self.gp_model, self.state, obs,
+            lanes=LANES if self.device.type == "cuda" else 1,
+        )
+        self._last_info = MpcInfo(*[v[0] if v.dim() > 0 else v for v in info])
+        u = u[0].cpu().numpy()
+        if not np.all(np.isfinite(u)):
+            raise RuntimeError(
+                f"GP-MPC solve produced non-finite action {u} "
+                f"(step_norm={float(self._last_info.step_norm)})"
+            )
+        return u

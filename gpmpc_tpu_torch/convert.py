@@ -1,8 +1,9 @@
 """Carry weights and state across from the JAX package, as numpy arrays.
 
 The reference's pytrees cross over as dicts of numpy arrays (the port never
-imports JAX): `gp_model_from_numpy`, `consts_from_numpy`, `state_from_numpy`
-and `info_from_numpy` turn them into the port's tensors on a given device,
+imports JAX): `gp_model_from_numpy`, `gp_data_from_numpy`,
+`hypers_from_numpy`, `consts_from_numpy`, `state_from_numpy` and
+`info_from_numpy` turn them into the port's tensors on a given device,
 `sqp_config_from_mapping` the reference's SqpConfig into the port's.
 `load_bench_gp` reads the committed fixture of a family's benchmark GP
 (`data/bench_gp.npz` for the quadrotor, `data/bench_gp_{cartpole,twolink}.npz`,
@@ -19,6 +20,7 @@ import torch
 from gpmpc_tpu_torch.control.gpmpc import GpModel, GpMpcConsts, GPHypers
 from gpmpc_tpu_torch.control.mpc import MpcConsts, MpcInfo, MpcState
 from gpmpc_tpu_torch.device import resolve
+from gpmpc_tpu_torch.gp.exact_gp import GPData
 from gpmpc_tpu_torch.ops.sqp import SqpConfig
 
 DATA = Path(__file__).resolve().parent / "data"
@@ -47,6 +49,22 @@ def gp_model_from_numpy(d, device=None) -> GpModel:
         var_mask=_f32(d["var_mask"], device),
         trained=torch.as_tensor(np.asarray(d["trained"], bool), device=device),
     )
+
+
+def gp_data_from_numpy(d, device=None, dtype=torch.float32) -> GPData:
+    """GPData from a mapping with `x`, `y` and `mask` (any leading batch
+    axes), in `dtype` (float64 for the fits held against JAX in x64)."""
+    device = resolve(device)
+    return GPData(*[torch.as_tensor(np.asarray(d[k]), dtype=dtype, device=device)
+                    for k in GPData._fields])
+
+
+def hypers_from_numpy(d, device=None, dtype=torch.float32) -> GPHypers:
+    """GPHypers from a mapping of the raw leaves, each at its own shape: the
+    lengthscale (G,) isotropic or (G, D) for ARD."""
+    device = resolve(device)
+    return GPHypers(*[torch.as_tensor(np.asarray(d[k]), dtype=dtype, device=device)
+                      for k in GPHypers._fields])
 
 
 def consts_from_numpy(d, device=None) -> GpMpcConsts:

@@ -1,9 +1,10 @@
 """Cartpole tracking plant, batched over B scenarios. Port of
 `gpmpc_tpu/envs/cartpole_env.py`: the true plant (heavier, longer pole) with
 viscous cart and pivot friction, an actuation gain error and a constant force
-bias, tracking a sinusoidal cart position with the pole upright. Process
-noise (`noise_std > 0`) and per-scenario randomized parameters are not ported
-yet (ROADMAP.md Queue 1)."""
+bias, tracking a sinusoidal cart position with the pole upright, with the
+rigid coefficients fixed (`env_step`) or per scenario (`env_step_dynamic`,
+`params_to_array`, `randomize_params`). Process noise (`noise_std > 0`) is
+not ported yet (ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
 
@@ -82,10 +83,26 @@ def env_reset(
     return EnvState(x=x0, t=torch.zeros(batch, dtype=torch.int32, device=device)), x0
 
 
-def _true_dynamics(p: EnvParams, x: torch.Tensor, u_cmd: torch.Tensor) -> torch.Tensor:
-    """The gain error and force bias modify the applied force; friction acts
-    on the two velocity rows."""
-    dyn = p.params
+def params_to_array(p: CartpoleParams, device=None) -> torch.Tensor:
+    """CartpoleParams -> (3,) float32 [m_cart, m_pole, length]."""
+    return torch.tensor([p.m_cart, p.m_pole, p.length], dtype=F32, device=resolve(device))
+
+
+def randomize_params(
+    generator: torch.Generator, base: CartpoleParams, scale: float = 0.1, batch: int = 1
+) -> torch.Tensor:
+    """Per-scenario domain randomization, (batch, 3): each coefficient times
+    1 + scale * a standard normal truncated to [-2, 2], drawn from
+    `generator` on its device."""
+    dev = generator.device
+    factors = torch.nn.init.trunc_normal_(torch.empty(batch, 3, dtype=F32, device=dev),
+                                          0.0, 1.0, -2.0, 2.0, generator=generator)
+    return params_to_array(base, dev) * (1.0 + scale * factors)
+
+
+def _true_dynamics(p: EnvParams, dyn, x: torch.Tensor, u_cmd: torch.Tensor) -> torch.Tensor:
+    """The rigid cartpole `dyn`: the gain error and force bias modify the
+    applied force; friction acts on the two velocity rows."""
     f = cartpole.continuous_dynamics(x, p.gain * u_cmd + p.force_bias, params=dyn)
     if p.friction_cart > 0.0 or p.friction_pole > 0.0:
         drag = torch.zeros_like(f)
@@ -102,6 +119,18 @@ def env_step(
 ) -> tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One control step for all B scenarios: (state, obs, reward, terminated,
     truncated), each leading with B."""
+    return _step(p, p.params, state, action)
+
+
+def env_step_dynamic(
+    p: EnvParams, params_arr: torch.Tensor, state: EnvState, action: torch.Tensor
+) -> tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`env_step` with the rigid coefficients per scenario, params_arr
+    (B, 3) (or (3,) for all): `p.params` is ignored in their favour."""
+    return _step(p, CartpoleParams(*params_arr.unbind(-1)), state, action)
+
+
+def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor):
     if p.noise_std > 0.0:
         raise NotImplementedError(
             "cartpole plant process noise is not ported yet (ROADMAP.md Queue 1); use noise_std=0"
@@ -109,7 +138,7 @@ def env_step(
     sub_dt = p.dt / p.sim_substeps
     x = state.x
     for _ in range(p.sim_substeps):
-        x = cartpole.rk4(lambda x_, u_: _true_dynamics(p, x_, u_), x, action, sub_dt)
+        x = cartpole.rk4(lambda x_, u_: _true_dynamics(p, dyn, x_, u_), x, action, sub_dt)
     t = state.t + 1
 
     ref = make_trajectory(p, x.device)[torch.remainder(t.long(), p.n_steps)]

@@ -1,7 +1,9 @@
 """Quadrotor figure-eight plant, batched over B scenarios. Port of
 `gpmpc_tpu/envs/drone.py:35-217`: true-parameter dynamics with rotor and
-attitude lag, aero drag and actuation delay. Process noise (`noise_std > 0`)
-is not ported yet; the default plant has none."""
+attitude lag, aero drag and actuation delay, with the rigid coefficients
+fixed (`env_step`) or per scenario (`env_step_dynamic`, `params_to_array`,
+`randomize_params`). Process noise (`noise_std > 0`) is not ported yet; the
+default plant has none."""
 
 from __future__ import annotations
 
@@ -82,16 +84,44 @@ def env_reset(
     return state, x0
 
 
+def params_to_array(p: QuadrotorParams, device=None) -> torch.Tensor:
+    """QuadrotorParams -> (8,) float32 [a, b, c, d, e, f, h, l]."""
+    return torch.tensor([p.a, p.b, p.c, p.d, p.e, p.f, p.h, p.l], dtype=F32, device=resolve(device))
+
+
+def randomize_params(
+    generator: torch.Generator, base: QuadrotorParams, scale: float = 0.1, batch: int = 1
+) -> torch.Tensor:
+    """Per-scenario domain randomization, (batch, 8): every coefficient times
+    1 + scale * a standard normal truncated to [-2, 2], drawn from
+    `generator` on its device (JAX's draw cannot be reproduced)."""
+    dev = generator.device
+    factors = torch.nn.init.trunc_normal_(torch.empty(batch, 8, dtype=F32, device=dev),
+                                          0.0, 1.0, -2.0, 2.0, generator=generator)
+    return params_to_array(base, dev) * (1.0 + scale * factors)
+
+
 def env_step(
     p: EnvParams, state: EnvState, action: torch.Tensor
 ) -> tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One control step for all B scenarios: (state, obs, reward, terminated,
     truncated), each leading with B."""
+    return _step(p, p.params, state, action)
+
+
+def env_step_dynamic(
+    p: EnvParams, params_arr: torch.Tensor, state: EnvState, action: torch.Tensor
+) -> tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`env_step` with the rigid coefficients per scenario, params_arr
+    (B, 8) (or (8,) for all): `p.params` is ignored in their favour."""
+    return _step(p, QuadrotorParams(*params_arr.unbind(-1)), state, action)
+
+
+def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor):
     if p.noise_std > 0.0:
         raise NotImplementedError(
             "process noise is not ported yet (ROADMAP.md Queue 1); use noise_std=0"
         )
-    dyn = p.params
 
     def fc(x_, u_):
         f = quadrotor.continuous_dynamics(x_, u_, params=dyn)

@@ -2,8 +2,9 @@
 `gpmpc_tpu/envs/twolink_env.py`: the true arm (slightly heavier, longer
 links) with a point-mass payload at the link-2 tip, viscous joint friction
 and a torque gain error plus bias, tracking joint-space sinusoids around the
-hanging posture. Process noise (`noise_std > 0`) and per-scenario randomized
-parameters are not ported yet (ROADMAP.md Queue 1)."""
+hanging posture, with the rigid coefficients fixed (`env_step`) or per
+scenario (`env_step_dynamic`, `params_to_array`, `randomize_params`).
+Process noise (`noise_std > 0`) is not ported yet (ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
 
@@ -90,10 +91,26 @@ def env_reset(
     return EnvState(x=x0, t=torch.zeros(batch, dtype=torch.int32, device=device)), x0
 
 
-def _true_dynamics(p: EnvParams, x: torch.Tensor, u_cmd: torch.Tensor) -> torch.Tensor:
-    """Rigid arm `p.params` plus the tip payload, joint friction and the
-    torque gain and bias."""
-    dyn = p.params
+def params_to_array(p: TwoLinkParams, device=None) -> torch.Tensor:
+    """TwoLinkParams -> (4,) float32 [m1, m2, l1, l2]."""
+    return torch.tensor([p.m1, p.m2, p.l1, p.l2], dtype=F32, device=resolve(device))
+
+
+def randomize_params(
+    generator: torch.Generator, base: TwoLinkParams, scale: float = 0.1, batch: int = 1
+) -> torch.Tensor:
+    """Per-scenario domain randomization, (batch, 4): each coefficient times
+    1 + scale * a standard normal truncated to [-2, 2], drawn from
+    `generator` on its device."""
+    dev = generator.device
+    factors = torch.nn.init.trunc_normal_(torch.empty(batch, 4, dtype=F32, device=dev),
+                                          0.0, 1.0, -2.0, 2.0, generator=generator)
+    return params_to_array(base, dev) * (1.0 + scale * factors)
+
+
+def _true_dynamics(p: EnvParams, dyn, x: torch.Tensor, u_cmd: torch.Tensor) -> torch.Tensor:
+    """Rigid arm `dyn` plus the tip payload, joint friction and the torque
+    gain and bias."""
     q1, q2, dq1, dq2 = x.unbind(-1)
     m11, m12, m22, g1, g2, h = twolink._mass_gravity(dyn, q1, q2)
     mp = p.payload_m
@@ -118,6 +135,18 @@ def env_step(
 ) -> tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One control step for all B scenarios: (state, obs, reward, terminated,
     truncated), each leading with B."""
+    return _step(p, p.params, state, action)
+
+
+def env_step_dynamic(
+    p: EnvParams, params_arr: torch.Tensor, state: EnvState, action: torch.Tensor
+) -> tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`env_step` with the rigid coefficients per scenario, params_arr
+    (B, 4) (or (4,) for all): `p.params` is ignored in their favour."""
+    return _step(p, TwoLinkParams(*params_arr.unbind(-1)), state, action)
+
+
+def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor):
     if p.noise_std > 0.0:
         raise NotImplementedError(
             "two-link plant process noise is not ported yet (ROADMAP.md Queue 1); use noise_std=0"
@@ -125,7 +154,7 @@ def env_step(
     sub_dt = p.dt / p.sim_substeps
     x = state.x
     for _ in range(p.sim_substeps):
-        x = twolink.rk4(lambda x_, u_: _true_dynamics(p, x_, u_), x, action, sub_dt)
+        x = twolink.rk4(lambda x_, u_: _true_dynamics(p, dyn, x_, u_), x, action, sub_dt)
     t = state.t + 1
 
     ref = make_trajectory(p, x.device)[torch.remainder(t.long(), p.n_steps)]

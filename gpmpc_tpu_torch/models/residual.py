@@ -1,7 +1,7 @@
 """Residual-GP structure of each model family. Port of
 `gpmpc_tpu/models/residual.py`: `QUADROTOR_SPEC`, `CARTPOLE_SPEC` and
-`TWOLINK_SPEC`. The specs' `make_targets` waits for GP training (ROADMAP.md
-Queue 1)."""
+`TWOLINK_SPEC`, each with the transition preprocessing into GP training data
+(`make_targets`)."""
 
 from __future__ import annotations
 
@@ -28,6 +28,9 @@ class ResidualSpec:
     mean_rows: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = field(repr=False)
     # z (..., z_dim) -> F (..., n_unc, num_gps)
     var_factors: Callable[[torch.Tensor], torch.Tensor] = field(repr=False)
+    # (model, x (N, nx), u (N, nu), x_next (N, nx)) -> (z (N, z_dim), y (N, num_gps)):
+    # residual training data, finite-difference derivatives minus the prior
+    make_targets: Callable[..., tuple[torch.Tensor, torch.Tensor]] = field(repr=False)
     supports_kernel_linearize: bool = False
     # model params -> (8,) float32 row read by the linearize kernel
     kernel_params: Callable[..., torch.Tensor] | None = field(default=None, repr=False)
@@ -93,6 +96,15 @@ def _quad_var_factors(z: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=-2)
 
 
+def _quad_make_targets(model, x, u, x_next):
+    """`control/gpmpc.py::preprocess_data_jnp` with the thrust map a*T + b
+    from the model's own prior parameters."""
+    from gpmpc_tpu_torch.control.gpmpc import preprocess_data_jnp
+
+    p = model.params
+    return preprocess_data_jnp(model, float(p.a), float(p.b), x, u, x_next)
+
+
 def _quad_kernel_params(p) -> torch.Tensor:
     """[a, b, c, d, e, f, h, l]."""
     return torch.tensor([p.a, p.b, p.c, p.d, p.e, p.f, p.h, p.l], dtype=torch.float32)
@@ -106,6 +118,7 @@ QUADROTOR_SPEC = ResidualSpec(
     gp_input=_quad_gp_input,
     mean_rows=_quad_mean_rows,
     var_factors=_quad_var_factors,
+    make_targets=_quad_make_targets,
     supports_kernel_linearize=True,
     kernel_params=_quad_kernel_params,
 )
@@ -130,6 +143,19 @@ def _cart_gp_input(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _cart_make_targets(model, x, u, x_next):
+    """Residuals on the two acceleration rows: the finite-difference state
+    derivative minus the prior's."""
+    x_dot = (x_next - x) / model.dt
+    f_prior = model.fc_func(x, u)
+    y = torch.stack(
+        [x_dot[:, cartpole.IDX_DX] - f_prior[:, cartpole.IDX_DX],
+         x_dot[:, cartpole.IDX_DTHETA] - f_prior[:, cartpole.IDX_DTHETA]],
+        dim=1,
+    )
+    return _cart_gp_input(x, u), y
+
+
 def _cart_kernel_params(p) -> torch.Tensor:
     """[m_cart, m_pole, length, 0, 0, 0, 0, 0]."""
     return torch.tensor([p.m_cart, p.m_pole, p.length, 0.0, 0.0, 0.0, 0.0, 0.0], dtype=torch.float32)
@@ -145,6 +171,7 @@ CARTPOLE_SPEC = ResidualSpec(
     gp_input=_cart_gp_input,
     mean_rows=_direct_mean_rows,
     var_factors=_identity_var_factors,
+    make_targets=_cart_make_targets,
     supports_kernel_linearize=True,
     kernel_params=_cart_kernel_params,
 )
@@ -158,6 +185,13 @@ _TWOLINK_TAU_SCALE = 0.1
 def _twolink_gp_input(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """z = [q1, q2, dq1, dq2, tau1/10, tau2/10]."""
     return torch.cat([x[..., :4], _TWOLINK_TAU_SCALE * u[..., :2]], dim=-1)
+
+
+def _twolink_make_targets(model, x, u, x_next):
+    """Residuals on the joint-acceleration rows (the cartpole's recipe)."""
+    x_dot = (x_next - x) / model.dt
+    f_prior = model.fc_func(x, u)
+    return _twolink_gp_input(x, u), (x_dot - f_prior)[:, [2, 3]]
 
 
 def _twolink_kernel_params(p) -> torch.Tensor:
@@ -175,6 +209,7 @@ TWOLINK_SPEC = ResidualSpec(
     gp_input=_twolink_gp_input,
     mean_rows=_direct_mean_rows,
     var_factors=_identity_var_factors,
+    make_targets=_twolink_make_targets,
     supports_kernel_linearize=True,
     kernel_params=_twolink_kernel_params,
 )

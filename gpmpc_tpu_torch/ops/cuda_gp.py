@@ -2,7 +2,8 @@
 
 Port of `gpmpc_tpu/ops/pallas_gp.py::gp_mean_var`. The CUDA kernel is
 `csrc/gp_posterior.cu`, which takes every GP of an ensemble in one launch
-(`gp_mean_var_multi`) from a form packed once per ensemble (`pack_form`:
+(`gp_mean_var_multi`), any number of points (`gp_geometry` picks the
+instantiation), from a form packed once per ensemble (`pack_form`:
 the live inducing points only, Z transposed, the hyperparameters as the
 kernel reads them). `gp_mean_var` takes one GP, through the same wrapper.
 `gp_mean_var_plain` is the function in plain PyTorch, which the wrappers run
@@ -19,23 +20,40 @@ from typing import NamedTuple
 import torch
 
 from gpmpc_tpu_torch import _build
+from gpmpc_tpu_torch.gp.kernels import se_kernel
 from gpmpc_tpu_torch.ops._wrap import check, route
 
 POINT_BLOCK = 8  # the kernel's points come in blocks of 8 (csrc/gp_posterior.cu JB)
-MAX_POINTS = 128  # the kernel's largest bucket of points
+REGISTER_BUCKETS = (64, 128)  # the kernel row in registers, templated on a bucket >= M
 MAX_DIMS = 8
+QTILE = 128  # queries (threads) a block, in both kernels
+TILE_ROWS, TILE_COLS = 32, 64  # the tiled kernel's W tile (csrc/gp_posterior.cu TI, TJ)
 
 
-def se_kernel(
-    x1: torch.Tensor,  # (..., n, d)
-    x2: torch.Tensor,  # (..., m, d)
-    lengthscale: torch.Tensor,  # () or (d,)
-    outputscale: torch.Tensor,  # ()
-) -> torch.Tensor:
-    """K[..., i, j] = sf2 * exp(-0.5 * sum_d (x1[i, d] - x2[j, d])^2 / ell_d^2),
-    with the squared differences scaled by 1 / ell^2 as the CUDA kernels do."""
-    diff = x1[..., :, None, :] - x2[..., None, :, :]
-    return outputscale * torch.exp(-0.5 * torch.sum(diff * diff * (1.0 / lengthscale**2), dim=-1))
+class GpGeometry(NamedTuple):
+    """The instantiation of `csrc/gp_posterior.cu` that serves M points in D
+    dimensions: `bucket` 64 or 128 (the kernel row in registers, W whole in
+    shared memory) or 0 (the tiled kernel, any M: every input streamed
+    through shared memory in tiles, so a block's share does not grow with
+    M; its sums run in float64), and the shared memory a block asks for. The C launcher takes
+    `bucket` and refuses any other."""
+
+    bucket: int
+    shared_bytes: int
+
+
+def gp_geometry(m: int, d: int) -> GpGeometry:
+    """The launch of M points (a multiple of 8) in D <= 8 dimensions."""
+    if m < POINT_BLOCK or m % POINT_BLOCK or not 1 <= d <= MAX_DIMS:
+        raise ValueError(f"gp_posterior kernel needs M a positive multiple of {POINT_BLOCK} and "
+                         f"1 <= D <= {MAX_DIMS} (M={m}, D={d})")
+    for bucket in REGISTER_BUCKETS:
+        if m <= bucket:
+            return GpGeometry(bucket, 4 * (m * m + (d + 2) * m + m * QTILE))
+    # the W tile in float64, the column tile's k_j per query, both tiles'
+    # points (at MAX_DIMS) and masks, and the row tile's alpha
+    return GpGeometry(0, 8 * TILE_ROWS * TILE_COLS + 4 * (
+        TILE_COLS * QTILE + (MAX_DIMS + 2) * TILE_ROWS + (MAX_DIMS + 1) * TILE_COLS))
 
 
 def gp_mean_var_plain(
@@ -143,27 +161,24 @@ def gp_mean_var_multi(
     z: torch.Tensor, form: GpForm, include_noise: bool = False
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper with `gp_mean_var_multi_plain`'s signature: all G GPs
-    in one launch of `gp_posterior_kernel`. CPU tensors take the plain
-    version."""
+    in one launch, of `gp_posterior_kernel` (the kernel row in registers)
+    up to 128 points and of `gp_posterior_tiled_kernel` (W streamed through
+    shared memory in tiles) past that (`gp_geometry`). CPU tensors take the
+    plain version."""
     _check_form(z, form)
     if route(z.device) == "plain":
         return gp_mean_var_multi_plain(z, form, include_noise)
     G, n, d = z.shape
     m = form.Z.shape[1]
-    if n == 0 or d > MAX_DIMS or m % POINT_BLOCK:
-        raise ValueError(f"gp_posterior kernel needs N > 0, D <= {MAX_DIMS} and M % "
-                         f"{POINT_BLOCK} == 0 (N={n}, D={d}, M={m})")
-    if m > MAX_POINTS:
-        raise NotImplementedError(
-            f"gp_posterior kernel holds a query's kernel row in registers: M={m} live points "
-            f"(> {MAX_POINTS}); streaming W for large GPs is ROADMAP.md Queue 2 work"
-        )
+    if n == 0:
+        raise ValueError("gp_posterior kernel needs N > 0 queries")
+    geometry = gp_geometry(m, d)
     mean = torch.empty(G, n, dtype=torch.float32, device=z.device)
     var = torch.empty(G, n, dtype=torch.float32, device=z.device)
     p = _build.ptr
     _build.launch(
         "gp_posterior_launch", p(z), p(form.Zt), p(form.alpha), p(form.W), p(form.mask),
-        p(form.hyp), G, n, m, d, int(include_noise), p(mean), p(var),
+        p(form.hyp), G, n, m, d, int(include_noise), geometry.bucket, p(mean), p(var),
         _build.stream_handle(z.device),
     )
     gp_mean_var_multi.launches += 1

@@ -273,3 +273,48 @@ def test_multi_wrapper_rejects_what_the_kernel_does_not_take():
         cuda_gp.gp_mean_var_multi(zt.transpose(0, 1).contiguous().transpose(0, 1), form)
     with pytest.raises(ValueError, match="no kernel and no plain route"):
         cuda_gp.gp_mean_var_multi(zt.to("meta"), cuda_gp.GpForm(*(f.to("meta") for f in form)))
+
+
+@pytest.mark.parametrize("n_live,bucket", [(40, 64), (128, 128), (136, 0), (304, 0)])
+def test_wrapper_picks_the_instantiation_by_m(monkeypatch, n_live, bucket):
+    """On the kernel route the wrapper hands the launcher the instantiation
+    `gp_geometry` names for the packed form's M (the launch itself stubbed:
+    no card here): the kernel row in registers at bucket 64 or 128 up to 128
+    live points, the tiled kernel (bucket 0) past them, with no raise and no
+    plain fallback; one launch counted."""
+    calls = []
+    monkeypatch.setattr(cuda_gp, "route", lambda device: "kernel")
+    monkeypatch.setattr(cuda_gp._build, "launch", lambda entry, *a: calls.append((entry, a)))
+    monkeypatch.setattr(cuda_gp._build, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(cuda_gp, "gp_mean_var_multi_plain", None)  # no fallback to it
+    z, leaves = make_multi(G=2, n=70, d=6, m=n_live + 8, n_live=n_live)
+    form = cuda_gp.pack_form(*(torch.as_tensor(a) for a in leaves))
+    m = form.Z.shape[1]
+    assert m == n_live
+    geometry = cuda_gp.gp_geometry(m, 6)
+    assert geometry.bucket == bucket
+    before = cuda_gp.gp_mean_var_multi.launches
+    mean, var = cuda_gp.gp_mean_var_multi(torch.as_tensor(z), form, include_noise=True)
+    assert mean.shape == var.shape == (2, 70) and cuda_gp.gp_mean_var_multi.launches == before + 1
+    (entry, args), = calls
+    assert entry == "gp_posterior_launch"
+    assert args[6:12] == (2, 70, m, 6, 1, bucket) and args[14] == 0
+    tiled = 8 * cuda_gp.TILE_ROWS * cuda_gp.TILE_COLS + 4 * (
+        cuda_gp.TILE_COLS * cuda_gp.QTILE + 10 * cuda_gp.TILE_ROWS + 9 * cuda_gp.TILE_COLS)
+    whole = 4 * (m * m + 8 * m + m * cuda_gp.QTILE)
+    assert geometry.shared_bytes == (tiled if bucket == 0 else whole)
+    assert geometry.shared_bytes <= 227 * 1024
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cuda_gp.gp_geometry(m + 4, 6)
+
+
+@pytest.mark.parametrize("m", [136, 5120, 65_536])
+@pytest.mark.parametrize("d", [3, 8])
+def test_tiled_kernel_shared_memory_does_not_grow_with_m(m, d):
+    """The tiled instantiation streams W, the points, alpha and the mask in
+    tiles: a block's shared memory is the same at any M and D (52,736
+    bytes, a quarter of the 227 KB a block may hold), so an exact GP of
+    BASELINE config 4's 5,120 points at D = 8 launches."""
+    geometry = cuda_gp.gp_geometry(m, d)
+    assert geometry == cuda_gp.GpGeometry(0, 52_736)
+    assert geometry.shared_bytes <= 227 * 1024 // 4

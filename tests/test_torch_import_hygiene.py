@@ -33,8 +33,9 @@ def test_port_imports_no_jax_and_no_triton():
     )
     assert r.returncode == 0, r.stderr
     n_modules = int(r.stdout.split("MODULES")[1].split()[0])
-    assert n_modules >= 27, r.stdout  # every module of the port was imported, device.py too
-    for name in ("roofline", "ops.cuda_chain", "models.jacobians"):
+    assert n_modules >= 38, r.stdout  # every module of the port was imported, device.py too
+    for name in ("roofline", "ops.cuda_chain", "models.jacobians", "gp.kernels", "gp.exact_gp",
+                 "gp.sparse", "gp.compat", "runtime.online", "utils.benchkit", "parallel.sweep"):
         assert f"gpmpc_tpu_torch.{name}" in r.stdout, name
     assert "LEAKED []" in r.stdout, r.stdout
 
@@ -58,6 +59,8 @@ def test_port_sources_name_no_jax_and_no_reference_import():
         REPO / "chip_smoke.py", REPO / "scripts" / "bench_roofline_torch.py"]
     assert REPO / "gpmpc_tpu_torch" / "device.py" in files
     assert REPO / "gpmpc_tpu_torch" / "roofline.py" in files
+    for sub in ("gp", "runtime", "utils"):  # the subpackages of GP training and learning
+        assert any(f.parent == REPO / "gpmpc_tpu_torch" / sub for f in files), sub
     pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|gpmpc_tpu)(\.|\s|$)", re.M)
     leaks = [str(f.relative_to(REPO)) for f in files if pat.search(f.read_text())]
     assert leaks == []

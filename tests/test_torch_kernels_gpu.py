@@ -67,14 +67,18 @@ def test_gp_kernel_matches_plain(dev, n, ard, family):
     assert _maxdiff(var_k, var_p) <= 1e-4
 
 
-def _gp_leaves(dev, G, D, seed, m=128, n_live=40):
+def _gp_leaves(dev, G, D, seed, m=128, n_live=40, density=None):
     """G GPs of m padded points, n_live - 3 g live ones each at scattered
-    positions (not a prefix); masked points keep nonzero inputs and W."""
+    positions (not a prefix); masked points keep nonzero inputs and W. With
+    `density`, the lengthscales shrink by (density / n_live)^(1/D) (as many
+    points within a lengthscale as `density` points at the unscaled ones)."""
     rng = np.random.default_rng(seed)
     Z = rng.normal(size=(G, m, D))
     mask = np.zeros((G, m))
     W, alpha = np.zeros((G, m, m)), np.zeros((G, m))
     ell = np.linspace(0.7, 1.6, G * D).reshape(G, D)
+    if density is not None:
+        ell = ell * (density / n_live) ** (1.0 / D)
     sf2, noise = np.linspace(0.8, 1.5, G), np.linspace(0.03, 0.08, G)
     for g in range(G):
         mask[g, np.sort(rng.choice(m, size=n_live - 3 * g, replace=False))] = 1.0
@@ -103,10 +107,94 @@ def test_gp_multi_kernel_matches_plain(dev, G, D, n):
     assert _maxdiff(var_k, var_p) <= 1e-4
 
 
-def test_gp_multi_kernel_refuses_more_than_128_live_points(dev):
-    form = cuda_gp.pack_form(*_gp_leaves(dev, 1, 3, seed=0, m=136, n_live=136))
-    with pytest.raises(NotImplementedError, match="M=136 live points"):
-        cuda_gp.gp_mean_var_multi(_t(np.zeros((1, 10, 3)), dev), form)
+@pytest.mark.parametrize("density", [None, 40])
+@pytest.mark.parametrize("m,n", [(136, 25_637), (304, 25_637), (512, 25_637), (2048, 4096)])
+@pytest.mark.parametrize("G,D", [(2, 6), (3, 3)])
+def test_gp_tiled_kernel_matches_plain(dev, G, D, m, n, density):
+    """Past 128 live points (F7): the tiled instantiation, on GPs whose live
+    points are scattered, at their own lengthscales and at those of 40
+    points' density. With d the plain version's distance from its own
+    float64 evaluation on the same inputs (float32 cancels in k W k^T), the
+    kernel lies within 1e-4 + d of both the plain version and the float64
+    value. Its sums run in float64, so it also lies within 1e-4 + d32 of
+    the float64 value, d32 the distance of k's float32 rounding alone (the
+    plain version's k with float64 sums)."""
+    form = cuda_gp.pack_form(*_gp_leaves(dev, G, D, seed=m + G, m=m + 16, n_live=m,
+                                         density=density))
+    assert form.Z.shape[1] == m and cuda_gp.gp_geometry(m, D).bucket == 0
+    z = _t(np.random.default_rng(n).normal(0, 0.6, (G, n, D)), dev)
+    before = cuda_gp.gp_mean_var_multi.launches
+    out_k = cuda_gp.gp_mean_var_multi(z, form, include_noise=True)
+    out_p = cuda_gp.gp_mean_var_multi_plain(z, form, include_noise=True)
+    out_64 = cuda_gp.gp_mean_var_multi_plain(z.double(), cuda_gp.GpForm(*[t.double() for t in form]),
+                                             include_noise=True)
+    torch.cuda.synchronize()
+    assert cuda_gp.gp_mean_var_multi.launches == before + 1
+    d = max(_maxdiff(a.double(), b) for a, b in zip(out_p, out_64))
+    assert max(_maxdiff(a.double(), b) for a, b in zip(out_k, out_64)) <= 1e-4 + d
+    assert max(_maxdiff(a, b) for a, b in zip(out_k, out_p)) <= 1e-4 + d
+    k32 = torch.stack([cuda_gp.se_kernel(z[g], form.Z[g], form.lengthscale[g], form.outputscale[g])
+                       * form.mask[g] for g in range(G)]).double()
+    mean_32 = torch.einsum("gnm,gm->gn", k32, form.alpha.double())
+    var_32 = torch.clamp_min(form.outputscale.double()[:, None]
+                             - (torch.einsum("gnm,gmk->gnk", k32, form.W.double()) * k32).sum(-1),
+                             1e-12) + form.noise.double()[:, None]
+    d32 = max(_maxdiff(a, b) for a, b in zip((mean_32, var_32), out_64))
+    assert max(_maxdiff(a.double(), b) for a, b in zip(out_k, out_64)) <= 1e-4 + d32
+
+
+def _train_data(dev, n=120, cap=128, seed=0):
+    from gpmpc_tpu_torch.control.gpmpc import pack_training_data
+    from gpmpc_tpu_torch.utils.benchkit import synthetic_residual_dataset
+
+    x7, y3 = synthetic_residual_dataset(n, seed)
+    return pack_training_data(torch.as_tensor(x7, device=dev), torch.as_tensor(y3, device=dev), cap)
+
+
+@pytest.mark.parametrize("sparse", [True, False])
+def test_trained_model_on_the_card_matches_the_cpus(dev, sparse):
+    """train_gp_models on the card and on the CPU from the same data (120
+    points, 40 Adam iterations: before any freeze) and the same generator
+    seed: the raw hypers within 1e-4 (float32 Cholesky on two libraries),
+    every leaf on the card."""
+    from gpmpc_tpu_torch.control.gpmpc import train_gp_models
+
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        data = _train_data(where)
+        gen = torch.Generator(device=where).manual_seed(0)
+        out[where.type] = train_gp_models(data, gen, sparse=sparse, max_inducing=40, n_train=40,
+                                          lr=0.05, return_info=True)
+    (card, info_card), (cpu, info_cpu) = out["cuda"], out["cpu"]
+    assert info_card.freeze_step.tolist() == info_cpu.freeze_step.tolist() == [-1, -1, -1]
+    for a, b in zip(card.hypers, cpu.hypers):
+        assert _maxdiff(a.cpu(), b) <= 1e-4
+    for leaf in (card.Z, card.y, card.mask, *card.hypers, card.Zs, card.alpha_s, card.var_Z,
+                 card.var_mat, card.var_mask, card.trained):
+        assert leaf.device.type == "cuda"
+
+
+def test_train_gp_leaves_nothing_on_the_cpu(dev):
+    """GPMPC.train_gp on the card: the new GpModel's every leaf on the card,
+    new tensors (none of the untrained model's)."""
+    from gpmpc_tpu_torch.control.gpmpc import GPMPC
+    from gpmpc_tpu_torch.envs import drone
+    from gpmpc_tpu_torch.models.quadrotor import PRIOR_PARAMS
+    from gpmpc_tpu_torch.models.symbolic import symbolic_attitude
+    from gpmpc_tpu_torch.utils.benchkit import Q_MPC, R_MPC, synthetic_residual_dataset
+
+    env_p = drone.EnvParams.default()
+    ctrl = GPMPC(symbolic_attitude(dt=0.02, params=PRIOR_PARAMS._asdict()),
+                 drone.make_trajectory(env_p, dev).cpu().numpy(), PRIOR_PARAMS._asdict(), horizon=10,
+                 q_mpc=Q_MPC, r_mpc=R_MPC, sparse_gp=True, max_gp_samples=20, device=dev)
+    old = ctrl.gp_model
+    ctrl.train_gp(*synthetic_residual_dataset(60, 0), lr=0.05, iterations=20)
+    leaves = [v for f in ctrl.gp_model for v in (f if isinstance(f, tuple) else (f,))]
+    assert all(t.device.type == "cuda" for t in leaves)
+    olds = [v for f in old for v in (f if isinstance(f, tuple) else (f,))]
+    assert not any(t is o for t in leaves for o in olds)
+    u = ctrl.select_action(drone.make_trajectory(env_p, dev)[0].cpu().numpy())
+    assert np.all(np.isfinite(u))
 
 
 # (nx, nu, uncertain rows) of the quadrotor, the cartpole and the two-link arm

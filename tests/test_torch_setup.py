@@ -95,20 +95,22 @@ def test_gpmpc_positional_arguments_match_jax(case):
     quantile `inverse_cdf` among them, is bit for bit the reference's. Ad,
     Bd_in and the LQR gain come from each framework's Jacobian of the prior
     at the trim point and agree to rounding (test_gpmpc_consts_match_jax's
-    bar). `sparse_gp=True` needs the sparse GP, which is not ported."""
+    bar). With `sparse_gp=True` in that place the untrained GP has the
+    sparse shapes (the variance form at the 40 inducing points) of JAX's."""
     family = "quadrotor" if case == "sparse_gp" else case
+    sparse = case == "sparse_gp"
     model_j, env_j, model_t, prior, q, r, _, _, _ = family_config(family)
     if env_j is None:
         traj = DroneFigureEightEnv().trajectory
     else:
         traj = env_j.make_trajectory(env_j.EnvParams.default())
-    if case == "sparse_gp":
-        with pytest.raises(t_gpmpc.UnsupportedPathError, match="sparse_gp"):
-            t_gpmpc.GPMPC(model_t(), np.asarray(traj), prior, T, q, r, True, device="cpu")
-        return
-    jc = JGPMPC(model_j, traj, prior, T, q, r, False, 0.95, 40, 1, "cpu", None, 128, 6, 10)
-    tc = t_gpmpc.GPMPC(model_t(), np.asarray(traj), prior, T, q, r, False, 0.95, 40, 1, "cpu",
+    jc = JGPMPC(model_j, traj, prior, T, q, r, sparse, 0.95, 40, 1, "cpu", None, 128, 6, 10)
+    tc = t_gpmpc.GPMPC(model_t(), np.asarray(traj), prior, T, q, r, sparse, 0.95, 40, 1, "cpu",
                        None, 128, 6, 10)
+    assert tc.sparse is sparse
+    for name in t_gpmpc.GpModel._fields:
+        if name != "hypers":
+            assert tuple(getattr(tc.gp_model, name).shape) == getattr(jc.gp_model, name).shape, name
     for name in ("Bd", "inverse_cdf", "dt"):
         np.testing.assert_array_equal(getattr(tc.consts, name).numpy(),
                                       np.asarray(getattr(jc.consts, name)), err_msg=name)

@@ -4,7 +4,7 @@
 
 Needs one CUDA card and `nvcc`; there is no CPU path. It drives the roofline
 probe (`gpmpc_tpu_torch/roofline.py`: the three lane-chain kernels beside two
-library mappings) and the closed loop on nine paths (`PATHS`), six on the
+library mappings) and the closed loop on the paths of `PATHS`: nine, six on the
 `lanes-fused` dispatch path and three on `lanes`: each model family at
 `bench.py`'s configuration for it (`BENCH_MODEL=quadrotor|cartpole|twolink`:
 T=25, B=1024, the family's GPs with capacity 128 and 40 FITC inducing points,
@@ -22,7 +22,20 @@ within 1e-4), at T=512, B=256 past the fused path's cap (`quadrotor-T512`:
 the tier-2 QP kernel with hard bounds, one dispatch warning) and with
 a per-scenario GP population (`quadrotor-population`: the benchmark GP per
 scenario with `alpha_s` and the raw hyperparameters perturbed from a seeded
-generator). Phases, each printing its own lines:
+generator). Then three paths on the `xla` dispatch path, plain torch by design
+(the reference's XLA code; no kernel, and every kernel wrapper must stay at
+0 launches): `quadrotor-xla` (bench.py's configuration through
+`batched_gpmpc_step(backend="xla")`, the reference's default backend; its
+actions on the `quadrotor` path's recorded observations within 2e-3 of the
+lanes-fused step's with the same fixed IP count, the reference's lanes-vs-xla
+bar), `quadrotor-nominal`
+(the nominal MPC, `control/mpc.py::select_action`, at B=1024, T=25, and its
+entry point `batched_episode(use_gp=False, backend="xla")`, whose first
+actions must equal the step's) and `quadrotor-soft-T800` (one step at T=800,
+B=256 with soft bounds: past the lanes soft cap of 768, so requested on
+lanes it dispatches to xla, degraded, with one warning; the only path for
+such horizons). Their phase 2 prints ms/step as the median of synchronized
+steps. Phases, each printing its own lines:
 
   0. the card's name and power limit (nvidia-smi), then the kernel build:
      one nvcc per source in parallel, each source's time and ptxas's
@@ -180,11 +193,16 @@ class SmokePath(NamedTuple):
     kernel_linearize: bool = True
     population: bool = False  # a per-scenario GP population
     learned: bool = False  # the GP is trained in this run (`learned_gp`), not the fixture
+    backend: str = "lanes"  # the `backend` argument of batched_gpmpc_step
+    nominal: bool = False  # the nominal MPC (control/mpc.py::select_action), no GP
 
     @property
     def kernels(self) -> tuple:
         """The kernels the path must launch ('qp' is the wrapper named by
-        `qp`); every other wrapper must stay at 0 launches."""
+        `qp`); every other wrapper must stay at 0 launches. The `xla` path
+        and the nominal MPC launch none."""
+        if self.dispatch == "xla":
+            return ()
         names = () if self.population else ("gp_posterior",)
         names += ("tighten",) + (("linearize",) if self.dispatch == "lanes-fused" else ())
         return names + ("qp",)
@@ -210,7 +228,19 @@ PATHS = {
                                    learned=True),
     "quadrotor-gp5k": SmokePath("quadrotor", 50, 1024, None, "ocp_ip", 1, 5, 32, 2, "gp5k",
                                 learned=True),
+    # the xla path (the reference's default backend: plain torch, no kernel) at bench.py's
+    # configuration; the nominal MPC through batched_episode(use_gp=False); and the only path
+    # past the lanes soft cap (768), requested on lanes and dispatched to xla with a warning
+    "quadrotor-xla": SmokePath("quadrotor", 25, 1024, None, "", 1, 3, 32, 2, "xla",
+                               dispatch="xla", backend="xla"),
+    "quadrotor-nominal": SmokePath("quadrotor", 25, 1024, None, "", 1, 3, 32, 2, "nominal",
+                                   dispatch="xla", backend="xla", nominal=True),
+    "quadrotor-soft-T800": SmokePath("quadrotor", 800, 256, SOFT_PENALTY, "", 0, 1, 2, 1,
+                                     "soft-T800", dispatch="xla", degraded=True),
 }
+# the bar of the xla path's actions against the lanes-fused path's on the same observations
+# and IP settings: the reference's own lanes-vs-xla bar (tests/test_parallel.py:137-141)
+XLA_LANES_BAR = 2e-3
 # The learned paths' controllers and fits: (inducing points, capacity, episode steps collected
 # at B, transitions kept, Adam iterations).
 LEARNED = {"quadrotor-learned": (40, 128, 8, 128, 100), "quadrotor-gp5k": (128, 5120, 5, 5120, 50)}
@@ -535,7 +565,8 @@ class Problem:
         if p.population:
             self.gp = population_gp(self.gp, p.B, batch or p.B)
         self.rates = {}
-        self.decision = dispatch_decision(self.cfg, self.model.residual_spec, p.T, p.population)
+        self.decision = dispatch_decision(self.cfg, self.model.residual_spec, p.T, p.population,
+                                          p.backend)
         if (self.decision.path, self.decision.degraded) != (p.dispatch, p.degraded):
             raise RuntimeError(f"{path_name}: dispatch decision {self.decision}, expected "
                                f"{p.dispatch} (degraded={p.degraded})")
@@ -547,8 +578,10 @@ class Problem:
         return es, obs, st
 
     def step(self, st, obs, lanes=None):
+        if self.path.nominal:
+            return mpc_mod.select_action(self.model, self.cfg, self.consts.mpc, st, obs)
         return batched_gpmpc_step(self.model, self.cfg, self.consts, self.gp, st, obs,
-                                  lanes=lanes or LANES)
+                                  backend=self.path.backend, lanes=lanes or LANES)
 
 
 TRAINED: dict = {}  # the learned paths' GPs, trained on the card
@@ -577,7 +610,7 @@ def learned_gp(prob: Problem, ctrl):
     gen = torch.Generator(device=dev).manual_seed(1)
     t0 = time.perf_counter()
     ep = batch_mod.batched_episode(prob.model, prob.cfg, prob.env_p, prob.consts, ctrl.gp_model, gen,
-                                   steps, path.B, env_mod=prob.env)
+                                   steps, path.B, env_mod=prob.env, backend="lanes")
     torch.cuda.synchronize()
     collect_s = time.perf_counter() - t0
     x = ep.obs[:, :-1].reshape(-1, prob.model.nx)
@@ -1205,6 +1238,7 @@ def closed_loop(prob: Problem, results: dict, stress=False):
         fn.launches = 0
     rec_obs, rec_u = [], []
     worst_viol = 0.0
+    step_ms = []  # each timed step of a path without kernels, synchronized
     batch_mod._DISPATCH_WARNED.clear()  # phase 1's steps have used the once-only warnings up
     torch.cuda.reset_peak_memory_stats()
     with warnings.catch_warnings(record=True) as caught:
@@ -1213,7 +1247,11 @@ def closed_loop(prob: Problem, results: dict, stress=False):
             if i == n_warmup:
                 torch.cuda.synchronize()
                 t_start = time.perf_counter()
+            t_step = time.perf_counter()
             u, st, info = prob.step(st, obs)
+            if not path.kernels and i >= n_warmup:
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t_step))
             if i < path.cpu_steps:
                 rec_obs.append(obs[:path.n_cpu].clone())
                 rec_u.append(u[:path.n_cpu].clone())
@@ -1234,7 +1272,7 @@ def closed_loop(prob: Problem, results: dict, stress=False):
         "plant on the card)")
     say(f"[phase 2] {name}: kernel launches over {n_warmup + n_timed} steps: {launches}")
     expected = {path.qp if k == "qp" else k for k in path.kernels}
-    if (min(launches[k] for k in expected) <= 0
+    if (min((launches[k] for k in expected), default=1) <= 0
             or any(n for k, n in launches.items() if k not in expected)):
         raise RuntimeError(f"{name}: expected exactly {sorted(expected)} to have launched: "
                            f"{launches}")
@@ -1250,6 +1288,12 @@ def closed_loop(prob: Problem, results: dict, stress=False):
         if not worst_viol > 0:
             raise RuntimeError(f"{name}: the stress GP produced no soft violation")
         return None
+    if not path.kernels:
+        prob.ms_per_step = statistics.median(step_ms)
+        say(f"[phase 2] {name}: no kernel launched, as the path has none; ms/step "
+            f"{prob.ms_per_step:.1f} (median of {n_timed} synchronized steps: "
+            f"{', '.join(f'{t:.1f}' for t in step_ms)}), plant on the card")
+        return rec_obs, rec_u
     for k in path.kernels:
         results[entry_name(prob.path_name, k)]["launches"] = launches[path.qp if k == "qp" else k]
     qp_entry = results[entry_name(prob.path_name, "qp")]
@@ -1308,6 +1352,58 @@ def analytic_jacobian_run(dev, rec_u) -> None:
         f"(bar {ANALYTIC_BAR})")
     if not worst <= ANALYTIC_BAR:
         raise RuntimeError("the analytic-Jacobian run disagrees with the forward-mode run")
+
+
+def xla_against_lanes(prob: Problem, lanes_prob: Problem, rec_obs, rec_u) -> None:
+    """`quadrotor-xla` on the observations the `quadrotor` (lanes-fused)
+    path recorded in phase 2 (its first scenarios, its first steps), from a
+    fresh controller state as that run began, against the lanes-fused step
+    on the same observations with the same IP settings: the xla path always
+    runs the fixed IP count, so the lanes step runs it too (`qp_tol=None`),
+    as the reference's bar compares them (tests/test_parallel.py:124-141).
+    Gate: each step's actions within XLA_LANES_BAR. Printed beside it, not
+    gated: the difference from the recorded run, whose IP stops at gap 1e-6,
+    which moves the iterate of a scenario whose SQP has not converged."""
+    n = rec_obs[0].shape[0]
+    new = lambda: mpc_mod.init_state(n, prob.path.T, prob.model.nx, prob.model.nu,  # noqa: E731
+                                     device=prob.device)
+    st, st_l = new(), new()
+    cfg_l = lanes_prob.cfg._replace(qp_tol=None)
+    worst, worst_rec = 0.0, 0.0
+    for o, u_rec in zip(rec_obs, rec_u):
+        u, st, _ = prob.step(st, o)
+        u_l, st_l, _ = batched_gpmpc_step(lanes_prob.model, cfg_l, lanes_prob.consts, lanes_prob.gp,
+                                          st_l, o, backend="lanes", lanes=LANES)
+        worst = max(worst, float((u - u_l).abs().max()))
+        worst_rec = max(worst_rec, float((u - u_rec).abs().max()))
+    say(f"[phase 2] {prob.path_name}: on the quadrotor path's observations ({len(rec_obs)} steps x "
+        f"{n} scenarios): max|u - the lanes-fused u, fixed IP count| = {worst:.3e} (bar "
+        f"{XLA_LANES_BAR}, the reference's lanes-vs-xla bar); max|u - the recorded lanes-fused "
+        f"u, IP exit at gap 1e-6| = {worst_rec:.3e} (not gated)")
+    if not worst <= XLA_LANES_BAR:
+        raise RuntimeError(f"{prob.path_name}: actions disagree with the lanes-fused path's")
+
+
+def nominal_episode(prob: Problem, rec_u) -> None:
+    """The nominal MPC through its entry point, `batched_episode(use_gp=False,
+    backend="xla")`, at the path's B from phase 2's seed: its first actions
+    equal phase 2's first step's (the same draw, the same controller), and
+    its time per step (plant included, synchronized at the end)."""
+    path = prob.path
+    gen = torch.Generator(device=prob.device).manual_seed(1)
+    n_steps = 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ep = batch_mod.batched_episode(prob.model, prob.cfg, prob.env_p, prob.consts, prob.gp, gen,
+                                   n_steps, path.B, use_gp=False, backend="xla", env_mod=prob.env)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    diff = float((ep.actions[:path.n_cpu, 0] - rec_u[0]).abs().max())
+    say(f"[phase 2] {prob.path_name}: batched_episode(use_gp=False, backend='xla'), {n_steps} "
+        f"steps at B={path.B}: {1e3 * wall / n_steps:.1f} ms/step (the first step cold); "
+        f"max|first actions - phase 2's first step's| = {diff:.3e}")
+    if not (diff <= 1e-6 and bool(torch.isfinite(ep.obs).all())):
+        raise RuntimeError(f"{prob.path_name}: the episode's actions differ from the step's")
 
 
 def reset_launches() -> dict:
@@ -1569,16 +1665,21 @@ def profile_step(prob: Problem) -> None:
     not the kernels, so that reading is an upper estimate. Against phase 2's
     mean unprofiled step the host runs at its own speed, but busy time and
     step time come from different steps (another seed's warm step), and that
-    reading is the lower estimate."""
+    reading is the lower estimate. A path without kernels (the `xla` paths:
+    some 10^5 launches a step at T=25, 10^6 at T=800) is traced on the card
+    alone, without the host's operator events, and after one warm step."""
     from torch.profiler import ProfilerActivity, profile
 
     es, obs, st = prob.reset(prob.path.B, seed=2)
-    for _ in range(2):
+    for _ in range(2 if prob.path.kernels else 1):
         u, st, _ = prob.step(st, obs)
         es, obs, *_ = prob.env.env_step(prob.env_p, es, u)
     torch.cuda.synchronize()
+    activities = [ProfilerActivity.CUDA]
+    if prob.path.kernels:
+        activities.insert(0, ProfilerActivity.CPU)
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         prob.step(st, obs)
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
@@ -1651,12 +1752,18 @@ def main() -> int:
     t_run = time.perf_counter()
     gflops = check_chains(dev, results)  # phase 1, kernels 7-9 and the roofline rows
     say(f"[time] roofline probe done at {time.perf_counter() - t_run:.0f} s")
+    recorded = {}
     for path_name in list(PATHS):
         prob = problems[path_name] = Problem(path_name, dev)
-        check_kernels(prob, results, captured)  # phase 1
-        rec_obs, rec_u = closed_loop(prob, results)  # phase 2
+        if prob.path.kernels:
+            check_kernels(prob, results, captured)  # phase 1
+        rec_obs, rec_u = recorded[path_name] = closed_loop(prob, results)  # phase 2
         if path_name == "quadrotor-jacfwd":
             analytic_jacobian_run(dev, rec_u)
+        if path_name == "quadrotor-xla":
+            xla_against_lanes(prob, problems["quadrotor"], *recorded["quadrotor"])
+        if path_name == "quadrotor-nominal":
+            nominal_episode(prob, rec_u)
         cpu_parity(path_name, rec_obs, rec_u)  # phase 3
         say(f"[time] {path_name} done at {time.perf_counter() - t_run:.0f} s")
     twolink_exact_learned(dev, results)

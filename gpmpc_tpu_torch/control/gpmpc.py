@@ -1,6 +1,6 @@
 """GP-MPC: setup, GP training, the GP-augmented dynamics, step preparation
-(GP variances and chance-constraint tightening), the lanes step and the
-stateful controller.
+(GP variances and chance-constraint tightening), the two steps (`lanes` and
+`xla`) and the stateful controller.
 
 Port of `gpmpc_tpu/control/gpmpc.py`: `GpModel`, `GpMpcConsts`,
 `empty_gp_model`, the training data's packing (`pack_training_data`,
@@ -8,14 +8,17 @@ Port of `gpmpc_tpu/control/gpmpc.py`: `GpModel`, `GpMpcConsts`,
 a reader finds the counterpart), `train_gp_models` (sparse FITC or exact, ARD
 or isotropic, batched over any leading axes), `gp_residual`, `augmented_fd`,
 `gp_variances`, both branches of `batched_variances` (the kernel for a shared
-GP, per-scenario quadratic forms for a population), `_gp_disturbance_batch`
-(which is also the reference's per-scenario `disturbance_diagonals`,
-batched), `_bounds_from_tightening`, `batched_prepare_step`, the three
-branches of `batched_select_action_lanes` (fused kernel linearization;
-jacfwd or analytic Jacobians; a per-scenario GP population) with hard or
-L1-soft state bounds, and the stateful `GPMPC`. The vmapped `select_action`
-of the `xla` path and the nominal `MPC` (`GPMPC.prior_ctrl`) are not ported
-(ROADMAP.md Queue 1). All state carries a leading scenario axis B; a GP
+GP, per-scenario quadratic forms for a population), `disturbance_diagonals`,
+`_bounds_from_tightening`; the `lanes` step (`batched_prepare_step`: the GP
+kernel and the tightening kernel; the three branches of
+`batched_select_action_lanes`: fused kernel linearization, jacfwd or
+analytic Jacobians, a per-scenario GP population); the `xla` step, the
+reference's vmapped `select_action` (`propagate_constraint_limits` through
+the plain `gp_variances`, `tightening_from_variances` and its covariance
+recursion `_tightening_scan`, `prepare_step`, `select_action` on the
+nominal solver stack `ops/sqp.py::sqp_solve`), which launches no kernel;
+both with hard or L1-soft state bounds; and the stateful `GPMPC` with its
+nominal `prior_ctrl`. All state carries a leading scenario axis B; a GP
 population carries it on every GpModel leaf.
 """
 
@@ -30,8 +33,8 @@ import numpy as np
 import torch
 
 from gpmpc_tpu_torch.control import mpc as mpc_mod
-from gpmpc_tpu_torch.control.mpc import MpcConsts, MpcInfo, MpcState
-from gpmpc_tpu_torch.device import resolve, strict_float32
+from gpmpc_tpu_torch.control.mpc import MPC, MpcConsts, MpcInfo, MpcState, state_bound_violation
+from gpmpc_tpu_torch.device import UnsupportedPathError, resolve, strict_float32
 from gpmpc_tpu_torch.gp.exact_gp import (
     GPData,
     GPHypers,
@@ -50,7 +53,7 @@ from gpmpc_tpu_torch.models.residual import QUADROTOR_SPEC, ResidualSpec
 from gpmpc_tpu_torch.ops.cuda_gp import GpForm, gp_mean_var_multi, pack_form
 from gpmpc_tpu_torch.ops.cuda_tighten import tighten_lanes
 from gpmpc_tpu_torch.ops.linalg import discretize_linear_system, lqr_gain_discrete
-from gpmpc_tpu_torch.ops.sqp import OcpBounds, OcpCost, SqpConfig
+from gpmpc_tpu_torch.ops.sqp import OcpBounds, OcpCost, SqpConfig, sqp_solve
 from gpmpc_tpu_torch.ops.sqp_lanes import (
     LANES,
     MAX_FUSED_HORIZON,
@@ -103,10 +106,6 @@ def slice_gp_inputs(xz: torch.Tensor, spec: ResidualSpec = QUADROTOR_SPEC) -> to
             cols.append(torch.zeros_like(xz[..., 0]))
         pads.append(torch.stack(cols, dim=-1))
     return torch.stack(pads, dim=0)
-
-
-class UnsupportedPathError(NotImplementedError):
-    """The configuration needs a path of the reference that is not ported."""
 
 
 def gp_is_batched(gp: GpModel) -> bool:
@@ -277,7 +276,8 @@ def gp_variances(gp: GpModel, z_slices: torch.Tensor, bf16: bool = False) -> tor
     the var_mat quadratic form, in float32. The reference's `bf16` mode (the
     quadratic form's product in bfloat16) is not ported."""
     if bf16:
-        raise UnsupportedPathError("gp_variances(bf16=True) is not ported (ROADMAP.md Queue 1)")
+        raise UnsupportedPathError(
+            "gp_variances(bf16=True) is not ported (ROADMAP.md Queue 1 item 8c)")
     G, D = z_slices.shape[0], z_slices.shape[-1]
     batch_shape = z_slices.shape[1:-1]
     z_flat = z_slices.reshape(G, -1, D)
@@ -319,6 +319,12 @@ def variance_form(gp: GpModel) -> GpForm:
     return form
 
 
+def _population_variances(gp: GpModel, z_slices: torch.Tensor) -> torch.Tensor:
+    """(G, B, T) variances of a GP population (every leaf leading with B) at
+    z_slices (G, B, T, D): each scenario's own quadratic form."""
+    return torch.func.vmap(gp_variances)(gp, z_slices.movedim(1, 0)).movedim(0, 1)
+
+
 def batched_variances(gp: GpModel, z_slices: torch.Tensor) -> torch.Tensor:
     """Tightening variances (G, B, T) for z_slices (G, B, T, D). Shared GP:
     one `gp_mean_var_multi` launch for all G GPs over all B*T queries, on the
@@ -326,24 +332,23 @@ def batched_variances(gp: GpModel, z_slices: torch.Tensor) -> torch.Tensor:
     scenario's own quadratic form in plain torch, as in the reference (there
     is no shared Gram to stage once)."""
     if gp_is_batched(gp):
-        per_scenario = torch.func.vmap(gp_variances)(gp, z_slices.movedim(1, 0))  # (B, G, T)
-        return per_scenario.movedim(0, 1)
+        return _population_variances(gp, z_slices)
     G, B, T, D = z_slices.shape
     _, var = gp_mean_var_multi(z_slices.reshape(G, B * T, D).contiguous(), variance_form(gp))
     return var.reshape(G, B, T)
 
 
-def _gp_disturbance_batch(
+def disturbance_diagonals(
     consts: GpMpcConsts,
     gp: GpModel,
-    zq: torch.Tensor,  # (B, T, z_dim)
-    covs: torch.Tensor,  # (G, B, T)
+    zq: torch.Tensor,  # (B, T, z_dim) GP inputs along the previous solutions
+    covs: torch.Tensor,  # (G, B, T) predictive variances
     spec: ResidualSpec = QUADROTOR_SPEC,
 ) -> torch.Tensor:
     """(B, T, n_unc) disturbance-covariance diagonals: the GP variances and
-    observation noise mapped onto the uncertain rows, times dt^2 (the
-    reference's per-scenario `disturbance_diagonals`, batched; a population
-    brings each scenario's own noise)."""
+    observation noise mapped onto the uncertain rows through the spec's
+    factor map, times dt^2. Shared by both steps (a population brings each
+    scenario's own noise)."""
     noise = softplus(gp.hypers.raw_noise) + 1e-6  # (G,), (B, G) for a population
     if gp_is_batched(gp):
         noise = noise[:, None, None, :]
@@ -351,6 +356,60 @@ def _gp_disturbance_batch(
     cov_d = torch.sum(F * covs.permute(1, 2, 0)[:, :, None, :], dim=-1)
     cov_n = torch.sum(F * noise, dim=-1)
     return (cov_d + cov_n) * consts.dt**2
+
+
+def tightening_from_variances(
+    consts: GpMpcConsts,
+    gp: GpModel,
+    zq: torch.Tensor,  # (B, T, z_dim)
+    covs: torch.Tensor,  # (G, B, T)
+    spec: ResidualSpec = QUADROTOR_SPEC,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-stage tightenings (t_x (B, T+1, nx), t_u (B, T, nu)), both >= 0,
+    from precomputed variances: the disturbance diagonals and the `xla`
+    step's covariance recursion (`_tightening_scan`)."""
+    cov_dn = disturbance_diagonals(consts, gp, zq, covs, spec)
+    return _tightening_scan(consts, cov_dn, zq.dtype, consts.Ad.shape[0])
+
+
+def _tightening_scan(consts: GpMpcConsts, cov_dn: torch.Tensor, dtype, nx: int):
+    """The reference's covariance recursion over the horizon in float32,
+    with its products in its order: cov_x under the LQR feedback K, t_x =
+    ppf sqrt(diag cov_x) and t_u = ppf sqrt(diag K cov_x K'). This is not
+    the tightening kernel's direct form (`ops/cuda_tighten.py`)."""
+    K, A, Bi, Bd = consts.lqr_gain, consts.Ad, consts.Bd_in, consts.Bd
+    Kt, At, Bt, Bdt = K.T, A.T, Bi.T, Bd.T
+    ppf = consts.inverse_cdf
+    B, T = cov_dn.shape[:2]
+    sd = lambda c: ppf * torch.sqrt(torch.clamp_min(torch.diagonal(c, dim1=-2, dim2=-1), 0.0))  # noqa: E731
+    cov_x = torch.zeros(B, nx, nx, dtype=dtype, device=cov_dn.device)
+    t_x, t_u = [], []
+    for k in range(T):
+        cov_xu = cov_x @ Kt
+        cov_u = K @ cov_x @ Kt
+        t_x.append(sd(cov_x))
+        t_u.append(sd(cov_u))
+        cov_x = (A @ cov_x @ At + A @ cov_xu @ Bt + Bi @ cov_xu.transpose(-1, -2) @ At
+                 + Bi @ cov_u @ Bt + Bd @ torch.diag_embed(cov_dn[:, k]) @ Bdt)
+    t_x.append(sd(cov_x))
+    return torch.stack(t_x, dim=1), torch.stack(t_u, dim=1)
+
+
+def propagate_constraint_limits(
+    consts: GpMpcConsts,
+    gp: GpModel,
+    x_prev: torch.Tensor,  # (B, T+1, nx) previous solutions
+    u_prev: torch.Tensor,  # (B, T, nu)
+    spec: ResidualSpec = QUADROTOR_SPEC,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-stage tightenings (t_x (B, T+1, nx), t_u (B, T, nu)) of the `xla`
+    step: the plain `gp_variances` along the previous solutions (each
+    scenario's own for a population), then `tightening_from_variances`. The
+    magnitude ppf sqrt(diag cov) applies to both sides of each box."""
+    zq = spec.gp_input(x_prev[:, :-1], u_prev)  # (B, T, z_dim)
+    z = slice_gp_inputs(zq, spec)
+    covs = _population_variances(gp, z) if gp_is_batched(gp) else gp_variances(gp, z)
+    return tightening_from_variances(consts, gp, zq, covs, spec)
 
 
 def _bounds_from_tightening(
@@ -403,7 +462,7 @@ def batched_prepare_step(
     spec = model_spec(model)
     zq = spec.gp_input(states.X_warm[:, :-1], states.U_warm)  # (B, T, z)
     covs = batched_variances(gp, slice_gp_inputs(zq, spec))
-    cov_dn = _gp_disturbance_batch(consts, gp, zq, covs, spec)
+    cov_dn = disturbance_diagonals(consts, gp, zq, covs, spec)
     t_x, t_u = tighten_lanes(
         cov_dn.contiguous(), consts.Ad, consts.Bd_in, consts.lqr_gain, consts.Bd,
         consts.inverse_cdf,
@@ -411,11 +470,65 @@ def batched_prepare_step(
     return _bounds_from_tightening(consts, gp, states, obs, t_x, t_u, soft=soft)
 
 
-def state_bound_violation(X: torch.Tensor, bounds: OcpBounds) -> torch.Tensor:
-    """(B,) largest excess of X over its box on stages 1..T (0 under hard bounds)."""
-    lo = torch.amax(bounds.lx[:, 1:] - X[:, 1:], dim=(1, 2))
-    hi = torch.amax(X[:, 1:] - bounds.ux[:, 1:], dim=(1, 2))
-    return torch.clamp_min(torch.maximum(lo, hi), 0.0)
+def _population_linearize(model, gp: GpModel):
+    """(X (B, T, nx), U (B, T, nu)) -> (fnext, A, B), each scenario
+    linearized in forward mode against its own GP of the population."""
+    def linearize(X, U):
+        return torch.func.vmap(
+            lambda g, Xb, Ub: jacfwd_linearize(partial(augmented_fd, model, g), Xb, Ub)
+        )(gp, X, U)
+
+    return linearize
+
+
+def prepare_step(model, consts: GpMpcConsts, gp: GpModel, states: MpcState, obs: torch.Tensor,
+                 soft: bool = False):
+    """The `xla` step's preparation for B scenarios: tightenings by
+    `propagate_constraint_limits`, then the tightened boxes, reference
+    windows and warm starts. (xref, bounds, X_init, U_init, clamp_frac)."""
+    t_x, t_u = propagate_constraint_limits(consts, gp, states.X_warm, states.U_warm,
+                                           model_spec(model))
+    return _bounds_from_tightening(consts, gp, states, obs, t_x, t_u, soft=soft)
+
+
+def select_action(
+    model,
+    cfg: SqpConfig,
+    consts: GpMpcConsts,
+    gp: GpModel,
+    states: MpcState,
+    obs: torch.Tensor,  # (B, nx)
+) -> tuple[torch.Tensor, MpcState, MpcInfo]:
+    """One GP-MPC step for B scenarios on the `xla` path, the reference's
+    `select_action` under `jax.vmap`: (u (B, nu), next states, info).
+    `prepare_step`, the optional warm-start shift, then `sqp_solve` on the
+    GP-augmented RK4 dynamics (each scenario against its own GP for a
+    population), in full float32 (TF32 off, the reference's "highest"). The
+    lanes options of cfg (qp_tol, kernel_linearize, analytic_jac) do not
+    apply, and soft state bounds serve any horizon. No kernel launches."""
+    with strict_float32():
+        c = consts.mpc
+        xref, bounds, X_init, U_init, clamp_frac = prepare_step(
+            model, consts, gp, states, obs, soft=cfg.soft_x_penalty is not None
+        )
+        if cfg.warm_shift:
+            X_init = torch.cat([X_init[:, 1:], X_init[:, -1:]], dim=1)
+            U_init = torch.cat([U_init[:, 1:], U_init[:, -1:]], dim=1)
+        cost = OcpCost(xref=xref, uref=c.uref, Q=c.Q, R=c.R, Qe=c.Q, scale=c.scale)
+        if gp_is_batched(gp):
+            sol = sqp_solve(None, cost, bounds, obs, X_init, U_init, cfg,
+                            linearize_fn=_population_linearize(model, gp))
+        else:
+            sol = sqp_solve(partial(augmented_fd, model, gp), cost, bounds, obs, X_init, U_init,
+                            cfg)
+        new_states = MpcState(traj_step=states.traj_step + 1, X_warm=sol.X, U_warm=sol.U)
+        info = MpcInfo(
+            X=sol.X, U=sol.U, step_norm=sol.step_norm, qp_gap=sol.qp_gap,
+            n_iters=sol.n_iters, clamp_frac=clamp_frac,
+            soft_viol=state_bound_violation(sol.X, bounds),
+            eq_res=sol.eq_res, stat_res=sol.stat_res, converged=sol.converged,
+        )
+        return sol.U[:, 0], new_states, info
 
 
 def batched_select_action_lanes(
@@ -477,13 +590,9 @@ def _select_action_lanes(model, cfg, consts, gp, states, obs, lanes):
             lin, model.dt, cost, bounds, obs, X_init, U_init, cfg, lanes=lanes
         )
     elif gp_batched:
-        def linearize(X, U):  # X (B, T, nx), U (B, T, nu): each scenario against its own GP
-            return torch.func.vmap(
-                lambda g, Xb, Ub: jacfwd_linearize(partial(augmented_fd, model, g), Xb, Ub)
-            )(gp, X, U)
-
         sol = sqp_solve_batch_lanes(
-            None, cost, bounds, obs, X_init, U_init, cfg, linearize_fn=linearize, lanes=lanes
+            None, cost, bounds, obs, X_init, U_init, cfg,
+            linearize_fn=_population_linearize(model, gp), lanes=lanes,
         )
     else:
         fd_jac3 = None
@@ -516,12 +625,10 @@ class GPMPC:
 
     `step_backend`: "lanes" runs each `select_action` as a B = 1 batch of
     `batched_select_action_lanes` (a ValueError past the lanes horizon cap);
-    "auto" resolves to "lanes" on the card and to "xla" on the CPU; "xla"
-    (the reference's vmapped `select_action`) is not ported and raises
-    `UnsupportedPathError` at the first step. Not ported either: the nominal
-    prior controller (`prior_ctrl`, whose absence a reader of the reference
-    would look for; the untrained controller, whose GP mean is zero and
-    whose tightening is off, solves the same problem) and `parallel_scan`
+    "xla" as a B = 1 batch of `select_action` (the reference's xla path);
+    "auto" resolves as in the reference: "lanes" on the card where the lanes
+    caps serve the horizon, else "xla". `prior_ctrl` is the nominal `MPC`
+    built with the controller's arguments. `parallel_scan` is not ported
     (raises)."""
 
     U_EQ = np.array([0.3234, 0.0, 0.0, 0.0])
@@ -552,8 +659,8 @@ class GPMPC:
     ):
         if parallel_scan:
             raise UnsupportedPathError(
-                "GPMPC(parallel_scan=...) needs a part of the reference that is not ported "
-                "(ROADMAP.md Queue 1)"
+                "GPMPC(parallel_scan=True) needs ops/riccati_parallel.py, which is not ported "
+                "(ROADMAP.md Queue 1 item 13)"
             )
         if step_backend not in ("auto", "lanes", "xla"):
             raise ValueError(f"step_backend must be 'auto', 'lanes' or 'xla', got {step_backend!r}")
@@ -577,6 +684,12 @@ class GPMPC:
         traj = torch.as_tensor(np.array(traj, np.float32))
         if traj.shape[0] < traj.shape[1]:
             traj = traj.T
+        # the nominal prior controller
+        self.prior_ctrl = MPC(
+            model, traj, q_mpc=q_mpc, r_mpc=r_mpc, output_dir=output_dir, horizon=horizon,
+            sqp_iters=sqp_iters, qp_iters=qp_iters, parallel_scan=parallel_scan, bounds=bounds,
+            lm_reg=lm_reg, device=device,
+        )
         self.traj = traj
 
         inverse_cdf = float(statistics.NormalDist().inv_cdf(1 - (1 / nx - (prob + 1) / (2 * nx))))
@@ -590,7 +703,7 @@ class GPMPC:
         Bd_mat = np.eye(nx)[:, list(self.spec.uncertain_dim)]
         t = lambda a: torch.as_tensor(np.array(a, np.float32, order="C"), device=device)  # noqa: E731
         self.consts = GpMpcConsts(
-            mpc=mpc_mod.make_consts(model, traj, q_mpc, r_mpc, horizon, device=device, bounds=bounds),
+            mpc=self.prior_ctrl.consts,
             Ad=t(Ad), Bd_in=t(Bd_in), lqr_gain=t(lqr_K), Bd=t(Bd_mat),
             inverse_cdf=t(inverse_cdf), dt=t(model.dt),
         )
@@ -607,7 +720,7 @@ class GPMPC:
         self.last_fit_info = None
 
     def _resolve_step_backend(self) -> str:
-        """The step backend this controller runs: "lanes", or a raise."""
+        """The step backend this controller runs: "lanes" or "xla"."""
         backend = self.step_backend
         if backend == "auto":
             backend = ("lanes" if self.device.type == "cuda" and lanes_serves(self.cfg, self.T)
@@ -618,12 +731,6 @@ class GPMPC:
                 f"({lanes_horizon_cap(self.cfg)}"
                 f"{' with soft state bounds' if self.cfg.soft_x_penalty is not None else ''}); "
                 "use step_backend='xla' or 'auto'"
-            )
-        if backend == "xla":
-            raise UnsupportedPathError(
-                f"GPMPC step_backend {self.step_backend!r} resolves to 'xla' on {self.device} "
-                "(the reference's vmapped select_action), which is not ported; pass "
-                "step_backend='lanes' (ROADMAP.md Queue 1)"
             )
         return backend
 
@@ -725,14 +832,18 @@ class GPMPC:
 
     def select_action(self, obs) -> np.ndarray:
         """One GP-MPC step for one observation (nx,), as a B = 1 batch of
-        `batched_select_action_lanes` (one lane tile); raises on a
-        non-finite action."""
-        self._resolve_step_backend()
+        `batched_select_action_lanes` (one lane tile) or of `select_action`;
+        raises on a non-finite action."""
+        backend = self._resolve_step_backend()
         obs = torch.as_tensor(np.array(obs, np.float32), device=self.device).reshape(1, -1)
-        u, self.state, info = batched_select_action_lanes(
-            self.model, self.cfg, self.consts, self.gp_model, self.state, obs,
-            lanes=LANES if self.device.type == "cuda" else 1,
-        )
+        if backend == "lanes":
+            u, self.state, info = batched_select_action_lanes(
+                self.model, self.cfg, self.consts, self.gp_model, self.state, obs,
+                lanes=LANES if self.device.type == "cuda" else 1,
+            )
+        else:
+            u, self.state, info = select_action(
+                self.model, self.cfg, self.consts, self.gp_model, self.state, obs)
         self._last_info = MpcInfo(*[v[0] if v.dim() > 0 else v for v in info])
         u = u[0].cpu().numpy()
         if not np.all(np.isfinite(u)):

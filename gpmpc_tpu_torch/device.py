@@ -2,7 +2,8 @@
 
 Every entry point that creates tensors takes `device=None` and resolves it
 here: the card unless the caller asks for the CPU. Functions that take
-tensors follow their inputs' device instead.
+tensors follow their inputs' device instead. A path of the reference that
+the port does not have raises `UnsupportedPathError` and never falls back.
 """
 
 from __future__ import annotations
@@ -14,6 +15,11 @@ import torch
 
 class NoCudaDeviceError(RuntimeError):
     """An entry point was left on its default device and there is no card."""
+
+
+class UnsupportedPathError(NotImplementedError):
+    """The configuration needs a path of the reference that is not ported;
+    the message names its item in ROADMAP.md."""
 
 
 def resolve(device: torch.device | str | None = None) -> torch.device:

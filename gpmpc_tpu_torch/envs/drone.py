@@ -2,8 +2,8 @@
 `gpmpc_tpu/envs/drone.py:35-217`: true-parameter dynamics with rotor and
 attitude lag, aero drag and actuation delay, with the rigid coefficients
 fixed (`env_step`) or per scenario (`env_step_dynamic`, `params_to_array`,
-`randomize_params`). Process noise (`noise_std > 0`) is not ported yet; the
-default plant has none."""
+`randomize_params`). Process noise (`noise_std > 0`) is not ported yet (ROADMAP.md
+Queue 1 item 8c); the default plant has none."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from gpmpc_tpu_torch.device import resolve
+from gpmpc_tpu_torch.device import UnsupportedPathError, resolve
 from gpmpc_tpu_torch.models import quadrotor
 from gpmpc_tpu_torch.models.quadrotor import QuadrotorParams
 from gpmpc_tpu_torch.models.trajectory import figure_eight_trajectory
@@ -119,8 +119,8 @@ def env_step_dynamic(
 
 def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor):
     if p.noise_std > 0.0:
-        raise NotImplementedError(
-            "process noise is not ported yet (ROADMAP.md Queue 1); use noise_std=0"
+        raise UnsupportedPathError(
+            "process noise is not ported yet (ROADMAP.md Queue 1 item 8c); use noise_std=0"
         )
 
     def fc(x_, u_):

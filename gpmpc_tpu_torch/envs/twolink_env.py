@@ -4,7 +4,7 @@ links) with a point-mass payload at the link-2 tip, viscous joint friction
 and a torque gain error plus bias, tracking joint-space sinusoids around the
 hanging posture, with the rigid coefficients fixed (`env_step`) or per
 scenario (`env_step_dynamic`, `params_to_array`, `randomize_params`).
-Process noise (`noise_std > 0`) is not ported yet (ROADMAP.md Queue 1)."""
+Process noise (`noise_std > 0`) is not ported yet (ROADMAP.md Queue 1 item 8c)."""
 
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from gpmpc_tpu_torch.device import resolve
+from gpmpc_tpu_torch.device import UnsupportedPathError, resolve
 from gpmpc_tpu_torch.models import twolink
 from gpmpc_tpu_torch.models.twolink import GRAVITY, TwoLinkParams
 
@@ -148,8 +148,8 @@ def env_step_dynamic(
 
 def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor):
     if p.noise_std > 0.0:
-        raise NotImplementedError(
-            "two-link plant process noise is not ported yet (ROADMAP.md Queue 1); use noise_std=0"
+        raise UnsupportedPathError(
+            "two-link plant process noise is not ported yet (ROADMAP.md Queue 1 item 8c); use noise_std=0"
         )
     sub_dt = p.dt / p.sim_substeps
     x = state.x

@@ -17,6 +17,11 @@ GRAVITY = 9.81
 
 U_EQ = np.array([0.3234, 0.0, 0.0, 0.0], dtype=np.float32)
 
+STATE_LABELS = [
+    "x", "d_x", "y", "d_y", "z", "d_z",
+    "phi", "theta", "psi", "d_phi", "d_theta", "d_psi",
+]
+
 NX = 12
 NU = 4
 
@@ -50,13 +55,18 @@ TRUE_PARAMS = QuadrotorParams(
 )
 
 
+def thrust_acc(thrust_cmd: torch.Tensor, params: QuadrotorParams) -> torch.Tensor:
+    """Collective-thrust command -> specific-thrust magnitude [m/s^2]."""
+    return params.a * thrust_cmd + params.b
+
+
 def continuous_dynamics(x: torch.Tensor, u: torch.Tensor, params: QuadrotorParams) -> torch.Tensor:
     """f(x, u) for (..., 12) states and (..., 4) inputs."""
     phi, theta, psi = x[..., IDX_PHI], x[..., IDX_THETA], x[..., IDX_PSI]
     d_phi, d_theta, d_psi = x[..., IDX_DPHI], x[..., IDX_DTHETA], x[..., IDX_DPSI]
     thrust_cmd, phi_cmd, theta_cmd = u[..., 0], u[..., 1], u[..., 2]
 
-    acc = params.a * thrust_cmd + params.b
+    acc = thrust_acc(thrust_cmd, params)
     cphi, sphi = torch.cos(phi), torch.sin(phi)
     cth, sth = torch.cos(theta), torch.sin(theta)
     cpsi, spsi = torch.cos(psi), torch.sin(psi)

@@ -30,6 +30,7 @@ from gpmpc_tpu_torch.ops.sqp import (
     OcpCost,
     SqpConfig,
     SqpSolution,
+    jacfwd_linearize,
     kkt_residuals,
 )
 
@@ -240,25 +241,6 @@ def sqp_solve_batch_lanes_fused(
         n_iters=lane_scalar(n_iters), eq_res=lane_scalar(eq_res),
         stat_res=lane_scalar(stat_res), converged=lane_scalar(converged),
     )
-
-
-def jacfwd_linearize(fd, X: torch.Tensor, U: torch.Tensor):
-    """(fnext (..., nx), A (..., nx, nx), B (..., nx, nu)) of fd at every point
-    of X (..., nx), U (..., nu) by forward-mode differentiation: what
-    `vmap(jacfwd(fd, argnums=(0, 1)))` computes, with each of the nx + nu
-    tangents pushed through fd on the whole batch (`vmap` over the basis of
-    `torch.func.jvp`). `fd` must take leading batch axes, as every model
-    function of the port does. `jacfwd` of a per-point fd is not used: there a
-    state component is a 0-dim tensor, and forward-mode products of 0-dim
-    tensors with Python scalars come out in float64."""
-    nx, nu = X.shape[-1], U.shape[-1]
-    basis = torch.eye(nx + nu, dtype=X.dtype, device=X.device)
-
-    def push(t):
-        return torch.func.jvp(fd, (X, U), (t[:nx].expand_as(X), t[nx:].expand_as(U)))[1]
-
-    J = torch.func.vmap(push)(basis).movedim(0, -1)  # (..., nx, nx + nu)
-    return fd(X, U), J[..., :nx], J[..., nx:]
 
 
 def sqp_solve_batch_lanes(

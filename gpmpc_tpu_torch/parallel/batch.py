@@ -1,11 +1,11 @@
 """Scenario-batched GP-MPC steps and episodes. Port of
-`gpmpc_tpu/parallel/batch.py`'s `dispatch_decision`, its one-time
-degradation warnings, `batched_gpmpc_step` for the `lanes-fused` and `lanes`
-paths, and the episodes on the lanes backend (`batched_episode`,
-`_batched_episode_lanes`, `cfg_horizon`) with a shared GP or a population;
-the `xla` path (the vmapped `select_action`) raises `UnsupportedPathError`
-instead of falling back. Sharding and the domain-randomized wrapper are not
-ported yet (ROADMAP.md Queue 1)."""
+`gpmpc_tpu/parallel/batch.py`: `dispatch_decision`, its one-time degradation
+warnings, `batched_gpmpc_step` on all three paths (`lanes-fused`, `lanes`
+and `xla`, the reference's vmapped `select_action`, its default), and the
+episodes (`batched_episode` on either backend, GP-MPC or the nominal MPC,
+with a shared GP or a population; `batched_episode_randomized`;
+`cfg_horizon`). Sharding (`make_batched_controller_step` with a mesh) is
+not ported yet (ROADMAP.md Queue 1 items 8c and 12)."""
 
 from __future__ import annotations
 
@@ -43,7 +43,8 @@ def dispatch_decision(
 
       "lanes-fused"  kernel linearization + lanes QP, X and U kept in lanes layout
       "lanes"        lanes QP with the dynamics linearized in plain torch
-      "xla"          the reference's fully-XLA path (not ported: raises)
+      "xla"          the reference's fully-XLA path: `control/gpmpc.py::select_action`
+                     on the nominal solver stack, in plain torch
     """
     if backend != "lanes":
         return DispatchDecision("xla", "requested explicitly")
@@ -102,22 +103,30 @@ def batched_gpmpc_step(
     gp: GpModel,
     states: MpcState,  # leaves with leading batch axis B
     obs: torch.Tensor,  # (B, nx)
-    backend: str = "lanes",
+    backend: str = "xla",
+    var_backend: str = "auto",
+    var_bf16: bool = False,
     lanes: int = LANES,
 ):
     """One GP-MPC solve for B scenarios: (u (B, nu), next states, MpcInfo).
-    Executes `dispatch_decision`: `lanes-fused` and `lanes` run, each
-    degradation warning once with its reason; `xla` raises."""
+    Executes `dispatch_decision`, each degradation warning once with its
+    reason: `backend="lanes"` takes `lanes-fused` or `lanes` where the lanes
+    caps serve the horizon, else `xla`, which serves any horizon; the default
+    is the reference's, `xla`. `lanes` is the scenario tile of the lanes QP.
+    The reference's variance options (`var_backend` other than "auto",
+    `var_bf16`) are not ported and raise."""
+    if var_backend != "auto" or var_bf16:
+        raise UnsupportedPathError(
+            f"batched_gpmpc_step(var_backend={var_backend!r}, var_bf16={var_bf16}) is not "
+            "ported; the lanes paths take the GP kernel, the xla path the plain variances "
+            "(ROADMAP.md Queue 1 item 8c)")
     T = consts.mpc.uref.shape[0]
     decision = dispatch_decision(
         cfg, gpmpc_mod.model_spec(model), T, gpmpc_mod.gp_is_batched(gp), backend
     )
-    if decision.path == "xla":
-        raise UnsupportedPathError(
-            f"dispatch path 'xla' ({decision.reason}) is not ported; 'lanes-fused' and "
-            "'lanes' are (ROADMAP.md Queue 1)"
-        )
     _warn_dispatch(decision)
+    if decision.path == "xla":
+        return gpmpc_mod.select_action(model, cfg, consts, gp, states, obs)
     return gpmpc_mod.batched_select_action_lanes(model, cfg, consts, gp, states, obs, lanes=lanes)
 
 
@@ -142,46 +151,40 @@ def batched_episode(
     batch: int,
     use_gp: bool = True,
     param_scale: float | None = None,
-    backend: str = "lanes",
+    backend: str = "xla",
     gp_batched: bool = False,
     env_mod=drone,
 ) -> EpisodeResult:
-    """Closed-loop episodes of `batch` scenarios on the lanes backend: a
-    host loop of `batched_select_action_lanes` and the plant, on the
-    device of `consts` (the reference's scan has nothing to hoist here).
+    """Closed-loop episodes of `batch` scenarios: a host loop of the
+    controller step and the plant, on the device of `consts` (the
+    reference's scan has nothing to hoist here).
 
-    `env_mod` is any module with `envs/drone.py`'s surface (`env_reset`,
-    `env_step_dynamic`, `params_to_array`, `randomize_params`); the initial
-    states, and with `param_scale` every scenario's own plant coefficients
-    (the reference's domain randomization), are drawn from `generator`,
-    which must live on that device (JAX's keys cannot be reproduced). With
-    `gp_batched`, every `gp` leaf leads with `batch` and each scenario runs
-    its own GP. The QP tiles are LANES scenarios wide on the card and the
-    whole batch wide on the CPU, as `GPMPC.select_action` picks its width
-    from the device. The reference's `xla` backend and `use_gp=False` (its
-    nominal MPC) are not ported and raise `UnsupportedPathError`."""
-    if backend != "lanes":
-        raise UnsupportedPathError(
-            f"batched_episode(backend={backend!r}) needs the reference's vmapped select_action, "
-            "which is not ported; backend='lanes' is (ROADMAP.md Queue 1)"
-        )
-    if not use_gp:
-        raise UnsupportedPathError(
-            "batched_episode(use_gp=False) needs the reference's nominal MPC, which is not "
-            "ported; the untrained GP (empty_gp_model) gives the prior controller (ROADMAP.md "
-            "Queue 1)"
-        )
+    backend="xla" (the reference's default) steps `control/gpmpc.py::
+    select_action`, or with `use_gp=False` the nominal MPC
+    (`control/mpc.py::select_action` on `consts.mpc`); backend="lanes" steps
+    `batched_select_action_lanes` (GP-MPC only, as in the reference), its QP
+    tiles LANES scenarios wide on the card and the whole batch wide on the
+    CPU. `env_mod` is any module with `envs/drone.py`'s surface
+    (`env_reset`, `env_step_dynamic`, `params_to_array`, `randomize_params`);
+    the initial states, and with `param_scale` every scenario's own plant
+    coefficients (the reference's domain randomization), are drawn from
+    `generator`, which must live on that device (JAX's keys cannot be
+    reproduced). With `gp_batched`, every `gp` leaf leads with `batch` and
+    each scenario runs its own GP."""
+    if backend == "lanes" and not use_gp:
+        raise ValueError("backend='lanes' requires use_gp=True (GP-MPC step)")
     if gp_batched != gpmpc_mod.gp_is_batched(gp):
         raise ValueError(f"gp_batched={gp_batched} but the GpModel's leaves "
                          f"{'do' if gpmpc_mod.gp_is_batched(gp) else 'do not'} lead with a scenario axis")
-    return _batched_episode_lanes(model, cfg, env_params, consts, gp, generator, n_steps, batch,
-                                  param_scale, env_mod)
-
-
-def _batched_episode_lanes(model, cfg, env_params, consts, gp, generator, n_steps, batch,
-                           param_scale, env_mod) -> EpisodeResult:
     dev = consts.Ad.device
-    lanes = LANES if dev.type == "cuda" else batch
+    if not use_gp:
+        step = lambda ctrl, obs: mpc_mod.select_action(model, cfg, consts.mpc, ctrl, obs)  # noqa: E731
+    elif backend != "lanes":
+        step = lambda ctrl, obs: gpmpc_mod.select_action(model, cfg, consts, gp, ctrl, obs)  # noqa: E731
+    else:
+        lanes = LANES if dev.type == "cuda" else batch
+        step = lambda ctrl, obs: gpmpc_mod.batched_select_action_lanes(  # noqa: E731
+            model, cfg, consts, gp, ctrl, obs, lanes=lanes)
     env_states, obs0 = env_mod.env_reset(env_params, batch, generator, dev)
     if param_scale is None:
         plant = env_mod.params_to_array(env_params.params, dev).expand(batch, -1)
@@ -190,11 +193,28 @@ def _batched_episode_lanes(model, cfg, env_params, consts, gp, generator, n_step
     ctrl = mpc_mod.init_state(batch, cfg_horizon(consts), model.nx, model.nu, device=dev)
     obs, obs_path, actions, rewards = obs0, [obs0], [], []
     for _ in range(n_steps):
-        u, ctrl, _ = gpmpc_mod.batched_select_action_lanes(model, cfg, consts, gp, ctrl, obs,
-                                                           lanes=lanes)
+        u, ctrl, _ = step(ctrl, obs)
         env_states, obs, reward, _, _ = env_mod.env_step_dynamic(env_params, plant, env_states, u)
         obs_path.append(obs)
         actions.append(u)
         rewards.append(reward)
     return EpisodeResult(obs=torch.stack(obs_path, dim=1), actions=torch.stack(actions, dim=1),
                          rewards=torch.stack(rewards, dim=1))
+
+
+def batched_episode_randomized(
+    model,
+    cfg: SqpConfig,
+    env_params,
+    consts: GpMpcConsts,
+    gp: GpModel,
+    generator: torch.Generator,
+    n_steps: int,
+    batch: int,
+    param_scale: float = 0.1,
+    use_gp: bool = True,
+) -> EpisodeResult:
+    """Domain-randomized episodes: `batched_episode` with `param_scale`, on
+    its default backend, as the reference's wrapper."""
+    return batched_episode(model, cfg, env_params, consts, gp, generator, n_steps, batch,
+                           use_gp=use_gp, param_scale=param_scale)

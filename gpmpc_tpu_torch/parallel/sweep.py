@@ -1,6 +1,7 @@
 """Multi-seed GP-MPC learning sweep: S independent learning runs batched.
-Port of `gpmpc_tpu/parallel/sweep.py`'s `SweepResult` and `seed_sweep` on the
-lanes backend.
+Port of `gpmpc_tpu/parallel/sweep.py`'s `SweepResult` and `seed_sweep`, on
+either backend of `parallel/batch.py::batched_episode` (`xla`, the
+reference's default, or `lanes`).
 
 Each epoch collects one closed-loop episode per seed with that seed's current
 GPs (epoch 1 with the untrained GP, whose zero mean is the prior controller),
@@ -79,7 +80,7 @@ def seed_sweep(
     master_seed: int = 0,
     mesh=None,
     env_mod=drone,
-    backend: str = "lanes",
+    backend: str = "xla",
     return_info: bool = False,
 ) -> SweepResult | tuple[SweepResult, list[EpochInfo]]:
     """`n_seeds` GP-MPC learning runs on the device of `consts`. The residual
@@ -88,13 +89,11 @@ def seed_sweep(
     and unused. A seed's randomness (initial states, samples, inducing
     points) comes from torch generators seeded from `master_seed`, so the
     same master seed reproduces a sweep. With `return_info`, returns
-    (result, one `EpochInfo` per epoch). A `mesh` and the `xla` backend are
-    not ported and raise `UnsupportedPathError`."""
+    (result, one `EpochInfo` per epoch). `backend` is `batched_episode`'s.
+    A `mesh` is not ported and raises `UnsupportedPathError`."""
     if mesh is not None:
-        raise UnsupportedPathError("seed_sweep(mesh=...) is not ported (ROADMAP.md Queue 1)")
-    if backend != "lanes":
         raise UnsupportedPathError(
-            f"seed_sweep(backend={backend!r}) is not ported; backend='lanes' is (ROADMAP.md Queue 1)")
+            "seed_sweep(mesh=...) is not ported (ROADMAP.md Queue 1 item 12)")
     if samples_per_epoch > n_steps:
         raise ValueError(
             f"samples_per_epoch={samples_per_epoch} > n_steps={n_steps}: an episode yields "
@@ -113,7 +112,7 @@ def seed_sweep(
     def episode(gp, stream, epoch, gp_batched):
         return batched_episode(model, cfg, env_params, consts, gp,
                                _generator(dev, master_seed, stream, epoch), n_steps, S,
-                               gp_batched=gp_batched, env_mod=env_mod)
+                               gp_batched=gp_batched, env_mod=env_mod, backend=backend)
 
     def eval_cost(gp, gp_batched):
         # the same held-out episode every epoch: the eval stream is not advanced

@@ -1,7 +1,7 @@
 """The GP-augmented dynamics and the plain-torch GP variances of the port
 (`models/residual.py::mean_rows`, `control/gpmpc.py::gp_residual`,
 `augmented_fd`, `gp_variances`, and the population branches of
-`batched_variances` and `_gp_disturbance_batch`) against the JAX package, for
+`batched_variances` and `disturbance_diagonals`) against the JAX package, for
 the three model families, with a shared GP and with a per-scenario population.
 
 Both sides get the family's benchmark GP (the committed fixture) and the same
@@ -161,7 +161,7 @@ def test_gp_variances_and_disturbance_diagonals_match(family, population):
 
     want_d = j_gpmpc._gp_disturbance_batch(Consts, gp_j, zq_j, jnp.asarray(want), spec_j)
     Consts.dt = torch.tensor(0.02)
-    got_d = t_gpmpc._gp_disturbance_batch(Consts, gp_t, zq_t, torch.tensor(want), spec_t)
+    got_d = t_gpmpc.disturbance_diagonals(Consts, gp_t, zq_t, torch.tensor(want), spec_t)
     assert got_d.shape == (B, T, spec_t.n_unc)
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=1e-5, atol=1e-12)
 

@@ -1,8 +1,8 @@
 """Backend dispatch of the port (`gpmpc_tpu_torch/parallel/batch.py`) against
 the JAX package's: every cell of tests/test_dispatch.py's matrix gives the same
-path, the same `degraded` flag and the same reason text; `lanes-fused` and
-`lanes` run, `xla` raises `UnsupportedPathError`, and each degradation warns
-once per distinct reason."""
+path, the same `degraded` flag and the same reason text; all three paths
+run (`xla` requested explicitly or decided by a horizon past the lanes
+caps), and each degradation warns once per distinct reason."""
 
 import dataclasses
 import warnings
@@ -55,6 +55,17 @@ MATRIX = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small ops: torch's intra-op threads cost more than they give on a
+    shared CPU (the T = 1025 xla step below is ~10^5 of them). Restored
+    after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def spec_of(mod, name):
     if name == NO_CLOSURE:
         return dataclasses.replace(mod.QUADROTOR_SPEC, supports_kernel_linearize=False)
@@ -85,21 +96,32 @@ def setup(T=4, B=2, **spec_changes):
     return model, ctrl, gp, st, obs
 
 
-def step(model, ctrl, gp, st, obs, cfg=None, **kw):
+def step(model, ctrl, gp, st, obs, cfg=None, backend="lanes", **kw):
     return batched_gpmpc_step(model, cfg or ctrl.cfg._replace(kernel_linearize=True), ctrl.consts,
-                              gp, st, obs, lanes=2, **kw)
+                              gp, st, obs, backend=backend, lanes=2, **kw)
 
 
 def test_xla_raises_whether_requested_or_decided():
+    """The `xla` path runs whether requested (silently; its actions within
+    2e-3 of the flagship path's on the same problem, the reference's
+    lanes-vs-xla bar, tests/test_parallel.py) or decided by a horizon past
+    the last lanes cap (warning once): there one SQP and one IP iteration at
+    B = 2, T = 1025."""
     model, ctrl, gp, st, obs = setup()
-    with pytest.raises(t_gpmpc.UnsupportedPathError, match="requested explicitly"):
-        step(model, ctrl, gp, st, obs, backend="xla")
-    long = setup(T=MAX_STREAM2_HORIZON + 1)
     t_batch._DISPATCH_WARNED.clear()
     with warnings.catch_warnings():
-        warnings.simplefilter("error")  # a path that raises does not also warn
-        with pytest.raises(t_gpmpc.UnsupportedPathError, match="exceeds the lanes cap"):
-            step(*long)
+        warnings.simplefilter("error")  # an explicit choice: silent
+        u_x, _, info = step(model, ctrl, gp, st, obs, backend="xla")
+    u_f, _, _ = step(model, ctrl, gp, st, obs)
+    assert bool(torch.isfinite(u_x).all()) and info.n_iters.shape == (2,)
+    np.testing.assert_allclose(u_x.numpy(), u_f.numpy(), atol=2e-3)
+    long = setup(T=MAX_STREAM2_HORIZON + 1)
+    cfg = long[1].cfg._replace(sqp_iters=1, qp_iters=1, kernel_linearize=True)
+    with pytest.warns(UserWarning, match="exceeds the lanes cap") as rec:
+        u, st_long, info = step(*long, cfg=cfg)
+    assert len([w for w in rec if "gpmpc dispatch" in str(w.message)]) == 1
+    assert bool(torch.isfinite(u).all()) and info.n_iters.tolist() == [1, 1]
+    assert st_long.X_warm.shape == (2, MAX_STREAM2_HORIZON + 2, 12)
 
 
 def test_explicit_choices_run_silently():
@@ -139,3 +161,47 @@ def test_each_degradation_warns_once(case):
     with warnings.catch_warnings():
         warnings.simplefilter("error")  # the same reason again: silent
         step(*args)
+
+
+def _env_noise(mod):
+    p = mod.EnvParams.default()._replace(noise_std=0.1)
+    st, _ = mod.env_reset(p, 2, torch.Generator().manual_seed(0), "cpu")
+    nu = {"drone": 4, "cartpole_env": 1, "twolink_env": 2}[mod.__name__.split(".")[-1]]
+    return lambda: mod.env_step(p, st, torch.zeros(2, nu))
+
+
+def _unported(case):
+    """The call of an option that still raises, and its ROADMAP.md item."""
+    from gpmpc_tpu_torch.envs import cartpole_env, drone, twolink_env
+
+    if case.startswith("var"):
+        model, ctrl, gp, st, obs = setup()
+        kw = {"var_backend": "xla"} if case == "var_backend" else {"var_bf16": True}
+        return (lambda: step(model, ctrl, gp, st, obs, backend="xla", **kw)), "item 8c"
+    if case == "gp_variances_bf16":
+        gp = convert.load_bench_gp("cpu")
+        return (lambda: t_gpmpc.gp_variances(gp, torch.zeros(3, 2, 3), bf16=True)), "item 8c"
+    if case.startswith("noise"):
+        mod = {"noise_drone": drone, "noise_cartpole": cartpole_env,
+               "noise_twolink": twolink_env}[case]
+        return _env_noise(mod), "item 8c"
+    traj = figure_eight_trajectory(n_steps=64, dt=0.02, device="cpu").numpy()
+    if case == "gpmpc_parallel_scan":
+        return (lambda: t_gpmpc.GPMPC(t_sym(dt=0.02), traj, {"a": 12.1432, "b": 1.8118}, horizon=4,
+                                      q_mpc=[1.0] * 12, r_mpc=[1.0] * 4, parallel_scan=True,
+                                      device="cpu")), "item 13"
+    return (lambda: t_mpc.MPC(t_sym(dt=0.02), traj, [1.0] * 12, [1.0] * 4, parallel_scan=True,
+                              device="cpu")), "item 13"
+
+
+@pytest.mark.parametrize("case", ["var_backend", "var_bf16", "gp_variances_bf16", "noise_drone",
+                                  "noise_cartpole", "noise_twolink", "gpmpc_parallel_scan",
+                                  "mpc_parallel_scan"])
+def test_unported_options_raise_naming_their_item(case):
+    """Each option of ROADMAP.md item 8c that is still missing (the
+    reference's variance backends and bf16 variances, plant process noise)
+    and `parallel_scan` (item 13) raises UnsupportedPathError naming its
+    item; none falls back."""
+    call, item = _unported(case)
+    with pytest.raises(t_gpmpc.UnsupportedPathError, match=item):
+        call()

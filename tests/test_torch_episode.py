@@ -111,7 +111,8 @@ def test_batched_episode_matches_jax(population):
                              jax.random.split(jax.random.PRNGKey(0), B), n, backend="xla",
                              gp_batched=population)
     ep_t = t_batch.batched_episode(tc.model, tc.cfg, envp_t, tc.consts, _to_port(gp_j),
-                                   torch.Generator().manual_seed(0), n, B, gp_batched=population)
+                                   torch.Generator().manual_seed(0), n, B, gp_batched=population,
+                                   backend="lanes")
     assert ep_t.obs.shape == (B, n + 1, 12) and ep_t.actions.shape == (B, n, 4)
     assert ep_t.rewards.shape == (B, n)
     np.testing.assert_allclose(ep_t.actions.numpy(), np.asarray(ep_j.actions), atol=5e-4)
@@ -120,15 +121,25 @@ def test_batched_episode_matches_jax(population):
 
 
 def test_episode_refuses_the_unported_paths():
+    """The reference's refusals: the nominal MPC on lanes (a ValueError, as
+    in the reference), a `gp_batched` flag the GpModel contradicts. The
+    `xla` backend and `use_gp=False` run (tests/test_torch_step_xla.py holds
+    them against the reference): two steps on each, from the same draws,
+    give the same initial observations."""
     prior = reference_prior_dict()
     envp = t_drone.EnvParams.default()
     tc = t_gpmpc.GPMPC(t_sym(dt=0.02, params=prior), t_drone.make_trajectory(envp, "cpu").numpy(),
-                       prior, horizon=5, q_mpc=Q_MPC, r_mpc=R_MPC, device="cpu")
-    args = (tc.model, tc.cfg, envp, tc.consts, tc.gp_model, torch.Generator(), 2, 2)
-    with pytest.raises(t_gpmpc.UnsupportedPathError, match="xla"):
-        t_batch.batched_episode(*args, backend="xla")
-    with pytest.raises(t_gpmpc.UnsupportedPathError, match="use_gp=False"):
-        t_batch.batched_episode(*args, use_gp=False)
+                       prior, horizon=5, q_mpc=Q_MPC, r_mpc=R_MPC, sqp_iters=2, qp_iters=4,
+                       device="cpu")
+    args = (tc.model, tc.cfg, envp, tc.consts, tc.gp_model)
+    eps = [t_batch.batched_episode(*args, torch.Generator().manual_seed(0), 2, 2, **kw)
+           for kw in ({}, {"use_gp": False})]
+    for ep in eps:
+        assert ep.actions.shape == (2, 2, 4) and bool(torch.isfinite(ep.obs).all())
+    assert torch.equal(eps[0].obs[:, 0], eps[1].obs[:, 0])
+    args = args + (torch.Generator(), 2, 2)
+    with pytest.raises(ValueError, match="requires use_gp=True"):
+        t_batch.batched_episode(*args, use_gp=False, backend="lanes")
     with pytest.raises(ValueError, match="gp_batched=True"):
         t_batch.batched_episode(*args, gp_batched=True)
     assert t_batch.cfg_horizon(tc.consts) == 5

@@ -147,11 +147,14 @@ def test_sparse_train_with_jax_draw_matches_jax(monkeypatch):
 
 @pytest.mark.parametrize("backend", ["auto", "xla"])
 def test_auto_and_xla_raise_on_the_cpu(backend):
-    """'auto' resolves to 'xla' off the card, and 'xla' is not ported: the
-    first step raises UnsupportedPathError (construction does not)."""
+    """'auto' resolves to 'xla' off the card, as in the reference, and
+    'xla' runs: a step gives a finite action and advances the controller
+    (tests/test_torch_step_xla.py holds the closed loop against the
+    reference)."""
     _, _, tc = _cartpole(sparse=False, step_backend=backend, with_jax=False)
-    with pytest.raises(tg.UnsupportedPathError, match="xla"):
-        tc.select_action(np.zeros(4, np.float32))
+    assert tc._resolve_step_backend() == "xla"
+    u = tc.select_action(np.zeros(4, np.float32))
+    assert u.shape == (1,) and np.isfinite(u).all() and tc.traj_step == 1
 
 
 def test_lanes_past_the_horizon_cap_raises():

@@ -31,6 +31,7 @@ from gpmpc_tpu_torch.control import mpc as t_mpc
 from gpmpc_tpu_torch.models import cartpole as t_cart
 from gpmpc_tpu_torch.models import twolink as t_twolink
 from gpmpc_tpu_torch.models.symbolic import symbolic_attitude as t_sym
+from gpmpc_tpu_torch.parallel import batch as t_batch
 from gpmpc_tpu_torch.parallel.batch import batched_gpmpc_step
 
 F32 = np.float32
@@ -97,7 +98,7 @@ def run_closed_loop(T, B, n_steps, family="quadrotor"):
         obs32 = np.asarray(obs, F32)
         uj, st_j, _ = step_j(st_j, jnp.asarray(obs32))
         ut, st_t, info = batched_gpmpc_step(model_t, cfg_t, tc.consts, gp_t, st_t,
-                                            torch.tensor(obs32))
+                                            torch.tensor(obs32), backend="lanes")
         assert bool(torch.isfinite(ut).all())
         u_j.append(np.asarray(uj, F32))
         u_t.append(ut.numpy())
@@ -131,8 +132,9 @@ def test_fused_step_matches_jax_at_slice_horizon_after_transient(family):
 
 
 def test_other_dispatch_paths_raise_instead_of_falling_back():
-    """Only the `xla` decision raises, requested or decided by a horizon past
-    the last QP kernel's cap; every `lanes` decision runs
+    """Every decision runs: `xla` requested (the default) or decided by a
+    horizon past the last QP kernel's cap (one SQP and one IP iteration at
+    B = 2, warning once), and every `lanes` decision
     (tests/test_torch_dispatch.py, tests/test_torch_step_lanes.py)."""
     prior = reference_prior_dict()
     model_t = t_sym(dt=0.02, params=prior)
@@ -142,20 +144,23 @@ def test_other_dispatch_paths_raise_instead_of_falling_back():
     gp_t = convert.load_bench_gp("cpu")
     st = t_mpc.init_state(2, 6, device="cpu")
     obs = torch.as_tensor(traj[:2])
-    with pytest.raises(t_gpmpc.UnsupportedPathError, match="not ported"):
-        batched_gpmpc_step(model_t, tc.cfg._replace(kernel_linearize=True), tc.consts, gp_t, st, obs,
-                           backend="xla")
+    cfg1 = tc.cfg._replace(kernel_linearize=True, sqp_iters=1, qp_iters=1)
+    u0, _, _ = batched_gpmpc_step(model_t, cfg1, tc.consts, gp_t, st, obs)
+    assert bool(torch.isfinite(u0).all())
     long = t_gpmpc.GPMPC(model_t, traj, prior, horizon=1025, q_mpc=Q_MPC, r_mpc=R_MPC, device="cpu")
-    with pytest.raises(t_gpmpc.UnsupportedPathError, match="exceeds the lanes cap"):
-        batched_gpmpc_step(model_t, tc.cfg._replace(kernel_linearize=True), long.consts, gp_t,
-                           t_mpc.init_state(2, 1025, device="cpu"), obs)
+    t_batch._DISPATCH_WARNED.clear()
+    with pytest.warns(UserWarning, match="exceeds the lanes cap"):
+        u1, _, info = batched_gpmpc_step(model_t, cfg1, long.consts, gp_t,
+                                         t_mpc.init_state(2, 1025, device="cpu"), obs,
+                                         backend="lanes")
+    assert bool(torch.isfinite(u1).all()) and info.n_iters.tolist() == [1, 1]
     # kernel_linearize off -> the 'lanes' path, which runs; so does a family
     # with no kernel linearizer closure (with its one-time warning)
-    u, _, _ = batched_gpmpc_step(model_t, tc.cfg, tc.consts, gp_t, st, obs, lanes=2)
+    u, _, _ = batched_gpmpc_step(model_t, tc.cfg, tc.consts, gp_t, st, obs, backend="lanes", lanes=2)
     assert bool(torch.isfinite(u).all())
     spec = dataclasses.replace(model_t.residual_spec, name="unicycle", supports_kernel_linearize=False)
     with pytest.warns(UserWarning, match="no in-kernel linearizer"):
         u2, _, _ = batched_gpmpc_step(dataclasses.replace(model_t, residual_spec=spec),
                                       tc.cfg._replace(kernel_linearize=True), tc.consts, gp_t, st, obs,
-                                      lanes=2)
+                                      backend="lanes", lanes=2)
     np.testing.assert_allclose(u2.numpy(), u.numpy(), atol=1e-5)

@@ -91,7 +91,7 @@ def run_closed_loop(T, B, n_steps, population=False, lanes=8, sqp_iters=6, **cfg
             obs32 = np.asarray(obs, F32)
             uj, st_j, _ = step_j(st_j, jnp.asarray(obs32))
             ut, st_t, info = batched_gpmpc_step(model_t, cfg_t, tc.consts, gp_t, st_t,
-                                                torch.tensor(obs32), lanes=lanes)
+                                                torch.tensor(obs32), backend="lanes", lanes=lanes)
             assert bool(torch.isfinite(ut).all())
             u_j.append(np.asarray(uj, F32))
             u_t.append(ut.numpy())

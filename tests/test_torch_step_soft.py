@@ -73,7 +73,8 @@ def _both_steps(T, B, soft, **ctrl_kw):
     assert dispatch_decision(cfg_t, model_t.residual_spec, T).path == "lanes-fused"
     u_j, _, info_j = j_gpmpc.batched_select_action_lanes(
         jc.model, cfg_j, jc.consts, gp_j, st_j, jnp.asarray(obs), interpret=True)
-    u_t, _, info_t = batched_gpmpc_step(model_t, cfg_t, tc.consts, gp_t, st_t, torch.tensor(obs))
+    u_t, _, info_t = batched_gpmpc_step(model_t, cfg_t, tc.consts, gp_t, st_t, torch.tensor(obs),
+                                        backend="lanes")
     info_j = convert.info_from_numpy({k: np.asarray(v) for k, v in info_j._asdict().items()}, "cpu")
     return np.asarray(u_j, F32), u_t.numpy(), info_j, info_t
 

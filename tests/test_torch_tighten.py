@@ -97,7 +97,7 @@ def test_tightening_matches_jax_tightening_from_variances(family):
     ))(jnp.asarray(zq), jnp.moveaxis(jnp.asarray(covs), 1, 0))
 
     gp_t = _gp_t(jc.gp_model)
-    cov_dn = t_gpmpc._gp_disturbance_batch(
+    cov_dn = t_gpmpc.disturbance_diagonals(
         consts_t, gp_t, torch.as_tensor(zq), torch.as_tensor(covs), spec_t
     )
     c = consts_t

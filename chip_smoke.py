@@ -35,7 +35,17 @@ actions must equal the step's) and `quadrotor-soft-T800` (one step at T=800,
 B=256 with soft bounds: past the lanes soft cap of 768, so requested on
 lanes it dispatches to xla, degraded, with one warning; the only path for
 such horizons). Their phase 2 prints ms/step as the median of synchronized
-steps. Phases, each printing its own lines:
+steps. After the learned paths, the step's variance and tightening options
+on the `quadrotor` path's recorded observations (`STEP_OPTIONS`: each
+launches exactly its kernels; the bf16 variances on the card against the
+CPU's, beside their distance from the float32 ones) and `quadrotor-server`:
+`runtime/server.py::ControlServer(tile=128, backend="lanes")` on that
+path's controller, 64 client threads replaying 20 recorded steps each
+(`utils/benchkit.py::replay_sessions`), kernels 1-4 each launched and held
+against their plain versions at B=128 and every other wrapper at 0, a
+dispatch against `batched_gpmpc_step` on the same tile buffers, a GP hot
+swap, a snapshot restored into a fresh server, then 4-action replies
+(`SERVER`). Phases, each printing its own lines:
 
   0. the card's name and power limit (nvidia-smi), then the kernel build:
      one nvcc per source in parallel, each source's time and ptxas's
@@ -146,6 +156,8 @@ from gpmpc_tpu_torch.ops import (  # noqa: E402
 from gpmpc_tpu_torch.parallel import batch as batch_mod  # noqa: E402
 from gpmpc_tpu_torch.parallel.batch import batched_gpmpc_step, dispatch_decision  # noqa: E402
 from gpmpc_tpu_torch.parallel.sweep import seed_sweep  # noqa: E402
+from gpmpc_tpu_torch.runtime.server import DIAG_FIELDS, ControlServer  # noqa: E402
+from gpmpc_tpu_torch.utils.benchkit import replay_sessions  # noqa: E402
 
 LANES = 128
 RMSE_BAR = 1e-3
@@ -396,13 +408,17 @@ def qp_source(wrapper_name: str, soft: bool) -> str:
     return f"gpmpc_tpu_torch/csrc/{wrapper_name}{'_soft' if soft else ''}.cu"
 
 
+# the paths whose QP entry is named after its wrapper alone (the first to reach it)
+QP_NAMED_BY_WRAPPER = ("soft", "T100", "soft-T360")
+
+
 def entry_name(path_name: str, kernel: str) -> str:
     """Name of the JSON entry of `kernel` ('gp_posterior', 'tighten',
     'linearize' or 'qp') on a path."""
     p = PATHS[path_name]
     if p.tag is None:
         return OLD_NAMES[(path_name, kernel)]
-    if kernel == "qp" and p.dispatch == "lanes-fused" and not p.learned:
+    if kernel == "qp" and p.tag in QP_NAMED_BY_WRAPPER:
         return f"{p.qp}{'_soft' if p.soft else ''}"
     return f"{p.qp if kernel == 'qp' else kernel}[{p.tag}]"
 
@@ -1566,6 +1582,203 @@ def quadrotor_sweep(dev, results: dict) -> None:
     check_captured(path, "quadrotor-sweep", cap, launches, results)
 
 
+# The serving path (scripts/serve_bench_torch.py's defaults): one tile of 128 sessions on the
+# lanes-fused step at the quadrotor path's configuration, 64 clients replaying 20 recorded
+# steps each, then once more with 4-action replies.
+SERVER = dict(tile=128, clients=64, steps=20, max_wait_ms=2.0, n_act=4)
+SERVER_BAR = 1e-6  # a dispatch against batched_gpmpc_step on the same tile buffers
+# The variance and tightening options of the step on the quadrotor path's recorded
+# observations: (var_backend, var_bf16, tighten_backend) -> the kernels it launches.
+STEP_OPTIONS = {
+    ("auto", False, "auto"): ("gp_posterior", "tighten", "linearize", "ocp_ip"),
+    ("xla", False, "auto"): ("tighten", "linearize", "ocp_ip"),
+    ("xla", True, "auto"): ("tighten", "linearize", "ocp_ip"),
+    ("auto", True, "auto"): ("gp_posterior", "tighten", "linearize", "ocp_ip"),
+    ("auto", False, "xla"): ("gp_posterior", "linearize", "ocp_ip"),
+}
+
+
+def serve_report(name: str, run: dict) -> None:
+    lat = run["latencies_ms"]
+    say(f"[server] {name}: {run['actions']} actions in {run['wall_s']:.3f} s: "
+        f"{run['actions'] / run['wall_s']:.1f} served actions/s; {run['n_requests']} requests in "
+        f"{run['n_batches']} dispatches (mean batch {run['n_requests'] / run['n_batches']:.2f}, "
+        f"{1e3 * run['wall_s'] / run['n_batches']:.1f} ms a dispatch); request latency p50 "
+        f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} ms")
+
+
+def quadrotor_server(prob: Problem, results: dict) -> None:
+    """`quadrotor-server`: `ControlServer(tile=128, backend="lanes")` on the
+    quadrotor path's controller and committed GP, driven by `SERVER`'s
+    clients (`replay_sessions`) on observations recorded from one
+    `batched_episode`. Launch counts over the clients' run: kernels 1-4
+    each, every other wrapper 0; each kernel against its plain version on
+    the first dispatch's inputs (B = 128). Then: one dispatch against
+    `batched_gpmpc_step` on the same tile buffers (SERVER_BAR); `update_gp`
+    with a same-shape GP changes the actions; a snapshot restored into a
+    fresh server gives the running server's next actions; every
+    `DIAG_FIELDS` value finite; the run once more with 4-action replies."""
+    cfg = SERVER
+    path = SmokePath("quadrotor", prob.path.T, cfg["tile"], None, "ocp_ip", 0, cfg["steps"], 0, 0,
+                     "server")
+    PATHS["quadrotor-server"] = path
+    dev = prob.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ep = batch_mod.batched_episode(prob.model, prob.cfg, prob.env_p, prob.consts, prob.gp, gen,
+                                   cfg["steps"], cfg["clients"], backend="lanes")
+    streams = ep.obs.cpu().numpy()
+    make = lambda gp, **kw: ControlServer(  # noqa: E731
+        prob.model, prob.cfg, prob.consts, gp, tile=cfg["tile"], backend="lanes",
+        max_wait_ms=cfg["max_wait_ms"], **kw)
+    wrappers = reset_launches()
+    server = make(prob.gp)
+    try:
+        with Capture(path) as cap:
+            run = replay_sessions(server, streams, cfg["steps"], cfg["clients"])
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        serve_report(f"quadrotor-server ({cfg['clients']} clients x {cfg['steps']} steps, "
+                     f"tile {cfg['tile']}, pipeline_depth 2)", run)
+        say(f"[server] quadrotor-server: kernel launches over the run {launches}")
+        if any(n <= 0 for k, n in launches.items() if k in ("gp_posterior", "tighten", "linearize",
+                                                             "ocp_ip")) or any(
+                n for k, n in launches.items() if k in ("ocp_ip_streamed", "ocp_ip_streamed2")):
+            raise RuntimeError(f"quadrotor-server: expected exactly kernels 1-4 to launch: {launches}")
+        check_captured(path, "quadrotor-server", cap, launches, results)
+
+        # one dispatch against batched_gpmpc_step on the same tile buffers
+        obs0 = streams[0, 3]
+        sid = server.open_session()
+        states, _ = server.tile_buffers()
+        u, diag = server.step_with_diag(sid, obs0)
+        _, obs_buf = server.tile_buffers()
+        u_ref, _, _ = batched_gpmpc_step(prob.model, prob.cfg, prob.consts, prob.gp, states, obs_buf,
+                                         backend="lanes", lanes=server.lanes)
+        err = float(np.abs(u - u_ref[sid].cpu().numpy()).max())
+        say(f"[server] one dispatch against batched_gpmpc_step on the same tile buffers: max|u - "
+            f"u_ref| = {err:.3e} (bar {SERVER_BAR}); diagnostics {diag}")
+        if not err <= SERVER_BAR:
+            raise RuntimeError("quadrotor-server: a dispatch differs from batched_gpmpc_step")
+        if not all(np.isfinite(float(diag[f])) for f in DIAG_FIELDS):
+            raise RuntimeError(f"quadrotor-server: non-finite diagnostics {diag}")
+
+        # update_gp with a same-shape GP: the actions of a fresh session change
+        gp2 = prob.gp._replace(alpha_s=prob.gp.alpha_s * 1.5)
+        server.close_session(sid)
+        sid = server.open_session()
+        u_before = server.step(sid, obs0)
+        server.update_gp(gp2)
+        server.close_session(sid)
+        sid = server.open_session()
+        u_after = server.step(sid, obs0)
+        moved = float(np.abs(u_after - u_before).max())
+        say(f"[server] update_gp (alpha_s x 1.5): a fresh session's action moved by {moved:.3e}")
+        if not (moved > 1e-6 and np.isfinite(u_after).all()):
+            raise RuntimeError("quadrotor-server: update_gp did not change the actions")
+
+        # a snapshot restored into a fresh server gives the same next actions
+        s_b = server.open_session()
+        for k in range(3):
+            server.step(sid, streams[1, k])
+            server.step(s_b, streams[2, k])
+        snap = Path(__file__).resolve().parent / "build" / "chip_smoke" / "sessions"
+        server.save_sessions(snap)
+        u_next = [server.step(sid, streams[1, 3]), server.step(s_b, streams[2, 3])]
+        if "--profile" in sys.argv[1:]:
+            profile_request(server, sid, streams[1, 4], run)
+    finally:
+        server.close()
+    fresh = make(prob.gp)
+    try:
+        fresh.restore_sessions(snap)
+        u_rest = [fresh.step(sid, streams[1, 3]), fresh.step(s_b, streams[2, 3])]
+    finally:
+        fresh.close()
+    err = max(float(np.abs(a - b).max()) for a, b in zip(u_next, u_rest))
+    say(f"[server] save_sessions -> restore_sessions into a fresh server: max|next actions - the "
+        f"running server's| = {err:.3e} (bar {SERVER_BAR})")
+    if not err <= SERVER_BAR:
+        raise RuntimeError("quadrotor-server: the restored sessions act otherwise")
+
+    server = make(prob.gp, actions_per_step=cfg["n_act"])
+    try:
+        run = replay_sessions(server, streams, cfg["steps"], cfg["clients"])
+    finally:
+        server.close()
+    serve_report(f"quadrotor-server, actions_per_step={cfg['n_act']}", run)
+
+
+def profile_request(server, sid: int, obs, run: dict) -> None:
+    """Device time of one request's dispatch (the whole tile re-solved, as
+    at any occupancy; torch.profiler on the card alone), with the idle share
+    against the profiled request's latency (upper estimate) and against the
+    clients' run's wall time a dispatch (lower)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        server.step(sid, obs)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0]
+    busy_ms = sum(e.device_time_total for e in rows) / 1e3
+    mean_ms = 1e3 * run["wall_s"] / run["n_batches"]
+    top = sorted(rows, key=lambda e: -e.device_time_total)[:4]
+    say(f"[profile] quadrotor-server: card busy {busy_ms:.1f} ms a dispatch; the profiled request "
+        f"took {wall_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}, upper estimate), the "
+        f"clients' run {mean_ms:.1f} ms a dispatch (idle share {1 - busy_ms / mean_ms:.3f}, lower "
+        "estimate); top: " + ", ".join(
+            f"{e.key[:40]} {e.device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
+
+
+def step_options(prob: Problem, rec_obs) -> None:
+    """The step's variance and tightening options (`STEP_OPTIONS`) on the
+    quadrotor path's recorded observations, from a fresh state: each launches
+    exactly its kernels; the default's options again with `var_bf16` (which
+    the kernel branch ignores) give its actions bit for bit; each one's
+    distance from the default's actions and its ms a step (CUDA events, the
+    median of the recorded steps). Then the bf16 variances along the last
+    step's solution on the card against the plain bf16 variances on the CPU,
+    at the GP bar, beside their distance from the float32 variances."""
+    n = rec_obs[0].shape[0]
+    runs = {}
+    for (var_backend, bf16, tighten), kernels in STEP_OPTIONS.items():
+        wrappers = reset_launches()
+        st = mpc_mod.init_state(n, prob.path.T, prob.model.nx, prob.model.nu, device=prob.device)
+        us, ms = [], []
+        for o in rec_obs:
+            t, (u, st, _) = cuda_timed(lambda: batched_gpmpc_step(  # noqa: B023
+                prob.model, prob.cfg, prob.consts, prob.gp, st, o, backend="lanes", lanes=LANES,
+                var_backend=var_backend, var_bf16=bf16, tighten_backend=tighten))
+            us.append(u)
+            ms.append(1e3 * t)
+        launched = tuple(k for k, fn in wrappers.items() if fn.launches)
+        runs[(var_backend, bf16, tighten)] = (torch.stack(us), st)
+        diff = float((torch.stack(us) - runs[("auto", False, "auto")][0]).abs().max())
+        say(f"[options] var_backend={var_backend!r}, var_bf16={bf16}, tighten_backend={tighten!r}: "
+            f"{statistics.median(ms):.2f} ms a step (median of {len(ms)}, B={n}); launched "
+            f"{launched}; max|u - the default options' u| = {diff:.3e}")
+        if launched != kernels:
+            raise RuntimeError(f"step options {var_backend, bf16, tighten}: launched {launched}, "
+                               f"expected {kernels}")
+        if (var_backend, tighten) == ("auto", "auto") and diff != 0.0:
+            raise RuntimeError("var_bf16 changed the kernel branch's actions")
+    st = runs[("xla", True, "auto")][1]
+    spec = prob.model.residual_spec
+    z = gpmpc_mod.slice_gp_inputs(spec.gp_input(st.X_warm[:, :-1], st.U_warm), spec)
+    cpu = lambda t: t.cpu()  # noqa: E731
+    gp_cpu = type(prob.gp)(*[type(v)(*map(cpu, v)) if isinstance(v, tuple) else cpu(v)
+                             for v in prob.gp])
+    card = gpmpc_mod.batched_variances(prob.gp, z, backend="xla", bf16=True)
+    plain = gpmpc_mod.batched_variances(gp_cpu, z.cpu(), backend="xla", bf16=True)
+    f32 = gpmpc_mod.batched_variances(prob.gp, z, backend="xla")
+    err = float((card.cpu() - plain).abs().max())
+    say(f"[options] bf16 variances (G, B, T) = {tuple(card.shape)}: max|card - CPU plain| = "
+        f"{err:.3e} (bar {TOL['gp']}); max|bf16 - float32| = {float((card - f32).abs().max()):.3e}, "
+        f"{float((card - f32).abs().max() / f32.abs().max()):.3e} of the largest variance")
+    if not err <= TOL["gp"]:
+        raise RuntimeError("the bf16 variances on the card disagree with the CPU's")
+
+
 def chain_inputs(dev):
     """Each chain kernel's input at the reference's sizes and on its data,
     in lanes layout and as (B, T, n, n) for the library call."""
@@ -1770,6 +1983,9 @@ def main() -> int:
     say(f"[time] twolink-exact-learned done at {time.perf_counter() - t_run:.0f} s")
     quadrotor_sweep(dev, results)
     say(f"[time] quadrotor-sweep done at {time.perf_counter() - t_run:.0f} s")
+    step_options(problems["quadrotor"], recorded["quadrotor"][0])
+    quadrotor_server(problems["quadrotor"], results)
+    say(f"[time] quadrotor-server done at {time.perf_counter() - t_run:.0f} s")
     chain_share(problems["quadrotor"], gflops)
     stress = lambda gp: gp._replace(hypers=gp.hypers._replace(  # noqa: E731
         raw_outputscale=torch.full_like(gp.hypers.raw_outputscale, STRESS_OUTPUTSCALE)))

@@ -10,8 +10,11 @@ Ported so far: the closed-loop GP-MPC step for the three model families
 `parallel/batch.py::batched_gpmpc_step` (`lanes-fused`, `lanes`, and `xla`,
 the reference's default: `control/gpmpc.py::select_action` on the nominal
 solver stack `ops/riccati.py`, `ops/boxqp.py`, `ops/sqp.py::sqp_solve`),
-hard or L1-soft state bounds, the nominal `MPC`, GP training, the stateful
-`GPMPC`, `OnlineLearner`, episodes and the seed sweep. The kernels are
+hard or L1-soft state bounds, the step's variance and tightening options,
+the nominal `MPC`, GP training, the stateful `GPMPC`, `OnlineLearner`,
+episodes and the seed sweep, the plants (process noise, the stateful env
+classes), checkpoints, the serving runtime (`runtime/server.py::
+ControlServer`) and the C++ oracle's loader (`runtime/native.py`). The kernels are
 hand-written CUDA C++ in `csrc/` (GP posterior, tightening, linearization
 and the interior-point QP in its resident and two streamed tiers, and the
 lane chains of the roofline probe), built with `nvcc` at the first launch

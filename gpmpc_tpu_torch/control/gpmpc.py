@@ -7,10 +7,12 @@ Port of `gpmpc_tpu/control/gpmpc.py`: `GpModel`, `GpMpcConsts`,
 `pack_training_buffers`, `preprocess_data_jnp`, named as in the reference so
 a reader finds the counterpart), `train_gp_models` (sparse FITC or exact, ARD
 or isotropic, batched over any leading axes), `gp_residual`, `augmented_fd`,
-`gp_variances`, both branches of `batched_variances` (the kernel for a shared
-GP, per-scenario quadratic forms for a population), `disturbance_diagonals`,
-`_bounds_from_tightening`; the `lanes` step (`batched_prepare_step`: the GP
-kernel and the tightening kernel; the three branches of
+`gp_variances` (float32 or the reference's bf16 mode), `batched_variances`
+with the reference's backends (the kernel or the plain quadratic form for a
+shared GP, per-scenario quadratic forms for a population),
+`disturbance_diagonals`, `_bounds_from_tightening`; the `lanes` step
+(`batched_prepare_step`: the GP kernel or the plain variances, the
+tightening kernel or the plain recursion; the three branches of
 `batched_select_action_lanes`: fused kernel linearization, jacfwd or
 analytic Jacobians, a per-scenario GP population); the `xla` step, the
 reference's vmapped `select_action` (`propagate_constraint_limits` through
@@ -273,20 +275,25 @@ def augmented_fd(model, gp: GpModel, x: torch.Tensor, u: torch.Tensor) -> torch.
 
 def gp_variances(gp: GpModel, z_slices: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """Predictive variance (G, ...) at per-GP query slices (G, ..., D) through
-    the var_mat quadratic form, in float32. The reference's `bf16` mode (the
-    quadratic form's product in bfloat16) is not ported."""
-    if bf16:
-        raise UnsupportedPathError(
-            "gp_variances(bf16=True) is not ported (ROADMAP.md Queue 1 item 8c)")
+    the var_mat quadratic form, in float32. With `bf16`, the reference's fast
+    mode: k and W are rounded to bfloat16 and multiplied with float32
+    products and sums (the reference's `preferred_element_type=float32`).
+    Each product of two bfloat16 values is exact in float32, so the operands
+    are rounded, cast back and multiplied in float32 with TF32 off; a bfloat16
+    matmul would round its output (and on the card may reduce) in bfloat16.
+    The quadratic form's second factor is k in float32, as in the reference."""
     G, D = z_slices.shape[0], z_slices.shape[-1]
     batch_shape = z_slices.shape[1:-1]
     z_flat = z_slices.reshape(G, -1, D)
     ell = softplus(gp.hypers.raw_lengthscale)
     sf2 = softplus(gp.hypers.raw_outputscale)
+    bf16_round = lambda t: t.to(torch.bfloat16).to(F32)  # noqa: E731
     covs = []
-    for i in range(G):
-        k = se_kernel(z_flat[i], gp.var_Z[i], ell[i], sf2[i]) * gp.var_mask[i][None, :]  # (N, Mv)
-        covs.append(torch.clamp_min(sf2[i] - torch.sum((k @ gp.var_mat[i]) * k, dim=-1), 1e-12))
+    with strict_float32():
+        for i in range(G):
+            k = se_kernel(z_flat[i], gp.var_Z[i], ell[i], sf2[i]) * gp.var_mask[i][None, :]  # (N, Mv)
+            t = bf16_round(k) @ bf16_round(gp.var_mat[i]) if bf16 else k @ gp.var_mat[i]
+            covs.append(torch.clamp_min(sf2[i] - torch.sum(t * k, dim=-1), 1e-12))
     return torch.stack(covs, dim=0).reshape((G,) + tuple(batch_shape))
 
 
@@ -319,20 +326,38 @@ def variance_form(gp: GpModel) -> GpForm:
     return form
 
 
-def _population_variances(gp: GpModel, z_slices: torch.Tensor) -> torch.Tensor:
+def _population_variances(gp: GpModel, z_slices: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """(G, B, T) variances of a GP population (every leaf leading with B) at
     z_slices (G, B, T, D): each scenario's own quadratic form."""
-    return torch.func.vmap(gp_variances)(gp, z_slices.movedim(1, 0)).movedim(0, 1)
+    return torch.func.vmap(partial(gp_variances, bf16=bf16))(
+        gp, z_slices.movedim(1, 0)).movedim(0, 1)
 
 
-def batched_variances(gp: GpModel, z_slices: torch.Tensor) -> torch.Tensor:
-    """Tightening variances (G, B, T) for z_slices (G, B, T, D). Shared GP:
-    one `gp_mean_var_multi` launch for all G GPs over all B*T queries, on the
-    GpModel's packed variance form (`variance_form`). GP population: each
-    scenario's own quadratic form in plain torch, as in the reference (there
-    is no shared Gram to stage once)."""
+VAR_BACKENDS = ("auto", "pallas", "xla")
+
+
+def batched_variances(
+    gp: GpModel, z_slices: torch.Tensor, backend: str = "auto", bf16: bool = False
+) -> torch.Tensor:
+    """Tightening variances (G, B, T) for z_slices (G, B, T, D), with the
+    reference's backends. "pallas": one `gp_mean_var_multi` launch for all
+    G GPs over all B*T queries, on the GpModel's packed variance form
+    (`variance_form`; CPU tensors take the wrapper's plain version); "xla":
+    the plain quadratic form `gp_variances`; "auto": "pallas" on the card
+    (at any number of points: the tiled instantiation serves every M) and
+    "xla" on the CPU. `bf16` acts on the plain form and on a GP population
+    only, as in the reference, whose Pallas branch ignores it; there is no
+    bf16 kernel. A GP population takes each scenario's own quadratic form
+    in plain torch whatever the backend (there is no shared Gram to stage
+    once)."""
+    if backend not in VAR_BACKENDS:
+        raise ValueError(f"var_backend must be one of {VAR_BACKENDS}, got {backend!r}")
     if gp_is_batched(gp):
-        return _population_variances(gp, z_slices)
+        return _population_variances(gp, z_slices, bf16)
+    if backend == "auto":
+        backend = "pallas" if z_slices.device.type == "cuda" else "xla"
+    if backend == "xla":
+        return gp_variances(gp, z_slices, bf16=bf16)
     G, B, T, D = z_slices.shape
     _, var = gp_mean_var_multi(z_slices.reshape(G, B * T, D).contiguous(), variance_form(gp))
     return var.reshape(G, B, T)
@@ -452,21 +477,36 @@ def _bounds_from_tightening(
     return xref, bounds, X_init, U_init, clamp_frac
 
 
+TIGHTEN_BACKENDS = ("auto", "pallas", "xla")
+
+
 def batched_prepare_step(
     model, consts: GpMpcConsts, gp: GpModel, states: MpcState, obs: torch.Tensor,
-    soft: bool = False,
+    var_backend: str = "auto", var_bf16: bool = False, soft: bool = False,
+    tighten_backend: str = "auto",
 ):
-    """GP variances along the previous solutions (kernel 1), disturbance
-    diagonals, the covariance recursion (kernel 2), then the tightened boxes
-    and warm starts for all B scenarios."""
+    """GP variances along the previous solutions (`batched_variances` with
+    `var_backend` and `var_bf16`), disturbance diagonals, the covariance
+    recursion, then the tightened boxes and warm starts for all B scenarios.
+    `tighten_backend`: "pallas" and "auto" take the tightening kernel's
+    wrapper (`ops/cuda_tighten.py::tighten_lanes`, its plain version on CPU
+    tensors); "xla" the per-scenario recursion of the `xla` step
+    (`tightening_from_variances`), each scenario's own noise for a GP
+    population."""
+    if tighten_backend not in TIGHTEN_BACKENDS:
+        raise ValueError(f"tighten_backend must be one of {TIGHTEN_BACKENDS}, got "
+                         f"{tighten_backend!r}")
     spec = model_spec(model)
     zq = spec.gp_input(states.X_warm[:, :-1], states.U_warm)  # (B, T, z)
-    covs = batched_variances(gp, slice_gp_inputs(zq, spec))
-    cov_dn = disturbance_diagonals(consts, gp, zq, covs, spec)
-    t_x, t_u = tighten_lanes(
-        cov_dn.contiguous(), consts.Ad, consts.Bd_in, consts.lqr_gain, consts.Bd,
-        consts.inverse_cdf,
-    )
+    covs = batched_variances(gp, slice_gp_inputs(zq, spec), var_backend, var_bf16)
+    if tighten_backend == "xla":
+        t_x, t_u = tightening_from_variances(consts, gp, zq, covs, spec)
+    else:
+        cov_dn = disturbance_diagonals(consts, gp, zq, covs, spec)
+        t_x, t_u = tighten_lanes(
+            cov_dn.contiguous(), consts.Ad, consts.Bd_in, consts.lqr_gain, consts.Bd,
+            consts.inverse_cdf,
+        )
     return _bounds_from_tightening(consts, gp, states, obs, t_x, t_u, soft=soft)
 
 
@@ -539,6 +579,9 @@ def batched_select_action_lanes(
     states: MpcState,
     obs: torch.Tensor,  # (B, nx)
     lanes: int = LANES,
+    var_backend: str = "auto",
+    var_bf16: bool = False,
+    tighten_backend: str = "auto",
 ) -> tuple[torch.Tensor, MpcState, MpcInfo]:
     """One GP-MPC step for B scenarios with the lanes QP kernels: (u (B, nu),
     next states, info). The fused path (kernel linearization, X and U kept in
@@ -547,12 +590,17 @@ def batched_select_action_lanes(
     (forward-mode `torch.func`, or the quadrotor's analytic Jacobians under
     `cfg.analytic_jac`) and only the QP rides the kernels. `gp` may be a
     population (a leading scenario axis on every leaf): each scenario is then
-    linearized against its own GP."""
+    linearized against its own GP. `var_backend`, `var_bf16` and
+    `tighten_backend` go to `batched_prepare_step`; the reference takes
+    `tighten_backend` there only, and "auto" is its choice on its
+    accelerator, the kernel."""
     with strict_float32():
-        return _select_action_lanes(model, cfg, consts, gp, states, obs, lanes)
+        return _select_action_lanes(model, cfg, consts, gp, states, obs, lanes, var_backend,
+                                    var_bf16, tighten_backend)
 
 
-def _select_action_lanes(model, cfg, consts, gp, states, obs, lanes):
+def _select_action_lanes(model, cfg, consts, gp, states, obs, lanes, var_backend, var_bf16,
+                         tighten_backend):
     spec = model_spec(model)
     gp_batched = gp_is_batched(gp)
     T = consts.mpc.uref.shape[0]
@@ -567,7 +615,8 @@ def _select_action_lanes(model, cfg, consts, gp, states, obs, lanes):
         )
         cfg = cfg._replace(soft_x_penalty=None)
     xref, bounds, X_init, U_init, clamp_frac = batched_prepare_step(
-        model, consts, gp, states, obs, soft=cfg.soft_x_penalty is not None
+        model, consts, gp, states, obs, var_backend, var_bf16,
+        soft=cfg.soft_x_penalty is not None, tighten_backend=tighten_backend,
     )
     if cfg.warm_shift:
         X_init = torch.cat([X_init[:, 1:], X_init[:, -1:]], dim=1)

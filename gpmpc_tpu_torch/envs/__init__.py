@@ -1,4 +1,9 @@
-# DroneFigureEightEnv, the stateful plant, is not ported yet (ROADMAP.md Queue 1 item 8c).
-from gpmpc_tpu_torch.envs.drone import EnvParams, EnvState, env_reset, env_step
+from gpmpc_tpu_torch.envs.drone import (
+    DroneFigureEightEnv,
+    EnvParams,
+    EnvState,
+    env_reset,
+    env_step,
+)
 
-__all__ = ["EnvParams", "EnvState", "env_reset", "env_step"]
+__all__ = ["DroneFigureEightEnv", "EnvParams", "EnvState", "env_reset", "env_step"]

@@ -2,8 +2,9 @@
 `gpmpc_tpu/envs/drone.py:35-217`: true-parameter dynamics with rotor and
 attitude lag, aero drag and actuation delay, with the rigid coefficients
 fixed (`env_step`) or per scenario (`env_step_dynamic`, `params_to_array`,
-`randomize_params`). Process noise (`noise_std > 0`) is not ported yet (ROADMAP.md
-Queue 1 item 8c); the default plant has none."""
+`randomize_params`), process noise (`noise_std > 0`, from an explicit
+generator; the default plant has none) and the stateful single-scenario
+`DroneFigureEightEnv`."""
 
 from __future__ import annotations
 
@@ -12,13 +13,16 @@ from typing import NamedTuple
 
 import torch
 
-from gpmpc_tpu_torch.device import UnsupportedPathError, resolve
+from gpmpc_tpu_torch.device import resolve
+from gpmpc_tpu_torch.envs._stateful import StatefulEnv, add_process_noise
 from gpmpc_tpu_torch.models import quadrotor
 from gpmpc_tpu_torch.models.quadrotor import QuadrotorParams
 from gpmpc_tpu_torch.models.trajectory import figure_eight_trajectory
 
 F32 = torch.float32
 _VEL_ROWS = [quadrotor.IDX_DX, quadrotor.IDX_DY, quadrotor.IDX_DZ]
+# the rows the process noise enters: the three velocities and the two attitude rates
+_NOISE_ROWS = _VEL_ROWS + [quadrotor.IDX_DPHI, quadrotor.IDX_DTHETA]
 
 
 class EnvParams(NamedTuple):
@@ -102,27 +106,24 @@ def randomize_params(
 
 
 def env_step(
-    p: EnvParams, state: EnvState, action: torch.Tensor
+    p: EnvParams, state: EnvState, action: torch.Tensor, generator: torch.Generator | None = None
 ) -> tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One control step for all B scenarios: (state, obs, reward, terminated,
-    truncated), each leading with B."""
-    return _step(p, p.params, state, action)
+    truncated), each leading with B. With `p.noise_std > 0` the process
+    noise is drawn from `generator`, which is then required."""
+    return _step(p, p.params, state, action, generator)
 
 
 def env_step_dynamic(
-    p: EnvParams, params_arr: torch.Tensor, state: EnvState, action: torch.Tensor
+    p: EnvParams, params_arr: torch.Tensor, state: EnvState, action: torch.Tensor,
+    generator: torch.Generator | None = None,
 ) -> tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """`env_step` with the rigid coefficients per scenario, params_arr
     (B, 8) (or (8,) for all): `p.params` is ignored in their favour."""
-    return _step(p, QuadrotorParams(*params_arr.unbind(-1)), state, action)
+    return _step(p, QuadrotorParams(*params_arr.unbind(-1)), state, action, generator)
 
 
-def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor):
-    if p.noise_std > 0.0:
-        raise UnsupportedPathError(
-            "process noise is not ported yet (ROADMAP.md Queue 1 item 8c); use noise_std=0"
-        )
-
+def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor, generator):
     def fc(x_, u_):
         f = quadrotor.continuous_dynamics(x_, u_, params=dyn)
         if p.drag_lin > 0.0 or p.drag_quad > 0.0:
@@ -150,6 +151,7 @@ def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor):
     for _ in range(p.sim_substeps):
         u_act = u_act + alpha * (u_cmd - u_act)
         x = quadrotor.rk4(fc, x, u_act, sub_dt)
+    x = add_process_noise(p, x, _NOISE_ROWS, generator)
     t = state.t + 1
 
     traj = make_trajectory(p, x.device)
@@ -161,3 +163,14 @@ def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor):
     terminated = torch.logical_or((x < 2 * s_low).any(-1), (x > 2 * s_high).any(-1))
     truncated = t >= p.n_steps
     return EnvState(x=x, t=t, u_act=u_act, u_queue=u_queue), x, reward, terminated, truncated
+
+
+class DroneFigureEightEnv(StatefulEnv):
+    """The quadrotor plant for one scenario, with the reference's calls
+    (`gpmpc_tpu/envs/drone.py:220`): `reset(seed)`, `step(action)`,
+    `trajectory`, `dt`, `close()`; `device=None` is the card."""
+
+    _params_cls = EnvParams
+    _reset_fn = staticmethod(env_reset)
+    _step_fn = staticmethod(env_step)
+    _trajectory_fn = staticmethod(make_trajectory)

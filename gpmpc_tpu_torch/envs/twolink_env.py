@@ -4,7 +4,8 @@ links) with a point-mass payload at the link-2 tip, viscous joint friction
 and a torque gain error plus bias, tracking joint-space sinusoids around the
 hanging posture, with the rigid coefficients fixed (`env_step`) or per
 scenario (`env_step_dynamic`, `params_to_array`, `randomize_params`).
-Process noise (`noise_std > 0`) is not ported yet (ROADMAP.md Queue 1 item 8c)."""
+Process noise (`noise_std > 0`) comes from an explicit generator;
+`TwoLinkTrackEnv` is the stateful single-scenario plant."""
 
 from __future__ import annotations
 
@@ -13,11 +14,13 @@ from typing import NamedTuple
 
 import torch
 
-from gpmpc_tpu_torch.device import UnsupportedPathError, resolve
+from gpmpc_tpu_torch.device import resolve
+from gpmpc_tpu_torch.envs._stateful import StatefulEnv, add_process_noise
 from gpmpc_tpu_torch.models import twolink
 from gpmpc_tpu_torch.models.twolink import GRAVITY, TwoLinkParams
 
 F32 = torch.float32
+_NOISE_ROWS = [2, 3]
 
 TRUE_PARAMS = TwoLinkParams(m1=1.05, m2=1.1, l1=1.0, l2=1.05)
 
@@ -131,30 +134,29 @@ def _true_dynamics(p: EnvParams, dyn, x: torch.Tensor, u_cmd: torch.Tensor) -> t
 
 
 def env_step(
-    p: EnvParams, state: EnvState, action: torch.Tensor
+    p: EnvParams, state: EnvState, action: torch.Tensor, generator: torch.Generator | None = None
 ) -> tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One control step for all B scenarios: (state, obs, reward, terminated,
-    truncated), each leading with B."""
-    return _step(p, p.params, state, action)
+    truncated), each leading with B. With `p.noise_std > 0` the process
+    noise is drawn from `generator`, which is then required."""
+    return _step(p, p.params, state, action, generator)
 
 
 def env_step_dynamic(
-    p: EnvParams, params_arr: torch.Tensor, state: EnvState, action: torch.Tensor
+    p: EnvParams, params_arr: torch.Tensor, state: EnvState, action: torch.Tensor,
+    generator: torch.Generator | None = None,
 ) -> tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """`env_step` with the rigid coefficients per scenario, params_arr
     (B, 4) (or (4,) for all): `p.params` is ignored in their favour."""
-    return _step(p, TwoLinkParams(*params_arr.unbind(-1)), state, action)
+    return _step(p, TwoLinkParams(*params_arr.unbind(-1)), state, action, generator)
 
 
-def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor):
-    if p.noise_std > 0.0:
-        raise UnsupportedPathError(
-            "two-link plant process noise is not ported yet (ROADMAP.md Queue 1 item 8c); use noise_std=0"
-        )
+def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor, generator):
     sub_dt = p.dt / p.sim_substeps
     x = state.x
     for _ in range(p.sim_substeps):
         x = twolink.rk4(lambda x_, u_: _true_dynamics(p, dyn, x_, u_), x, action, sub_dt)
+    x = add_process_noise(p, x, _NOISE_ROWS, generator)  # the two velocity rows
     t = state.t + 1
 
     ref = make_trajectory(p, x.device)[torch.remainder(t.long(), p.n_steps)]
@@ -164,3 +166,14 @@ def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor):
     terminated = torch.logical_or((x < 2 * s_low).any(-1), (x > 2 * s_high).any(-1))
     truncated = t >= p.n_steps
     return EnvState(x=x, t=t), x, reward, terminated, truncated
+
+
+class TwoLinkTrackEnv(StatefulEnv):
+    """The two-link arm plant for one scenario, with the reference's calls
+    (`gpmpc_tpu/envs/twolink_env.py:197`): `reset(seed)`, `step(action)`,
+    `trajectory`, `dt`, `close()`; `device=None` is the card."""
+
+    _params_cls = EnvParams
+    _reset_fn = staticmethod(env_reset)
+    _step_fn = staticmethod(env_step)
+    _trajectory_fn = staticmethod(make_trajectory)

@@ -4,12 +4,14 @@ warnings, `batched_gpmpc_step` on all three paths (`lanes-fused`, `lanes`
 and `xla`, the reference's vmapped `select_action`, its default), and the
 episodes (`batched_episode` on either backend, GP-MPC or the nominal MPC,
 with a shared GP or a population; `batched_episode_randomized`;
-`cfg_horizon`). Sharding (`make_batched_controller_step` with a mesh) is
-not ported yet (ROADMAP.md Queue 1 items 8c and 12)."""
+`cfg_horizon`) and `make_batched_controller_step`. Sharding
+(`make_batched_controller_step` with a mesh) is not ported yet (ROADMAP.md
+Queue 1 item 12)."""
 
 from __future__ import annotations
 
 import warnings
+from functools import partial
 from typing import NamedTuple
 
 import torch
@@ -107,19 +109,18 @@ def batched_gpmpc_step(
     var_backend: str = "auto",
     var_bf16: bool = False,
     lanes: int = LANES,
+    tighten_backend: str = "auto",
 ):
     """One GP-MPC solve for B scenarios: (u (B, nu), next states, MpcInfo).
     Executes `dispatch_decision`, each degradation warning once with its
     reason: `backend="lanes"` takes `lanes-fused` or `lanes` where the lanes
     caps serve the horizon, else `xla`, which serves any horizon; the default
     is the reference's, `xla`. `lanes` is the scenario tile of the lanes QP.
-    The reference's variance options (`var_backend` other than "auto",
-    `var_bf16`) are not ported and raise."""
-    if var_backend != "auto" or var_bf16:
-        raise UnsupportedPathError(
-            f"batched_gpmpc_step(var_backend={var_backend!r}, var_bf16={var_bf16}) is not "
-            "ported; the lanes paths take the GP kernel, the xla path the plain variances "
-            "(ROADMAP.md Queue 1 item 8c)")
+    `var_backend` and `var_bf16` select the tightening variances
+    (`control/gpmpc.py::batched_variances`) and `tighten_backend` the
+    recursion (`batched_prepare_step`; the reference takes it there only) on
+    the lanes paths; the `xla` path ignores all three, as the reference's
+    vmapped `select_action` does."""
     T = consts.mpc.uref.shape[0]
     decision = dispatch_decision(
         cfg, gpmpc_mod.model_spec(model), T, gpmpc_mod.gp_is_batched(gp), backend
@@ -127,7 +128,21 @@ def batched_gpmpc_step(
     _warn_dispatch(decision)
     if decision.path == "xla":
         return gpmpc_mod.select_action(model, cfg, consts, gp, states, obs)
-    return gpmpc_mod.batched_select_action_lanes(model, cfg, consts, gp, states, obs, lanes=lanes)
+    return gpmpc_mod.batched_select_action_lanes(
+        model, cfg, consts, gp, states, obs, lanes=lanes, var_backend=var_backend,
+        var_bf16=var_bf16, tighten_backend=tighten_backend)
+
+
+def make_batched_controller_step(model, cfg: SqpConfig, mesh=None):
+    """`batched_gpmpc_step` with `model` and `cfg` bound: a callable of
+    (consts, gp, states, obs, backend=..., ...). Nothing is compiled (the
+    reference jits here). A device mesh (the scenario axis sharded over
+    cards) is ROADMAP.md Queue 1 item 12 and raises."""
+    if mesh is not None:
+        raise UnsupportedPathError(
+            "make_batched_controller_step(mesh=...) shards the scenario axis over several cards, "
+            "which is not ported yet (ROADMAP.md Queue 1 item 12)")
+    return partial(batched_gpmpc_step, model, cfg)
 
 
 class EpisodeResult(NamedTuple):
@@ -166,9 +181,9 @@ def batched_episode(
     tiles LANES scenarios wide on the card and the whole batch wide on the
     CPU. `env_mod` is any module with `envs/drone.py`'s surface
     (`env_reset`, `env_step_dynamic`, `params_to_array`, `randomize_params`);
-    the initial states, and with `param_scale` every scenario's own plant
-    coefficients (the reference's domain randomization), are drawn from
-    `generator`, which must live on that device (JAX's keys cannot be
+    the initial states, with `param_scale` every scenario's own plant
+    coefficients (the reference's domain randomization), and with the
+    plant's `noise_std > 0` its process noise, are drawn from `generator`, which must live on that device (JAX's keys cannot be
     reproduced). With `gp_batched`, every `gp` leaf leads with `batch` and
     each scenario runs its own GP."""
     if backend == "lanes" and not use_gp:
@@ -194,7 +209,8 @@ def batched_episode(
     obs, obs_path, actions, rewards = obs0, [obs0], [], []
     for _ in range(n_steps):
         u, ctrl, _ = step(ctrl, obs)
-        env_states, obs, reward, _, _ = env_mod.env_step_dynamic(env_params, plant, env_states, u)
+        env_states, obs, reward, _, _ = env_mod.env_step_dynamic(env_params, plant, env_states, u,
+                                                                 generator=generator)
         obs_path.append(obs)
         actions.append(u)
         rewards.append(reward)

@@ -1,3 +1,3 @@
-# The reference's NativeOcpSolver and build_native_library (the C++ oracle's
-# loader) are not ported yet (ROADMAP.md Queue 1 item 10).
-__all__ = []
+from gpmpc_tpu_torch.runtime.native import NativeOcpSolver, build_native_library
+
+__all__ = ["NativeOcpSolver", "build_native_library"]

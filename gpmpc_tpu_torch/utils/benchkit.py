@@ -1,12 +1,17 @@
 """Shared helpers for benchmarks and entry points. Port of
 `gpmpc_tpu/utils/benchkit.py`: the bench's cost weights, the reference prior
 dict, the synthetic residual dataset and the three families' synthetic GP
-ensembles, trained by the port itself (`train_gp_models`). Data comes from
+ensembles, trained by the port itself (`train_gp_models`); and the serving
+benchmark's clients (`replay_sessions`, the loop of the reference's
+`scripts/serve_bench.py`). Data comes from
 numpy seeds, as in the reference; the inducing draws from a torch generator
 seeded alike (JAX's draw cannot be reproduced, so a model trained here has
 other inducing points than the reference's)."""
 
 from __future__ import annotations
+
+import threading
+import time
 
 import numpy as np
 import torch
@@ -102,3 +107,69 @@ def synthetic_twolink_gp_model(max_points: int = 128, max_inducing: int = 40, n_
         axis=1,
     ).astype(np.float32)
     return _train(xz, y, max_points, max_inducing, n_train, seed, TWOLINK_SPEC, device)
+
+
+def replay_sessions(server, obs_streams: np.ndarray, steps: int, clients: int,
+                    timeout_s: float = 600.0) -> dict:
+    """`clients` threads, each an own session of `server` (a
+    `runtime/server.py::ControlServer`) replaying the observation stream
+    `obs_streams[i % len(obs_streams)]` (n_streams, >= steps, nx): with
+    N-step replies (`actions_per_step` = N) a client requests every N-th
+    observation and applies the returned plan head in between. One warm-up
+    request first; the clients start together. Every thread is joined
+    within `timeout_s` or this raises, as it does on a client's error or a
+    non-finite or misshapen reply. Returns the wall time (s), each request's
+    latency (ms, enqueue to reply), the requests and batches of the run and
+    the actions the clients consumed, min(steps, requests x N) each."""
+    n_act, want = server.actions_per_step, server.action_shape
+    warm = server.open_session()
+    server.step(warm, obs_streams[0, 0])
+    server.close_session(warm)
+    barrier = threading.Barrier(clients + 1)
+    lock = threading.Lock()
+    latencies: list[float] = []
+    failures: list[Exception] = []
+
+    def client(i):
+        try:
+            sid = server.open_session()
+            stream = obs_streams[i % len(obs_streams)]
+            local = []
+            barrier.wait(timeout_s)
+            for k in range(0, steps, n_act):
+                t0 = time.perf_counter()
+                u = server.step(sid, stream[k])
+                local.append(1e3 * (time.perf_counter() - t0))
+                if u.shape != want or not np.all(np.isfinite(u)):
+                    raise RuntimeError(f"client {i}: reply of shape {u.shape}, finite "
+                                       f"{bool(np.all(np.isfinite(u)))}")
+            server.close_session(sid)
+            with lock:
+                latencies.extend(local)
+        except Exception as e:  # surfaced after the join
+            with lock:
+                failures.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(clients)]
+    for t in threads:
+        t.start()
+    try:
+        barrier.wait(timeout_s)
+    except threading.BrokenBarrierError:
+        pass
+    s0 = server.stats
+    t0 = time.perf_counter()
+    deadline = t0 + timeout_s
+    for t in threads:
+        t.join(max(0.0, deadline - time.perf_counter()))
+    wall = time.perf_counter() - t0
+    s1 = server.stats
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError(f"replay_sessions: a client is still waiting after {timeout_s} s")
+    if failures:
+        raise RuntimeError(f"replay_sessions: {len(failures)} client(s) failed") from failures[0]
+    requests = len(range(0, steps, n_act))
+    return dict(wall_s=wall, latencies_ms=np.asarray(latencies),
+                n_requests=s1.n_requests - s0.n_requests, n_batches=s1.n_batches - s0.n_batches,
+                actions=clients * min(steps, requests * n_act))

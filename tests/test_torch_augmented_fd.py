@@ -179,6 +179,22 @@ def test_population_variances_use_no_kernel_wrapper(monkeypatch):
 
 
 def test_bf16_variances_are_not_ported():
-    gp_t = convert.load_bench_gp("cpu")
-    with pytest.raises(t_gpmpc.UnsupportedPathError, match="bf16"):
-        t_gpmpc.gp_variances(gp_t, torch.zeros(3, 2, 3), bf16=True)
+    """Named when the bf16 variances raised; they are ported now
+    (tests/test_torch_variance_options.py holds them against JAX's): the
+    population branch of `batched_variances` takes them per scenario,
+    through no kernel wrapper, as it takes the float32 ones."""
+    def boom(*a, **k):
+        raise AssertionError("the population branch must not reach the GP kernel's wrapper")
+
+    gp_t = convert.gp_model_from_numpy(gp_leaves("quadrotor", 2), "cpu")
+    z = torch.as_tensor(np.random.default_rng(0).normal(0, 0.3, (3, 2, 4, 3)).astype(F32))
+    t_gpmpc.gp_mean_var_multi, orig = boom, t_gpmpc.gp_mean_var_multi
+    try:
+        out = t_gpmpc.batched_variances(gp_t, z, backend="pallas", bf16=True)
+    finally:
+        t_gpmpc.gp_mean_var_multi = orig
+    want = torch.stack([t_gpmpc.gp_variances(
+        type(gp_t)(*[type(v)(*[h[s] for h in v]) if isinstance(v, tuple) else v[s] for v in gp_t]),
+        z[:, s], bf16=True) for s in range(2)], dim=1)
+    assert out.shape == (3, 2, 4) and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-6)

@@ -167,24 +167,27 @@ def _env_noise(mod):
     p = mod.EnvParams.default()._replace(noise_std=0.1)
     st, _ = mod.env_reset(p, 2, torch.Generator().manual_seed(0), "cpu")
     nu = {"drone": 4, "cartpole_env": 1, "twolink_env": 2}[mod.__name__.split(".")[-1]]
-    return lambda: mod.env_step(p, st, torch.zeros(2, nu))
+    return lambda: mod.env_step(p, st, torch.zeros(2, nu), generator=torch.Generator().manual_seed(1))[1]
 
 
-def _unported(case):
-    """The call of an option that still raises, and its ROADMAP.md item."""
+def _option(case):
+    """The call of an option and the ROADMAP.md item it waits for: None for
+    the options of item 8c, ported since (the call returns a tensor)."""
     from gpmpc_tpu_torch.envs import cartpole_env, drone, twolink_env
 
     if case.startswith("var"):
         model, ctrl, gp, st, obs = setup()
-        kw = {"var_backend": "xla"} if case == "var_backend" else {"var_bf16": True}
-        return (lambda: step(model, ctrl, gp, st, obs, backend="xla", **kw)), "item 8c"
+        st = st._replace(traj_step=torch.ones_like(st.traj_step))  # the variances enter
+        kw = {"var_backend": "xla"} if case == "var_backend" else {"var_bf16": True,
+                                                                   "var_backend": "xla"}
+        return (lambda: step(model, ctrl, gp, st, obs, **kw)[0]), None
     if case == "gp_variances_bf16":
         gp = convert.load_bench_gp("cpu")
-        return (lambda: t_gpmpc.gp_variances(gp, torch.zeros(3, 2, 3), bf16=True)), "item 8c"
+        return (lambda: t_gpmpc.gp_variances(gp, torch.zeros(3, 2, 3), bf16=True)), None
     if case.startswith("noise"):
         mod = {"noise_drone": drone, "noise_cartpole": cartpole_env,
                "noise_twolink": twolink_env}[case]
-        return _env_noise(mod), "item 8c"
+        return _env_noise(mod), None
     traj = figure_eight_trajectory(n_steps=64, dt=0.02, device="cpu").numpy()
     if case == "gpmpc_parallel_scan":
         return (lambda: t_gpmpc.GPMPC(t_sym(dt=0.02), traj, {"a": 12.1432, "b": 1.8118}, horizon=4,
@@ -198,10 +201,14 @@ def _unported(case):
                                   "noise_cartpole", "noise_twolink", "gpmpc_parallel_scan",
                                   "mpc_parallel_scan"])
 def test_unported_options_raise_naming_their_item(case):
-    """Each option of ROADMAP.md item 8c that is still missing (the
-    reference's variance backends and bf16 variances, plant process noise)
-    and `parallel_scan` (item 13) raises UnsupportedPathError naming its
-    item; none falls back."""
-    call, item = _unported(case)
+    """`parallel_scan` (ROADMAP.md item 13) raises UnsupportedPathError
+    naming its item and never falls back. The options of item 8c that raised
+    here before (the step's variance backend and bf16 variances, plant
+    process noise) are ported: each runs and gives finite values."""
+    call, item = _option(case)
+    if item is None:
+        out = call()
+        assert out.numel() > 0 and bool(torch.isfinite(out).all())
+        return
     with pytest.raises(t_gpmpc.UnsupportedPathError, match=item):
         call()

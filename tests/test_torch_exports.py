@@ -16,12 +16,7 @@ PACKAGES = ["", "models", "ops", "control", "envs", "parallel", "gp", "runtime",
 
 # Names of the reference's __all__ that the port does not have yet, by subpackage.
 UNPORTED = {
-    "envs": {"DroneFigureEightEnv"},  # item 8c, the stateful env classes
-    "parallel": {
-        "make_batched_controller_step",  # item 8c
-        "make_mesh", "shard_leading_axis", "init_distributed",  # item 12, parallel/mesh.py
-    },
-    "runtime": {"NativeOcpSolver", "build_native_library"},  # item 10, runtime/native.py
+    "parallel": {"make_mesh", "shard_leading_axis", "init_distributed"},  # item 12, parallel/mesh.py
 }
 
 
@@ -50,11 +45,26 @@ def test_port_all_is_the_references_less_the_unported(sub):
 
 
 def test_issue_imports_work():
-    """The imports a user of the reference writes, on the port."""
+    """The imports a user of the reference writes, on the port, the names
+    that left UNPORTED (items 8c and 10) among them: they resolve to the
+    port's own modules, and `make_batched_controller_step` refuses a mesh
+    (item 12)."""
     from gpmpc_tpu_torch.control import GPMPC, MPC
+    from gpmpc_tpu_torch.envs import DroneFigureEightEnv
     from gpmpc_tpu_torch.ops import sqp_solve
-    from gpmpc_tpu_torch.parallel import batched_gpmpc_step
+    from gpmpc_tpu_torch.parallel import batched_gpmpc_step, make_batched_controller_step
+    from gpmpc_tpu_torch.runtime import NativeOcpSolver, build_native_library
+    from gpmpc_tpu_torch.runtime.server import ControlServer
 
     assert callable(sqp_solve) and callable(batched_gpmpc_step)
     assert GPMPC.__module__ == "gpmpc_tpu_torch.control.gpmpc"
     assert MPC.__module__ == "gpmpc_tpu_torch.control.mpc"
+    assert DroneFigureEightEnv.__module__ == "gpmpc_tpu_torch.envs.drone"
+    assert NativeOcpSolver.__module__ == build_native_library.__module__ == "gpmpc_tpu_torch.runtime.native"
+    assert ControlServer.__module__ == "gpmpc_tpu_torch.runtime.server"
+    step = make_batched_controller_step("model", "cfg")
+    assert step.func is batched_gpmpc_step and step.args == ("model", "cfg")
+    from gpmpc_tpu_torch.device import UnsupportedPathError
+
+    with pytest.raises(UnsupportedPathError, match="item 12"):
+        make_batched_controller_step("model", "cfg", mesh=object())

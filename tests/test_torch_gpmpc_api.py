@@ -166,7 +166,13 @@ def test_lanes_past_the_horizon_cap_raises():
 def test_variance_form_is_not_stale_after_a_retrain(monkeypatch):
     """Train, step, train again on other data: the second model's leaves are
     new tensors (nothing written into the first's), and the next step's GP
-    variances come from the second model's form."""
+    variances come from the second model's form. The steps take the card's
+    choice of `var_backend="auto"`, the GP kernel's wrapper on the packed
+    form (on the CPU "auto" has taken the plain quadratic form since the
+    step's variance options were ported)."""
+    choose = tg.batched_variances
+    monkeypatch.setattr(tg, "batched_variances", lambda gp, z, backend="auto", bf16=False: choose(
+        gp, z, "pallas" if backend == "auto" else backend, bf16))
     _, _, tc = _cartpole(sparse=False, with_jax=False)
     x, u, xn = _transitions(seed=0)
     tc.train_gp(*tc.preprocess_data(x, u, xn), lr=0.05, iterations=5)

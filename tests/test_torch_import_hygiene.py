@@ -33,9 +33,10 @@ def test_port_imports_no_jax_and_no_triton():
     )
     assert r.returncode == 0, r.stderr
     n_modules = int(r.stdout.split("MODULES")[1].split()[0])
-    assert n_modules >= 38, r.stdout  # every module of the port was imported, device.py too
+    assert n_modules >= 42, r.stdout  # every module of the port was imported, device.py too
     for name in ("roofline", "ops.cuda_chain", "models.jacobians", "gp.kernels", "gp.exact_gp",
-                 "gp.sparse", "gp.compat", "runtime.online", "utils.benchkit", "parallel.sweep"):
+                 "gp.sparse", "gp.compat", "runtime.online", "utils.benchkit", "parallel.sweep",
+                 "runtime.server", "runtime.native", "utils.checkpoint", "envs._stateful"):
         assert f"gpmpc_tpu_torch.{name}" in r.stdout, name
     assert "LEAKED []" in r.stdout, r.stdout
 
@@ -56,7 +57,8 @@ def test_port_sources_name_no_jax_and_no_reference_import():
     """Every Python file of the port and chip_smoke.py, read as text: no
     import of jax or of the JAX package, also inside functions."""
     files = sorted((REPO / "gpmpc_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "scripts" / "bench_roofline_torch.py"]
+        REPO / "chip_smoke.py", REPO / "scripts" / "bench_roofline_torch.py",
+        REPO / "scripts" / "serve_bench_torch.py"]
     assert REPO / "gpmpc_tpu_torch" / "device.py" in files
     assert REPO / "gpmpc_tpu_torch" / "roofline.py" in files
     for sub in ("gp", "runtime", "utils"):  # the subpackages of GP training and learning
@@ -71,6 +73,23 @@ def test_roofline_script_imports_no_jax():
     JAX, no Triton and nothing of the JAX package."""
     probe = (
         "import runpy, sys; runpy.run_path('scripts/bench_roofline_torch.py', run_name='probe'); "
+        "print(sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'gpmpc_tpu')))"
+    )
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                       timeout=300, cwd=REPO)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("[]"), r.stdout
+
+
+def test_serve_bench_script_imports_no_jax():
+    """scripts/serve_bench_torch.py measures the port's server: it and every
+    module its `main` imports pull in no JAX, no Triton and nothing of the
+    JAX package."""
+    probe = (
+        "import runpy, sys; g = runpy.run_path('scripts/serve_bench_torch.py', run_name='probe'); "
+        "import gpmpc_tpu_torch.runtime.server, gpmpc_tpu_torch.utils.benchkit, "
+        "gpmpc_tpu_torch.envs.drone, gpmpc_tpu_torch.parallel.batch; "
         "print(sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'gpmpc_tpu')))"
     )

@@ -202,7 +202,7 @@ def test_family_plant_matches_jax(family):
         np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
         np.testing.assert_array_equal(trt.numpy(), np.asarray(trj))
         np.testing.assert_array_equal(st.t.numpy(), np.asarray(sj.t))
-    with pytest.raises(NotImplementedError, match="process noise"):
+    with pytest.raises(ValueError, match="process noise"):  # noise needs a generator
         te.env_step(pt._replace(noise_std=0.1), st, torch.as_tensor(actions[0]))
 
 

@@ -28,6 +28,18 @@ from gpmpc_tpu.ops.pallas_ocp import _mm as j_mm
 from gpmpc_tpu_torch import roofline
 from gpmpc_tpu_torch.ops import cuda_chain
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small ops: torch's intra-op threads cost more than they give on a
+    shared CPU (idle workers spin and take cores from the other test
+    processes). Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_ROUNDS = 4
 TILES, STAGES = 2, 3
 BF16_ULP = 2.0**-8  # spacing of bf16 values in [1, 2)

@@ -24,6 +24,18 @@ from gpmpc_tpu_torch.models.quadrotor import PRIOR_PARAMS as T_PRIOR
 from gpmpc_tpu_torch.models.symbolic import symbolic_attitude as t_sym
 from gpmpc_tpu_torch.ops.sqp_lanes import jacfwd_linearize
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small ops: torch's intra-op threads cost more than they give on a
+    shared CPU (idle workers spin and take cores from the other test
+    processes). Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32 = np.float32
 B, T = 4, 3
 TOL = 1e-5

@@ -16,6 +16,18 @@ from gpmpc_tpu_torch.envs import cartpole_env, drone
 from gpmpc_tpu_torch.models import cartpole
 from gpmpc_tpu_torch.models.symbolic import symbolic_attitude
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small ops: torch's intra-op threads cost more than they give on a
+    shared CPU (idle workers spin and take cores from the other test
+    processes). Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 QUAD_PRIOR = {
     "a": 12.1432, "b": 1.8118, "c": -72.08, "d": -7.5755,
     "e": 39.8653, "f": -72.08, "h": -7.5755, "l": 39.8653,

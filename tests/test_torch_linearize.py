@@ -20,6 +20,18 @@ from gpmpc_tpu_torch.models import cartpole, twolink
 from gpmpc_tpu_torch.models.residual import CARTPOLE_SPEC, QUADROTOR_SPEC, TWOLINK_SPEC
 from gpmpc_tpu_torch.ops.cuda_linearize import linearize_ocp_lanes
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small ops: torch's intra-op threads cost more than they give on a
+    shared CPU (idle workers spin and take cores from the other test
+    processes). Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32 = np.float32
 N_TILES, T, L = 2, 5, 16
 

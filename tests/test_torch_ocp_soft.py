@@ -20,6 +20,18 @@ from gpmpc_tpu_torch.ops import cuda_ocp, sqp_lanes
 from gpmpc_tpu_torch.ops.sqp import SqpConfig
 from gpmpc_tpu_torch.parallel.batch import dispatch_decision
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small ops: torch's intra-op threads cost more than they give on a
+    shared CPU (idle workers spin and take cores from the other test
+    processes). Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 L = 8
 F32 = np.float32
 WIDTHS = [(12, 4), (4, 1), (4, 2)]

@@ -26,6 +26,18 @@ from gpmpc_tpu_torch.control.gpmpc import GPMPC as TGPMPC
 from gpmpc_tpu_torch.envs import twolink_env as t_env
 from gpmpc_tpu_torch.models import twolink as t_two
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Small ops: torch's intra-op threads cost more than they give on a
+    shared CPU (idle workers spin and take cores from the other test
+    processes). Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_STEPS, TAIL, MAX_RATIO, AGREE = 150, 50, 0.6, 0.03
 KW = dict(horizon=20, q_mpc=[20.0, 20.0, 0.5, 0.5], r_mpc=[0.1, 0.1], sparse_gp=False,
           max_gp_samples=40, seed=1, sqp_iters=8, qp_iters=10, max_gp_points=512, ard_gp=True,

@@ -56,6 +56,22 @@ the phase times, and a projection of the default run from steps timed at
 the YAML's own iterations), `scripts/eval_seeds_torch.py` (`EVAL_SEEDS_ARGS`:
 cartpole, 4 seeds on lanes) and `scripts/bench_gp_fit_torch.py` (its default
 sizes, `GP_FIT_ITERS` iterations; the smallest fit against the CPU's).
+Then scale-out (`[mesh]`, `[multihost]`, `[multihost-sweep]`, `[dryrun]`
+lines): the `quadrotor` path's step at B=1024 through
+`make_batched_controller_step(mesh=)` as two shards of 512 (on two cards
+where the machine has them, else both on cuda:0), 3 closed-loop steps
+equal bit for bit to the unsharded step's actions, states and info,
+kernels 1-2 launched once a shard a step and 3-4 once a shard an SQP
+iteration, each held against its plain version on the last shard's inputs
+(`MESH`), and one xla step with `parallel_scan=True` against the sequential
+Riccati's (control RMSE bar); `scripts/run_multihost_torch.py` with two
+gloo ranks on the card and then one NCCL rank (the script's worker mode in
+this process, with its coordinator on 127.0.0.1), the lanes-fused step at
+B=1024, parity in every rank, solves/s and idle shares (`MULTIHOST`); the
+seed sweep sharded over two gloo ranks at the reference script's sizes,
+each rank's cost matrix against the unsharded sweep that this process runs
+meanwhile, after `parallel/dryrun.py::dryrun_multichip(2)` on two shards of
+the card (`MULTIHOST_SWEEP`).
 Phases, each printing its own lines:
 
   0. the card's name and power limit (nvidia-smi), then the kernel build:
@@ -134,7 +150,9 @@ and `device_ms`), the nvidia-smi line, then as its last line
 from __future__ import annotations
 
 import json
+import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -165,7 +183,19 @@ from gpmpc_tpu_torch.ops import (  # noqa: E402
     sqp_lanes,
 )
 from gpmpc_tpu_torch.parallel import batch as batch_mod  # noqa: E402
-from gpmpc_tpu_torch.parallel.batch import batched_gpmpc_step, dispatch_decision  # noqa: E402
+from gpmpc_tpu_torch.parallel.batch import (  # noqa: E402
+    batched_gpmpc_step,
+    dispatch_decision,
+    make_batched_controller_step,
+)
+from gpmpc_tpu_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
+from gpmpc_tpu_torch.parallel.mesh import (  # noqa: E402
+    Sharded,
+    gather,
+    make_mesh,
+    shard_leading_axis,
+    tree_leaves,
+)
 from gpmpc_tpu_torch.parallel.sweep import seed_sweep  # noqa: E402
 from gpmpc_tpu_torch.runtime.server import DIAG_FIELDS, ControlServer  # noqa: E402
 from gpmpc_tpu_torch.utils.benchkit import replay_sessions  # noqa: E402
@@ -236,14 +266,14 @@ PATHS = {
     "cartpole": SmokePath("cartpole", 25, 1024, None, "ocp_ip", 2, 10, 128, 5, None),
     "twolink": SmokePath("twolink", 25, 1024, None, "ocp_ip", 2, 10, 128, 5, None),
     "quadrotor-soft": SmokePath("quadrotor", 25, 1024, SOFT_PENALTY, "ocp_ip", 2, 10, 128, 5, "soft"),
-    "quadrotor-T100": SmokePath("quadrotor", 100, 256, None, "ocp_ip_streamed", 1, 5, 32, 3, "T100"),
+    "quadrotor-T100": SmokePath("quadrotor", 100, 256, None, "ocp_ip_streamed", 1, 5, 32, 1, "T100"),
     "quadrotor-soft-T360": SmokePath("quadrotor", 360, 256, SOFT_PENALTY, "ocp_ip_streamed2", 1, 2, 32,
-                                 2, "soft-T360"),
-    "quadrotor-jacfwd": SmokePath("quadrotor", 25, 1024, None, "ocp_ip", 2, 10, 128, 5, "jacfwd",
+                                 1, "soft-T360"),
+    "quadrotor-jacfwd": SmokePath("quadrotor", 25, 1024, None, "ocp_ip", 2, 10, 128, 1, "jacfwd",
                                   dispatch="lanes", kernel_linearize=False),
-    "quadrotor-T512": SmokePath("quadrotor", 512, 256, None, "ocp_ip_streamed2", 1, 2, 32, 2, "T512",
+    "quadrotor-T512": SmokePath("quadrotor", 512, 256, None, "ocp_ip_streamed2", 1, 2, 32, 1, "T512",
                                 dispatch="lanes", degraded=True),
-    "quadrotor-population": SmokePath("quadrotor", 25, 1024, None, "ocp_ip", 2, 10, 128, 5,
+    "quadrotor-population": SmokePath("quadrotor", 25, 1024, None, "ocp_ip", 2, 10, 128, 1,
                                       "population", dispatch="lanes", degraded=True, population=True),
     # BASELINE configs 2 and 4 (bench.py:81-82,120-128): GPs learned on the card from the
     # untrained controller's episodes (`learned_gp`), then the fused step
@@ -280,7 +310,7 @@ TWOLINK_STARTS = (
 )
 # scripts/eval_seeds.py's quadrotor sweep (16 seeds) at scripts/gp_mpc_config.yaml's settings,
 # the episode cut from 300 steps to 30
-SWEEP = dict(n_seeds=16, T=25, sqp_iters=12, qp_iters=12, n_epochs=3, samples_per_epoch=15,
+SWEEP = dict(n_seeds=16, T=25, sqp_iters=12, qp_iters=12, n_epochs=2, samples_per_epoch=15,
              max_inducing=40, gp_iters=500, gp_lr=0.001, n_steps=30)
 # F7: the multi-GP kernel past 128 live points (the tiled instantiation): (G, D, live, N)
 F7_CASES = [(G, D, m, 25_637) for m in (136, 304, 512) for G, D in ((2, 6), (3, 3))] + [
@@ -690,10 +720,13 @@ def population_gp(gp, n_scenarios: int, n_keep: int, seed: int = 0):
     return gp._replace(**dict(leaves, alpha_s=alpha), hypers=hypers)
 
 
-def timed(fn):
+def timed(fn, plain: bool = False):
     """(median ms of single calls each bracketed by CUDA events, number of
     timed runs, the last call's outputs). A warm-up call comes first; the
-    number of runs follows its time: 21 below 50 ms, 5 below 1 s, else 1."""
+    number of runs follows its time: 21 below 50 ms, 5 below 1 s, else 1.
+    A plain version (`plain`), whose time is no yardstick, runs 5 times
+    below 50 ms, once more below 1 s, and past 1 s its warm-up call is the
+    time (0 runs)."""
 
     def once():
         start = torch.cuda.Event(enable_timing=True)
@@ -705,12 +738,19 @@ def timed(fn):
         return start.elapsed_time(end), out
 
     warm, out = once()
-    runs = 21 if warm < 50 else 5 if warm < 1000 else 1
-    times = []
+    if plain:
+        runs = 5 if warm < 50 else 1 if warm < 1000 else 0
+    else:
+        runs = 21 if warm < 50 else 5 if warm < 1000 else 1
+    times = [] if runs else [warm]
     for _ in range(runs):
         ms, out = once()
         times.append(ms)
     return statistics.median(times), runs, out
+
+
+def runs_text(runs: int) -> str:
+    return f"median of {runs}" if runs else "its warm-up call"
 
 
 def device_ms(fn, runs: int = 10) -> float:
@@ -989,7 +1029,7 @@ def compare(entry, label, kind, fn, plain, a, k, time_plain=True, live_lanes=Non
     no solution on either side."""
     ms_k, runs_k, out_k = timed(lambda: fn(*a, **k))
     if time_plain:
-        ms_p, runs_p, out_p = timed(lambda: plain(*a, **k))
+        ms_p, runs_p, out_p = timed(lambda: plain(*a, **k), plain=True)
         dev_ms = device_ms(lambda: fn(*a, **k), runs=10 if ms_k < 50 else 2)
     else:
         ms_p, runs_p, out_p, dev_ms = None, 0, plain(*a, **k), None
@@ -1010,7 +1050,7 @@ def compare(entry, label, kind, fn, plain, a, k, time_plain=True, live_lanes=Non
             raise RuntimeError(f"{entry}: per-tile IP iterations differ from the plain version's")
     times = f"kernel {ms_k:.4f} ms (median of {runs_k})"
     if time_plain:
-        times += f", on the device {dev_ms:.4f} ms, plain {ms_p:.4f} ms (median of {runs_p})"
+        times += f", on the device {dev_ms:.4f} ms, plain {ms_p:.4f} ms ({runs_text(runs_p)})"
     say(f"[phase 1] {entry:28s} {label:12s}: max|kernel - plain| = {err:.3e} "
         f"(tolerance {TOL_TEXT[kind]}) {'ok' if ok else 'FAIL'}; {times}")
     if not ok:
@@ -2100,6 +2140,262 @@ def experiment_gp_fit() -> None:
         raise RuntimeError(f"gp_fit: the card's fit is {diff} from the CPU's")
 
 
+# ---- scale-out: the sharded step, the multi-process driver, the dry run ------------------
+MESH = dict(B=1024, shards=2, steps=3, xla_B=128)
+MULTIHOST = dict(scenarios=1024, steps=5, timeout=300)
+# scripts/run_multihost.py:156-200's sweep: T = 10, 3 SQP / 6 IP, 2 epochs, 20 GP iterations
+MULTIHOST_SWEEP = dict(seeds=4, horizon=10, steps=20, timeout=300)
+
+
+def mesh_devices(n: int) -> list[str]:
+    """n shards on distinct cards where the machine has them, else shared."""
+    return [f"cuda:{i % torch.cuda.device_count()}" for i in range(n)]
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (NaNs included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a, b.to(a.device))
+
+
+def quadrotor_mesh(prob: Problem, xla_prob: Problem, results: dict) -> None:
+    """[mesh]: the quadrotor's lanes-fused step at B = 1024 as two shards of
+    512 (whole tiles of 128) through `make_batched_controller_step(mesh=)`,
+    3 closed-loop steps against the unsharded step from the same states:
+    actions, states and info equal bit for bit. Kernels 1 and 2 launch once
+    per shard a step, kernels 3 and 4 once per shard an SQP iteration (each
+    shard's loop ends when its own scenarios converge), and each is held
+    against its plain version on the last shard's inputs. Then one xla step
+    with `parallel_scan=True` against the sequential Riccati's."""
+    cfg = MESH
+    devices = mesh_devices(cfg["shards"])
+    mesh = make_mesh(cfg["shards"], devices=devices)
+    n = cfg["B"] // cfg["shards"]
+    say(f"[mesh] make_mesh({cfg['shards']}, devices={devices}) on {torch.cuda.device_count()} "
+        f"card(s): {'distinct cards' if len(set(devices)) == len(devices) else 'shards share a card'}")
+    path = SmokePath("quadrotor", prob.path.T, n, None, "ocp_ip", 0, cfg["steps"], 0, 0, "mesh")
+    PATHS["quadrotor-mesh"] = path
+    es0, obs0, st0 = prob.reset(cfg["B"], seed=11)
+
+    wrappers = reset_launches()
+    ref, es, obs, st = [], es0, obs0, st0
+    t0 = time.perf_counter()
+    for _ in range(cfg["steps"]):
+        u, st, info = prob.step(st, obs)
+        ref.append((u, st, info))
+        es, obs, *_ = prob.env.env_step(prob.env_p, es, u)
+    torch.cuda.synchronize()
+    wall_1 = time.perf_counter() - t0
+    base = {k: fn.launches for k, fn in wrappers.items()}
+
+    step = make_batched_controller_step(prob.model, prob.cfg, mesh=mesh)
+    wrappers = reset_launches()
+    es, obs, st = (shard_leading_axis(t, mesh) for t in (es0, obs0, st0))
+    shard_iters = 0
+    t0 = time.perf_counter()
+    with Capture(path, last=True) as cap:
+        for k in range(cfg["steps"]):
+            u, st, info = step(prob.consts, prob.gp, st, obs, backend="lanes")
+            shard_iters += sum(int(i.n_iters.max()) for i in info.shards)
+            nxt = [prob.env.env_step(prob.env_p, e, a)[:2] for e, a in zip(es.shards, u.shards)]
+            es, obs = (Sharded([x[j] for x in nxt], u.index, u.count, u.devices) for j in (0, 1))
+            for what, got, want in (("actions", u, ref[k][0]), ("states", st, ref[k][1]),
+                                    ("info", info, ref[k][2])):
+                pairs = list(zip(tree_leaves(gather(got, mesh)), tree_leaves(want)))
+                if not pairs or not all(bits_equal(a, b) for a, b in pairs):
+                    raise RuntimeError(f"[mesh] step {k}: the sharded {what} differ from the "
+                                       "unsharded step's")
+    torch.cuda.synchronize()
+    wall_2 = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    want = dict(base, gp_posterior=2 * base["gp_posterior"], tighten=2 * base["tighten"],
+                linearize=shard_iters, ocp_ip=shard_iters)
+    say(f"[mesh] {cfg['steps']} steps at B={cfg['B']}: actions, states and info equal bit for bit "
+        f"to the unsharded step's; launches unsharded {base}, sharded {launches} (kernels 1-2: "
+        f"twice the unsharded; kernels 3-4: the shards' SQP iterations {shard_iters}, twice the "
+        f"unsharded would be {2 * base['ocp_ip']}); wall {1e3 * wall_1 / cfg['steps']:.1f} ms a "
+        f"step unsharded, {1e3 * wall_2 / cfg['steps']:.1f} ms sharded (the comparisons "
+        "included)")
+    if launches != want:
+        raise RuntimeError(f"[mesh] launches {launches}, expected {want}")
+    check_captured(path, "quadrotor-mesh", cap, launches, results)
+
+    # the associative-scan Riccati on the xla path against the sequential one
+    es, obs, st = xla_prob.reset(cfg["xla_B"], seed=12)
+    outs = []
+    for scan in (False, True):
+        c = xla_prob.cfg._replace(parallel_scan=scan)
+        t, (u, _, _) = cuda_timed(lambda c=c: batched_gpmpc_step(  # noqa: B023
+            xla_prob.model, c, xla_prob.consts, xla_prob.gp, st, obs, backend="xla"))
+        outs.append((u, t))
+    rmse = float(torch.sqrt(torch.mean((outs[1][0] - outs[0][0]) ** 2)))
+    say(f"[mesh] quadrotor xla step at B={cfg['xla_B']}, parallel_scan=True against False: "
+        f"control RMSE {rmse:.3e} (bar {RMSE_BAR}), max abs "
+        f"{float((outs[1][0] - outs[0][0]).abs().max()):.3e}; {1e3 * outs[1][1]:.1f} ms against "
+        f"{1e3 * outs[0][1]:.1f} ms a step")
+    if not (rmse <= RMSE_BAR and bool(torch.isfinite(outs[1][0]).all())):
+        raise RuntimeError("[mesh] the associative-scan Riccati's actions miss the sequential's")
+
+
+def start_multihost(tag: str, extra: list, timeout: int):
+    """`scripts/run_multihost_torch.py` started in a process group of its own
+    (its workers join the group, so `finish_multihost` can stop them all)."""
+    cmd = [sys.executable, str(REPO / "scripts" / "run_multihost_torch.py"), "--device", "cuda",
+           "--worker-timeout", str(timeout - 30)] + extra
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    return tag, cmd, proc, time.perf_counter(), timeout
+
+
+def finish_multihost(started, kill: bool = False) -> str:
+    """Wait for a `start_multihost` run (or stop it and its workers with
+    `kill`); its output, or a raise on a non-zero exit."""
+    tag, cmd, proc, t0, timeout = started
+    try:
+        if kill:
+            raise subprocess.TimeoutExpired(cmd, 0)
+        out, err = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        if kill:
+            return ""
+        raise RuntimeError(f"[{tag}] still running after {timeout} s; stopped") from None
+    say(f"[{tag}] {' '.join(cmd[1:])}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    for line in out.splitlines():
+        if "socket.cpp" not in line:
+            say(f"[{tag}]   {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"[{tag}] exit {proc.returncode}: {err[-3000:]}")
+    return out
+
+
+def run_multihost(tag: str, extra: list, timeout: int) -> str:
+    return finish_multihost(start_multihost(tag, extra, timeout))
+
+
+def run_multihost_here(tag: str, extra: list) -> str:
+    """`scripts/run_multihost_torch.py`'s worker mode as the one rank of a
+    group in this process (its coordinator on 127.0.0.1): the script's
+    `main`, its output captured; a raise on a non-zero exit."""
+    import contextlib
+    import io
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = ["--device", "cuda", "--coordinator", f"127.0.0.1:{port}", "--num-processes", "1",
+            "--process-id", "0"] + extra
+    buf, t0 = io.StringIO(), time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = load_script("run_multihost_torch").main(argv)
+    except SystemExit as e:
+        rc = e.code
+    out = buf.getvalue()
+    say(f"[{tag}] scripts/run_multihost_torch.py {' '.join(argv)} (in this process): exit {rc} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    for line in out.splitlines():
+        say(f"[{tag}]   {line}")
+    if rc not in (0, None):
+        raise RuntimeError(f"[{tag}] exit {rc}")
+    return out
+
+
+def metric_line(out: str, prefix: str) -> dict:
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{") and prefix in x]
+    if len(lines) != 1:
+        raise RuntimeError(f"expected one {prefix} line, got {len(lines)}")
+    return lines[0]
+
+
+def multihost() -> None:
+    """[multihost]: two gloo ranks on the card at B = 1024 (shards of 512) on
+    the lanes-fused step (`--fused`: the main path, whose host work two
+    processes may overlap), each checking parity against its own unsharded
+    run; then one NCCL rank in this process (no process start-up to pay),
+    which builds a communicator and gathers on the card; the solves/s and
+    idle shares of both, on the same card."""
+    cfg = MULTIHOST
+    common = ["--scenarios", str(cfg["scenarios"]), "--steps", str(cfg["steps"]), "--backend",
+              "lanes", "--fused", "--parity", "--idle"]
+    two = run_multihost("multihost", ["--virtual-hosts", "2", "--collectives", "gloo"] + common,
+                        cfg["timeout"])
+    one = run_multihost_here("multihost", ["--collectives", "nccl"] + common)
+    for out, ranks in ((two, (0, 1)), (one, (0,))):
+        for pid in ranks:
+            if not re.search(rf"PARITY pid={pid} .* ok=True", out):
+                raise RuntimeError(f"[multihost] rank {pid} reports no parity")
+        if "ok=False" in out:
+            raise RuntimeError("[multihost] a rank failed parity")
+    m2, m1 = (metric_line(o, "torch_solves_per_sec") for o in (two, one))
+    say(f"[multihost] at B={cfg['scenarios']} on one card ({m1['card']}): two gloo processes "
+        f"{m2['value']} solves/s (idle share {m2.get('idle_share')}), one NCCL process "
+        f"{m1['value']} solves/s (idle share {m1.get('idle_share')})")
+
+
+def multihost_sweep_args() -> list:
+    cfg = MULTIHOST_SWEEP
+    return ["--sweep", str(cfg["seeds"]), "--horizon", str(cfg["horizon"]), "--steps",
+            str(cfg["steps"])]
+
+
+def multihost_sweep_start():
+    """[multihost-sweep]: the seed sweep sharded over two gloo ranks on the
+    card at the reference script's sizes. It runs beside `dryrun` (whose
+    table times nothing that is kept) and `multihost_sweep_reference`."""
+    return start_multihost("multihost-sweep", ["--virtual-hosts", "2", "--collectives", "gloo"]
+                           + multihost_sweep_args(), MULTIHOST_SWEEP["timeout"])
+
+
+def multihost_sweep_reference() -> torch.Tensor:
+    """The same sweep unsharded in this process, on the script's own set-up
+    (`sweep_problem`), while the ranks run theirs: the reference that
+    `multihost_sweep_check` holds each rank's cost matrix against."""
+    mod = load_script("run_multihost_torch")
+    t0 = time.perf_counter()
+    model, cfg, env_p, consts, kw = mod.sweep_problem(mod.parse_args(multihost_sweep_args()),
+                                                      torch.device("cuda:0"))
+    costs = seed_sweep(model, cfg, env_p, consts, **kw).costs.cpu()
+    say(f"[multihost-sweep] the unsharded sweep in this process: {time.perf_counter() - t0:.1f} s")
+    return costs
+
+
+def multihost_sweep_check(started, want: torch.Tensor) -> None:
+    """Each rank's whole cost matrix within 1e-3 relative of the unsharded
+    sweep's (scripts/run_multihost.py's bar)."""
+    out = finish_multihost(started)
+    for pid in (0, 1):
+        m = re.search(rf"SWEEP-COSTS pid={pid} (\[.*\])", out)
+        if m is None:
+            raise RuntimeError(f"[multihost-sweep] rank {pid} printed no cost matrix")
+        got = torch.tensor(json.loads(m.group(1)), dtype=want.dtype)
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise RuntimeError(f"[multihost-sweep] rank {pid}: cost matrix {tuple(got.shape)}, "
+                               f"want {tuple(want.shape)}, finite")
+        dcost = float((got - want).abs().max())
+        rel = dcost / max(1e-9, float(want.abs().max()))
+        say(f"[multihost-sweep] rank {pid} against the unsharded sweep: max|dcost| {dcost:.3e}, "
+            f"relative {rel:.3e} (bar 1e-3)")
+        if not rel < 1e-3:
+            raise RuntimeError(f"[multihost-sweep] rank {pid}: relative {rel:.3e} >= 1e-3")
+    metric_line(out, "torch_sweep")
+
+
+def dryrun() -> None:
+    """[dryrun]: `parallel/dryrun.py::dryrun_multichip` over two shards of
+    the card (its four bars, the weak-scaling table, the sharded sweep)."""
+    t0 = time.perf_counter()
+    r = dryrun_multichip(2, devices=mesh_devices(2))
+    say(f"[dryrun] dryrun_multichip(2, devices={mesh_devices(2)}): {time.perf_counter() - t0:.1f} "
+        f"s, deltas {r['deltas']}, table {[(d, b, round(v, 1)) for d, b, v in r['table']]}")
+
+
 def chain_inputs(dev):
     """Each chain kernel's input at the reference's sizes and on its data,
     in lanes layout and as (B, T, n, n) for the library call."""
@@ -2148,7 +2444,7 @@ def check_chains(dev, results: dict) -> dict:
             raise RuntimeError(f"{name}: the roofline rows did not launch it")
         x, flat = inputs[name]
         ms_k, runs_k, _ = timed(lambda: fn(x, roofline.N_CHAIN))
-        ms_p, runs_p, _ = timed(lambda: plain(x, roofline.N_CHAIN))
+        ms_p, runs_p, _ = timed(lambda: plain(x, roofline.N_CHAIN), plain=True)
         ms_l, runs_l, _ = timed(lambda: roofline.torch_batched_chain(flat, roofline.N_CHAIN))
         flops = roofline.useful_flops(stages, roofline.N_CHAIN)
         t_b, t_f = 2 * tensor_bytes(x) / PEAK_BYTES_PER_S, flops / peak
@@ -2158,7 +2454,7 @@ def check_chains(dev, results: dict) -> dict:
         ceiling = "" if n == 16 else (
             f", the instruction mix's ceiling {100 * chain_ceiling(dtype):.1f} %")
         say(f"[phase 1] {name:28s} {roofline.N_CHAIN} rounds: kernel {ms_k:.4f} ms (median of "
-            f"{runs_k}), plain {ms_p:.4f} ms (median of {runs_p}), one torch.matmul a round "
+            f"{runs_k}), plain {ms_p:.4f} ms ({runs_text(runs_p)}), one torch.matmul a round "
             f"{ms_l:.4f} ms (median of {runs_l}); on the device {dev_ms:.4f} ms, "
             f"{100 * bnd.ms / dev_ms:.1f} % of its bound {bnd.ms:.5f} ms at "
             f"{peak / 1e12:.1f} TFLOP/s{ceiling}")
@@ -2315,6 +2611,22 @@ def main() -> int:
     experiment_gp_fit()
     say(f"[time] gp_fit done at {time.perf_counter() - t_run:.0f} s; the three experiment "
         f"phases took {time.perf_counter() - t_exp:.0f} s")
+    t_scale = time.perf_counter()
+    quadrotor_mesh(problems["quadrotor"], problems["quadrotor-xla"], results)
+    say(f"[time] mesh done at {time.perf_counter() - t_run:.0f} s")
+    multihost()
+    say(f"[time] multihost done at {time.perf_counter() - t_run:.0f} s")
+    sweep_run = multihost_sweep_start()
+    try:
+        dryrun()
+        say(f"[time] dryrun done at {time.perf_counter() - t_run:.0f} s")
+        sweep_want = multihost_sweep_reference()
+    except BaseException:
+        finish_multihost(sweep_run, kill=True)
+        raise
+    multihost_sweep_check(sweep_run, sweep_want)
+    say(f"[time] multihost-sweep done at {time.perf_counter() - t_run:.0f} s; the four "
+        f"scale-out phases took {time.perf_counter() - t_scale:.0f} s")
     chain_share(problems["quadrotor"], gflops)
     stress = lambda gp: gp._replace(hypers=gp.hypers._replace(  # noqa: E731
         raw_outputscale=torch.full_like(gp.hypers.raw_outputscale, STRESS_OUTPUTSCALE)))

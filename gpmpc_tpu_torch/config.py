@@ -200,7 +200,7 @@ class GpMpcSection:
     sqp_iters: int = 25
     qp_iters: int = 15  # interior-point iterations per QP
     max_gp_points: int = 128  # padded GP dataset capacity
-    parallel_scan: bool = False  # not ported: GPMPC raises UnsupportedPathError
+    parallel_scan: bool = False  # O(log T) associative-scan Riccati on the xla path
     # L1 penalty weight of soft chance-tightened state bounds; None keeps them hard
     soft_constraints: float | None = None
     lm_reg: float = 0.0  # Levenberg-Marquardt damping of the SQP's Hessian blocks

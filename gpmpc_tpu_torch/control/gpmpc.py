@@ -677,8 +677,9 @@ class GPMPC:
     "xla" as a B = 1 batch of `select_action` (the reference's xla path);
     "auto" resolves as in the reference: "lanes" on the card where the lanes
     caps serve the horizon, else "xla". `prior_ctrl` is the nominal `MPC`
-    built with the controller's arguments. `parallel_scan` is not ported
-    (raises)."""
+    built with the controller's arguments. `parallel_scan` takes the
+    associative-scan Riccati on the `xla` path (the lanes QP kernels do not
+    read it, as in the reference)."""
 
     U_EQ = np.array([0.3234, 0.0, 0.0, 0.0])
 
@@ -706,11 +707,6 @@ class GPMPC:
         lm_reg: float = 0.0,
         step_backend: str = "auto",
     ):
-        if parallel_scan:
-            raise UnsupportedPathError(
-                "GPMPC(parallel_scan=True) needs ops/riccati_parallel.py, which is not ported "
-                "(ROADMAP.md Queue 1 item 13)"
-            )
         if step_backend not in ("auto", "lanes", "xla"):
             raise ValueError(f"step_backend must be 'auto', 'lanes' or 'xla', got {step_backend!r}")
         self.sparse, self.ard_gp, self.step_backend = sparse_gp, ard_gp, step_backend
@@ -757,7 +753,8 @@ class GPMPC:
             inverse_cdf=t(inverse_cdf), dt=t(model.dt),
         )
         self.cfg = SqpConfig(
-            sqp_iters=sqp_iters, qp_iters=qp_iters, soft_x_penalty=soft_constraints, lm_reg=lm_reg
+            sqp_iters=sqp_iters, qp_iters=qp_iters, parallel_scan=parallel_scan,
+            soft_x_penalty=soft_constraints, lm_reg=lm_reg,
         )
         self.gp_model = empty_gp_model(
             self.max_gp_points, self.max_gp_samples if sparse_gp else self.max_gp_points,

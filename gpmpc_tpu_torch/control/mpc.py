@@ -12,7 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gpmpc_tpu_torch.device import UnsupportedPathError, resolve, strict_float32
+from gpmpc_tpu_torch.device import resolve, strict_float32
 from gpmpc_tpu_torch.models import quadrotor
 from gpmpc_tpu_torch.ops.sqp import OcpBounds, OcpCost, SqpConfig, sqp_solve
 
@@ -167,7 +167,7 @@ class MPC:
     `select_action(obs)` solves one observation as a batch of one and raises
     RuntimeError on a non-finite action (the reference's failed-solver
     status); `reset` and `reference_trajectory` as in the reference.
-    `parallel_scan=True` is not ported and raises."""
+    `parallel_scan=True` solves its QPs with the associative-scan Riccati."""
 
     U_EQ = np.array([0.3234, 0.0, 0.0, 0.0])
 
@@ -186,10 +186,6 @@ class MPC:
         lm_reg: float = 0.0,
         device: torch.device | str | None = None,
     ):
-        if parallel_scan:
-            raise UnsupportedPathError(
-                "MPC(parallel_scan=True) needs ops/riccati_parallel.py, which is not ported "
-                "(ROADMAP.md Queue 1 item 13)")
         self.model = symbolic_model
         self.T = horizon
         self.device = device = resolve(device)

@@ -9,6 +9,7 @@ the port does not have raises `UnsupportedPathError` and never falls back.
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
 
 import torch
 
@@ -48,3 +49,30 @@ def strict_float32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class ShardDraw(NamedTuple):
+    """Rows [lo, hi) of a population of `batch`: a random draw for them is
+    made at the population's full width from `generator` and cut to the
+    rows, so a shard of a population draws exactly the numbers the whole
+    population's run gives its rows (`draw_rows`)."""
+
+    generator: torch.Generator
+    batch: int
+    lo: int
+    hi: int
+
+
+def draw_rows(kind: str, generator: torch.Generator | ShardDraw, shape: tuple,
+              dtype=torch.float32, device=None) -> torch.Tensor:
+    """`torch.rand` ("rand") or `torch.randn` ("randn") of `shape` from
+    `generator`; for a `ShardDraw`, `shape[0]` rows cut from a draw of
+    (batch, *shape[1:])."""
+    fn = {"rand": torch.rand, "randn": torch.randn}[kind]
+    if not isinstance(generator, ShardDraw):
+        return fn(shape, generator=generator, dtype=dtype, device=device)
+    if shape[0] != generator.hi - generator.lo:
+        raise ValueError(f"a draw of {shape[0]} rows for rows [{generator.lo}, {generator.hi})")
+    full = fn((generator.batch,) + tuple(shape[1:]), generator=generator.generator, dtype=dtype,
+              device=device)
+    return full[generator.lo:generator.hi]

@@ -8,22 +8,23 @@ import math
 
 import torch
 
-from gpmpc_tpu_torch.device import resolve
+from gpmpc_tpu_torch.device import ShardDraw, draw_rows, resolve
 
 
 def add_process_noise(p, x: torch.Tensor, rows: list[int],
-                      generator: torch.Generator | None) -> torch.Tensor:
+                      generator: torch.Generator | ShardDraw | None) -> torch.Tensor:
     """x (B, nx) plus, for `p.noise_std > 0`, `noise_std * sqrt(dt) * N(0, 1)`
     on the velocity `rows` of every scenario, one (B, len(rows)) draw from
     `generator` (the reference's white acceleration noise; its draws come
     from JAX keys and cannot be reproduced). Without a generator the noise
-    raises: it never comes from torch's global generator."""
+    raises: it never comes from torch's global generator. A `ShardDraw`
+    draws for its population and keeps its rows (x holds those rows)."""
     if p.noise_std <= 0.0:
         return x
     if generator is None:
         raise ValueError(f"process noise (noise_std={p.noise_std}) needs a torch.Generator on "
                          "the plant's device: pass generator=")
-    noise = torch.randn(x.shape[0], len(rows), generator=generator, dtype=x.dtype, device=x.device)
+    noise = draw_rows("randn", generator, (x.shape[0], len(rows)), x.dtype, x.device)
     return x.index_add(1, torch.tensor(rows, device=x.device), p.noise_std * math.sqrt(p.dt) * noise)
 
 

@@ -17,12 +17,12 @@ from __future__ import annotations
 
 import torch
 
-from gpmpc_tpu_torch.device import strict_float32
+from gpmpc_tpu_torch.device import ShardDraw, draw_rows, strict_float32
 from gpmpc_tpu_torch.gp.exact_gp import GPData, GPHypers, _cho_solve, _cholesky_or_nan, _kernel
 
 
 def select_inducing(
-    generator: torch.Generator, mask: torch.Tensor, n_inducing: int
+    generator: torch.Generator | ShardDraw, mask: torch.Tensor, n_inducing: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Uniform choice without replacement of up to `n_inducing` active rows,
     per leading batch entry of `mask` (..., M): (idx (..., Ms) row indices
@@ -30,8 +30,9 @@ def select_inducing(
     with the inactive rows pushed to the bottom, then a sorted top-k: active
     rows come first, so when fewer than Ms are active, s_mask's leading
     entries are exactly the active ones. The scores come from `generator`,
-    which must live on the mask's device (JAX's draw cannot be reproduced)."""
-    scores = torch.rand(mask.shape, generator=generator, dtype=torch.float32, device=mask.device)
+    which must live on the mask's device (JAX's draw cannot be reproduced);
+    a `ShardDraw` gives the rows of a larger population's draw."""
+    scores = draw_rows("rand", generator, tuple(mask.shape), device=mask.device)
     scores = scores + torch.where(mask > 0, 0.0, -1e9)
     idx = torch.topk(scores, n_inducing, dim=-1, sorted=True).indices
     n_active = torch.sum(mask, dim=-1).to(torch.int64)

@@ -31,8 +31,8 @@ from typing import NamedTuple
 
 import torch
 
-from gpmpc_tpu_torch.device import UnsupportedPathError
-from gpmpc_tpu_torch.ops.riccati import riccati_apply, riccati_factor, stack_dynamics
+from gpmpc_tpu_torch.ops.riccati import LqProblem, riccati_apply, riccati_factor, stack_dynamics
+from gpmpc_tpu_torch.ops.riccati_parallel import riccati_solve_parallel
 
 BOUND_INF = 1e8  # the reference's inactive-bound magnitude
 
@@ -113,11 +113,10 @@ def solve_ocp_qp(
     weight that makes the state bounds soft; None keeps them hard.
     `gap_tol` (default 1e-14 in float64, 1e-8 in float32, the numerical
     validity bound of the reference) freezes a scenario once its gap is at
-    it. `parallel_scan` (the associative-scan Riccati) is not ported."""
-    if parallel_scan:
-        raise UnsupportedPathError(
-            "solve_ocp_qp(parallel_scan=True) needs ops/riccati_parallel.py, which is not "
-            "ported (ROADMAP.md Queue 1 item 13)")
+    it. `parallel_scan` solves each Newton system with the associative-scan
+    Riccati (`ops/riccati_parallel.py`, O(log T) depth), as the reference
+    does; otherwise one sequential factorization an iteration serves both
+    of Mehrotra's solves."""
     Bn, T, nx = qp.A.shape[0], qp.A.shape[1], qp.A.shape[2]
     nu = qp.B.shape[3]
     dtype, dev = qp.A.dtype, qp.A.device
@@ -198,8 +197,9 @@ def solve_ocp_qp(
             w_ux = st.lam_ux / st.s_ux
 
         # barrier diagonals, shared by predictor and corrector: one factorization
-        factor = riccati_factor(AB, qp.Qxx + torch.diag_embed(w_lx + w_ux),
-                                qp.Ruu + torch.diag_embed(st.lam_lu / st.s_lu + st.lam_uu / st.s_uu))
+        Qxx_hat = qp.Qxx + torch.diag_embed(w_lx + w_ux)
+        Ruu_hat = qp.Ruu + torch.diag_embed(st.lam_lu / st.s_lu + st.lam_uu / st.s_uu)
+        factor = None if parallel_scan else riccati_factor(AB, Qxx_hat, Ruu_hat)
         qx_base = torch.matmul(qp.Qxx, st.dx[..., None])[..., 0] + qp.qx - st.lam_lx + st.lam_ux
         ru_base = torch.matmul(qp.Ruu, st.du[..., None])[..., 0] + qp.ru - st.lam_lu + st.lam_uu
         # the dynamics infeasibility this Newton step corrects
@@ -217,7 +217,13 @@ def solve_ocp_qp(
                 corr_x = ((r_clx + st.lam_lx * r_slx) / st.s_lx
                           - (r_cux + st.lam_ux * r_sux) / st.s_ux)
             corr_u = (r_clu + st.lam_lu * r_slu) / st.s_lu - (r_cuu + st.lam_uu * r_suu) / st.s_uu
-            ddx, ddu, _ = riccati_apply(factor, r_dyn, qx_base + corr_x, ru_base + corr_u, zeros_x)
+            if parallel_scan:
+                sol = riccati_solve_parallel(LqProblem(qp.A, qp.B, r_dyn, Qxx_hat, qx_base + corr_x,
+                                                       Ruu_hat, ru_base + corr_u), zeros_x)
+                ddx, ddu = sol.dx, sol.du
+            else:
+                ddx, ddu, _ = riccati_apply(factor, r_dyn, qx_base + corr_x, ru_base + corr_u,
+                                            zeros_x)
             if soft:
                 dlam_lx = -(w_lx * ddx + cg_lx)
                 dlam_ux = w_ux * ddx - cg_ux

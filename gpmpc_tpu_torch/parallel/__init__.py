@@ -1,5 +1,4 @@
-# Not ported yet: make_mesh, shard_leading_axis and init_distributed (ROADMAP.md
-# Queue 1 item 12).
+from gpmpc_tpu_torch.parallel.mesh import init_distributed, make_mesh, shard_leading_axis
 from gpmpc_tpu_torch.parallel.batch import (
     batched_episode,
     batched_episode_randomized,
@@ -8,6 +7,9 @@ from gpmpc_tpu_torch.parallel.batch import (
 )
 
 __all__ = [
+    "make_mesh",
+    "shard_leading_axis",
+    "init_distributed",
     "batched_gpmpc_step",
     "batched_episode",
     "batched_episode_randomized",

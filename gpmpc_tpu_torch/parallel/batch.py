@@ -4,12 +4,15 @@ warnings, `batched_gpmpc_step` on all three paths (`lanes-fused`, `lanes`
 and `xla`, the reference's vmapped `select_action`, its default), and the
 episodes (`batched_episode` on either backend, GP-MPC or the nominal MPC,
 with a shared GP or a population; `batched_episode_randomized`;
-`cfg_horizon`) and `make_batched_controller_step`. Sharding
-(`make_batched_controller_step` with a mesh) is not ported yet (ROADMAP.md
-Queue 1 item 12)."""
+`cfg_horizon`) and `make_batched_controller_step`, whose mesh form runs
+the step on each shard of the scenario axis (`parallel/mesh.py`). An
+episode can run rows [lo, hi) of a population: every random draw is made at
+the population's width and cut to the rows, so shards reproduce the whole
+run's rows."""
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from functools import partial
 from typing import NamedTuple
@@ -17,10 +20,12 @@ from typing import NamedTuple
 import torch
 
 from gpmpc_tpu_torch.control import gpmpc as gpmpc_mod
-from gpmpc_tpu_torch.control.gpmpc import GpModel, GpMpcConsts, UnsupportedPathError
+from gpmpc_tpu_torch.control.gpmpc import GpModel, GpMpcConsts
 from gpmpc_tpu_torch.control import mpc as mpc_mod
 from gpmpc_tpu_torch.control.mpc import MpcState
+from gpmpc_tpu_torch.device import ShardDraw
 from gpmpc_tpu_torch.envs import drone
+from gpmpc_tpu_torch.parallel.mesh import Sharded, shard_leading_axis, tree_map
 from gpmpc_tpu_torch.ops.sqp import SqpConfig
 from gpmpc_tpu_torch.ops.sqp_lanes import LANES, MAX_FUSED_HORIZON, lanes_horizon_cap, lanes_serves
 
@@ -136,13 +141,33 @@ def batched_gpmpc_step(
 def make_batched_controller_step(model, cfg: SqpConfig, mesh=None):
     """`batched_gpmpc_step` with `model` and `cfg` bound: a callable of
     (consts, gp, states, obs, backend=..., ...). Nothing is compiled (the
-    reference jits here). A device mesh (the scenario axis sharded over
-    cards) is ROADMAP.md Queue 1 item 12 and raises."""
-    if mesh is not None:
-        raise UnsupportedPathError(
-            "make_batched_controller_step(mesh=...) shards the scenario axis over several cards, "
-            "which is not ported yet (ROADMAP.md Queue 1 item 12)")
-    return partial(batched_gpmpc_step, model, cfg)
+    reference jits here). With a `mesh` (`parallel/mesh.py`) the scenario
+    axis is sharded over its first axis: consts and GP are replicated, states
+    and observations are sharded (`Sharded` from `shard_leading_axis`, or
+    whole trees, which the callable shards), the step runs on each local
+    shard on that shard's device, and it returns (u, states, info), each a
+    `Sharded` (the reference's `out_shardings`). A scenario's solution does
+    not depend on the rest of its shard, except through the QP kernel's
+    tile-wide exit: shards of whole tiles of 128 give the unsharded step's
+    numbers bit for bit."""
+    if mesh is None:
+        return partial(batched_gpmpc_step, model, cfg)
+    axis = mesh.axis_names[0]
+
+    def step(consts, gp, states, obs, **kw):
+        states = states if isinstance(states, Sharded) else shard_leading_axis(states, mesh, axis)
+        obs = obs if isinstance(obs, Sharded) else shard_leading_axis(obs, mesh, axis)
+        if states.index != obs.index:
+            raise ValueError(f"states shards {states.index} and observation shards {obs.index}")
+        outs = []
+        for dev, st, ob in zip(states.devices, states.shards, obs.shards):
+            c, g = (tree_map(lambda t, d=dev: t.to(d), x) for x in (consts, gp))
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                outs.append(batched_gpmpc_step(model, cfg, c, g, st, ob, **kw))
+        return tuple(Sharded([o[i] for o in outs], states.index, states.count, states.devices)
+                     for i in range(3))
+
+    return step
 
 
 class EpisodeResult(NamedTuple):
@@ -169,6 +194,7 @@ def batched_episode(
     backend: str = "xla",
     gp_batched: bool = False,
     env_mod=drone,
+    rows: tuple[int, int] | None = None,
 ) -> EpisodeResult:
     """Closed-loop episodes of `batch` scenarios: a host loop of the
     controller step and the plant, on the device of `consts` (the
@@ -184,33 +210,44 @@ def batched_episode(
     the initial states, with `param_scale` every scenario's own plant
     coefficients (the reference's domain randomization), and with the
     plant's `noise_std > 0` its process noise, are drawn from `generator`, which must live on that device (JAX's keys cannot be
-    reproduced). With `gp_batched`, every `gp` leaf leads with `batch` and
-    each scenario runs its own GP."""
+    reproduced). With `gp_batched`, every `gp` leaf leads with the
+    scenarios run and each scenario runs its own GP. With `rows` = (lo, hi)
+    only scenarios [lo, hi) of the `batch` run (a shard of the population):
+    every draw (initial states, plant coefficients, each step's process
+    noise) is made at the full `batch` width from `generator` and cut to the
+    rows, so the shard's numbers are the whole run's rows; the draws are a
+    few numbers a scenario a step."""
     if backend == "lanes" and not use_gp:
         raise ValueError("backend='lanes' requires use_gp=True (GP-MPC step)")
     if gp_batched != gpmpc_mod.gp_is_batched(gp):
         raise ValueError(f"gp_batched={gp_batched} but the GpModel's leaves "
                          f"{'do' if gpmpc_mod.gp_is_batched(gp) else 'do not'} lead with a scenario axis")
     dev = consts.Ad.device
+    lo, hi = (0, batch) if rows is None else rows
+    if not 0 <= lo < hi <= batch:
+        raise ValueError(f"rows [{lo}, {hi}) of a batch of {batch}")
+    n = hi - lo
     if not use_gp:
         step = lambda ctrl, obs: mpc_mod.select_action(model, cfg, consts.mpc, ctrl, obs)  # noqa: E731
     elif backend != "lanes":
         step = lambda ctrl, obs: gpmpc_mod.select_action(model, cfg, consts, gp, ctrl, obs)  # noqa: E731
     else:
-        lanes = LANES if dev.type == "cuda" else batch
+        lanes = LANES if dev.type == "cuda" else n
         step = lambda ctrl, obs: gpmpc_mod.batched_select_action_lanes(  # noqa: E731
             model, cfg, consts, gp, ctrl, obs, lanes=lanes)
     env_states, obs0 = env_mod.env_reset(env_params, batch, generator, dev)
+    env_states, obs0 = tree_map(lambda t: t[lo:hi], (env_states, obs0))
     if param_scale is None:
-        plant = env_mod.params_to_array(env_params.params, dev).expand(batch, -1)
+        plant = env_mod.params_to_array(env_params.params, dev).expand(n, -1)
     else:
-        plant = env_mod.randomize_params(generator, env_params.params, param_scale, batch)
-    ctrl = mpc_mod.init_state(batch, cfg_horizon(consts), model.nx, model.nu, device=dev)
+        plant = env_mod.randomize_params(generator, env_params.params, param_scale, batch)[lo:hi]
+    noise = generator if rows is None else ShardDraw(generator, batch, lo, hi)
+    ctrl = mpc_mod.init_state(n, cfg_horizon(consts), model.nx, model.nu, device=dev)
     obs, obs_path, actions, rewards = obs0, [obs0], [], []
     for _ in range(n_steps):
         u, ctrl, _ = step(ctrl, obs)
         env_states, obs, reward, _, _ = env_mod.env_step_dynamic(env_params, plant, env_states, u,
-                                                                 generator=generator)
+                                                                 generator=noise)
         obs_path.append(obs)
         actions.append(u)
         rewards.append(reward)

@@ -18,19 +18,10 @@ from gpmpc_tpu.ops import boxqp as j_boxqp
 from gpmpc_tpu.ops import riccati as j_riccati
 from gpmpc_tpu_torch.ops import boxqp as t_boxqp
 from gpmpc_tpu_torch.ops import riccati as t_riccati
+from tests._torch_threads import _one_thread  # noqa: F401
 
 F32 = np.float32
 SOFT_RHO = 50.0  # chip_smoke.py's soft penalty
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU. Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _lq(seed, B, T, nx, nu):
@@ -157,6 +148,13 @@ def test_indefinite_guu_is_nan_in_its_scenario_only():
 
 
 def test_parallel_scan_raises_naming_its_item():
+    """`parallel_scan` (ROADMAP.md item 13) is ported and no longer raises:
+    the associative-scan Riccati solves this QP within 5e-4 of the
+    sequential one (tests/test_torch_riccati_parallel.py holds it against
+    JAX's)."""
     qp = t_boxqp.OcpQpData(*[torch.as_tensor(a) for a in _qp(0, 1, T=3)])
-    with pytest.raises(t_boxqp.UnsupportedPathError, match="item 13"):
-        t_boxqp.solve_ocp_qp(qp, parallel_scan=True)
+    par = t_boxqp.solve_ocp_qp(qp, parallel_scan=True)
+    seq = t_boxqp.solve_ocp_qp(qp)
+    assert bool(torch.isfinite(par.dx).all())
+    np.testing.assert_allclose(par.dx.numpy(), seq.dx.numpy(), atol=5e-4)
+    np.testing.assert_allclose(par.du.numpy(), seq.du.numpy(), atol=5e-4)

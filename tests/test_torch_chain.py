@@ -27,17 +27,7 @@ import torch
 from gpmpc_tpu.ops.pallas_ocp import _mm as j_mm
 from gpmpc_tpu_torch import roofline
 from gpmpc_tpu_torch.ops import cuda_chain
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU (idle workers spin and take cores from the other test
-    processes). Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests._torch_threads import _one_thread  # noqa: F401
 
 
 N_ROUNDS = 4

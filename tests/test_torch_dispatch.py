@@ -29,6 +29,7 @@ from gpmpc_tpu_torch.ops.sqp_lanes import (
 )
 from gpmpc_tpu_torch.parallel import batch as t_batch
 from gpmpc_tpu_torch.parallel.batch import batched_gpmpc_step, dispatch_decision
+from tests._torch_threads import _one_thread  # noqa: F401
 
 CFG = dict(sqp_iters=4, qp_iters=6, kernel_linearize=True)
 SOFT = dict(CFG, soft_x_penalty=10.0)
@@ -53,17 +54,6 @@ MATRIX = [
     ((dict(CFG, kernel_linearize=False), "QUADROTOR", 25, False, "lanes"),
      ("lanes", "kernel_linearize disabled")),
 ]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU (the T = 1025 xla step below is ~10^5 of them). Restored
-    after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def spec_of(mod, name):
@@ -171,8 +161,8 @@ def _env_noise(mod):
 
 
 def _option(case):
-    """The call of an option and the ROADMAP.md item it waits for: None for
-    the options of item 8c, ported since (the call returns a tensor)."""
+    """The call of an option of ROADMAP.md items 8c and 13, ported since: it
+    returns a tensor."""
     from gpmpc_tpu_torch.envs import cartpole_env, drone, twolink_env
 
     if case.startswith("var"):
@@ -180,35 +170,32 @@ def _option(case):
         st = st._replace(traj_step=torch.ones_like(st.traj_step))  # the variances enter
         kw = {"var_backend": "xla"} if case == "var_backend" else {"var_bf16": True,
                                                                    "var_backend": "xla"}
-        return (lambda: step(model, ctrl, gp, st, obs, **kw)[0]), None
+        return lambda: step(model, ctrl, gp, st, obs, **kw)[0]
     if case == "gp_variances_bf16":
         gp = convert.load_bench_gp("cpu")
-        return (lambda: t_gpmpc.gp_variances(gp, torch.zeros(3, 2, 3), bf16=True)), None
+        return lambda: t_gpmpc.gp_variances(gp, torch.zeros(3, 2, 3), bf16=True)
     if case.startswith("noise"):
         mod = {"noise_drone": drone, "noise_cartpole": cartpole_env,
                "noise_twolink": twolink_env}[case]
-        return _env_noise(mod), None
+        return _env_noise(mod)
     traj = figure_eight_trajectory(n_steps=64, dt=0.02, device="cpu").numpy()
+    kw = dict(sqp_iters=1, qp_iters=3, parallel_scan=True, device="cpu")
     if case == "gpmpc_parallel_scan":
-        return (lambda: t_gpmpc.GPMPC(t_sym(dt=0.02), traj, {"a": 12.1432, "b": 1.8118}, horizon=4,
-                                      q_mpc=[1.0] * 12, r_mpc=[1.0] * 4, parallel_scan=True,
-                                      device="cpu")), "item 13"
-    return (lambda: t_mpc.MPC(t_sym(dt=0.02), traj, [1.0] * 12, [1.0] * 4, parallel_scan=True,
-                              device="cpu")), "item 13"
+        make = lambda: t_gpmpc.GPMPC(t_sym(dt=0.02), traj, {"a": 12.1432, "b": 1.8118},  # noqa: E731
+                                     horizon=4, q_mpc=[1.0] * 12, r_mpc=[1.0] * 4, **kw)
+    else:
+        make = lambda: t_mpc.MPC(t_sym(dt=0.02), traj, [1.0] * 12, [1.0] * 4, horizon=4,  # noqa: E731
+                                 **kw)
+    return lambda: torch.as_tensor(np.asarray(make().select_action(traj[0])))
 
 
 @pytest.mark.parametrize("case", ["var_backend", "var_bf16", "gp_variances_bf16", "noise_drone",
                                   "noise_cartpole", "noise_twolink", "gpmpc_parallel_scan",
                                   "mpc_parallel_scan"])
 def test_unported_options_raise_naming_their_item(case):
-    """`parallel_scan` (ROADMAP.md item 13) raises UnsupportedPathError
-    naming its item and never falls back. The options of item 8c that raised
-    here before (the step's variance backend and bf16 variances, plant
-    process noise) are ported: each runs and gives finite values."""
-    call, item = _option(case)
-    if item is None:
-        out = call()
-        assert out.numel() > 0 and bool(torch.isfinite(out).all())
-        return
-    with pytest.raises(t_gpmpc.UnsupportedPathError, match=item):
-        call()
+    """No option raises any more: the step's variance backend and bf16
+    variances and the plant's process noise (ROADMAP.md item 8c) and
+    `parallel_scan` in `GPMPC` and `MPC` (item 13, the associative-scan
+    Riccati on the xla path) each run and give finite values."""
+    out = _option(case)()
+    assert out.numel() > 0 and bool(torch.isfinite(out).all())

@@ -24,6 +24,7 @@ import torch
 
 from gpmpc_tpu.utils import profiling as jprof
 from gpmpc_tpu_torch.utils import profiling as tprof
+from tests._torch_threads import _one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 TINY = dict(horizon=6, sqp_iters=2, qp_iters=4, epochs=2, steps=6, iterations=10, lr=0.05,
@@ -40,14 +41,6 @@ def load_script(name: str, module: str):
 
 REF = load_script("run_gp_mpc", "ref_run_gp_mpc")
 DRV = load_script("run_gp_mpc_torch", "run_gp_mpc_torch")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 12345])

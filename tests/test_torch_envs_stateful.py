@@ -26,17 +26,7 @@ from gpmpc_tpu.envs import twolink_env as j_twolink_env
 from gpmpc_tpu_torch.envs import cartpole_env as t_cart_env
 from gpmpc_tpu_torch.envs import drone as t_drone
 from gpmpc_tpu_torch.envs import twolink_env as t_twolink_env
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU (idle workers spin and take cores from the other test
-    processes). Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests._torch_threads import _one_thread  # noqa: F401
 
 
 F32 = np.float32

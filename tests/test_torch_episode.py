@@ -27,19 +27,10 @@ from gpmpc_tpu_torch.envs import drone as t_drone
 from gpmpc_tpu_torch.envs import twolink_env as t_two_env
 from gpmpc_tpu_torch.models.symbolic import symbolic_attitude as t_sym
 from gpmpc_tpu_torch.parallel import batch as t_batch
+from tests._torch_threads import _one_thread  # noqa: F401
 
 ENVS = {"quadrotor": (j_drone, t_drone), "cartpole": (j_cart_env, t_cart_env),
         "twolink": (j_two_env, t_two_env)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU. Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("family", sorted(ENVS))

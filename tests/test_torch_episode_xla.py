@@ -14,7 +14,6 @@ bars)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from gpmpc_tpu.control import gpmpc as j_gpmpc
@@ -28,18 +27,9 @@ from gpmpc_tpu_torch.control import gpmpc as t_gpmpc
 from gpmpc_tpu_torch.envs import drone as t_drone
 from gpmpc_tpu_torch.models.symbolic import symbolic_attitude as t_sym
 from gpmpc_tpu_torch.parallel import batch as t_batch
+from tests._torch_threads import _one_thread  # noqa: F401
 
 F32 = np.float32
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU. Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_bench_gp():

@@ -14,10 +14,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 PACKAGES = ["", "models", "ops", "control", "envs", "parallel", "gp", "runtime", "utils"]
 
-# Names of the reference's __all__ that the port does not have yet, by subpackage.
-UNPORTED = {
-    "parallel": {"make_mesh", "shard_leading_axis", "init_distributed"},  # item 12, parallel/mesh.py
-}
+# Names of the reference's __all__ that the port does not have yet, by subpackage: none.
+UNPORTED: dict[str, set] = {}
 
 
 def reference_all(sub: str) -> list[str]:
@@ -46,9 +44,9 @@ def test_port_all_is_the_references_less_the_unported(sub):
 
 def test_issue_imports_work():
     """The imports a user of the reference writes, on the port, the names
-    that left UNPORTED (items 8c and 10) among them: they resolve to the
-    port's own modules, and `make_batched_controller_step` refuses a mesh
-    (item 12)."""
+    that left UNPORTED (items 8c, 10 and 12) among them: they resolve to the
+    port's own modules, and `make_batched_controller_step` takes a mesh of
+    `make_mesh` and returns its step."""
     from gpmpc_tpu_torch.control import GPMPC, MPC
     from gpmpc_tpu_torch.envs import DroneFigureEightEnv
     from gpmpc_tpu_torch.ops import sqp_solve
@@ -64,7 +62,10 @@ def test_issue_imports_work():
     assert ControlServer.__module__ == "gpmpc_tpu_torch.runtime.server"
     step = make_batched_controller_step("model", "cfg")
     assert step.func is batched_gpmpc_step and step.args == ("model", "cfg")
-    from gpmpc_tpu_torch.device import UnsupportedPathError
+    from gpmpc_tpu_torch.parallel import init_distributed, make_mesh, shard_leading_axis
 
-    with pytest.raises(UnsupportedPathError, match="item 12"):
-        make_batched_controller_step("model", "cfg", mesh=object())
+    assert make_mesh.__module__ == init_distributed.__module__ == shard_leading_axis.__module__ \
+        == "gpmpc_tpu_torch.parallel.mesh"
+    mesh = make_mesh(2, devices=["cpu", "cpu"])
+    assert mesh.devices.shape == (2,) and mesh.axis_names == ("data",)
+    assert callable(make_batched_controller_step("model", "cfg", mesh=mesh))

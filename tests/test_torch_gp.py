@@ -15,17 +15,7 @@ from gpmpc_tpu.utils.benchkit import synthetic_gp_model
 from gpmpc_tpu_torch import convert
 from gpmpc_tpu_torch.control.gpmpc import batched_variances as t_batched_variances
 from gpmpc_tpu_torch.ops import cuda_gp
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU (idle workers spin and take cores from the other test
-    processes). Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests._torch_threads import _one_thread  # noqa: F401
 
 
 F32 = np.float32

@@ -17,16 +17,7 @@ from gpmpc_tpu.models.residual import QUADROTOR_SPEC as J_QUAD, TWOLINK_SPEC as 
 from gpmpc_tpu_torch import convert
 from gpmpc_tpu_torch.control import gpmpc as tg
 from gpmpc_tpu_torch.models.residual import QUADROTOR_SPEC as T_QUAD, TWOLINK_SPEC as T_TWO
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small batched ops: torch's intra-op threads cost more than they give
-    on a shared CPU. Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests._torch_threads import _one_thread  # noqa: F401
 
 
 def _dataset(family, n, seed):

@@ -22,20 +22,9 @@ from gpmpc_tpu_torch.gp import compat as t_compat
 from gpmpc_tpu_torch.gp import exact_gp as te
 from gpmpc_tpu_torch.gp import kernels as tk
 from gpmpc_tpu_torch.gp import sparse as ts
+from tests._torch_threads import _one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The fits are hundreds of small batched ops: on a shared CPU, torch's
-    intra-op threads cost more than they give (one MLL gradient at G = 3,
-    M = 64 took 20x longer with 8 threads than with 1 on an 8-core shared
-    x86 host). Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(t):

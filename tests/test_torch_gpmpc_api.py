@@ -22,18 +22,9 @@ from gpmpc_tpu_torch.control import gpmpc as tg
 from gpmpc_tpu_torch.models import cartpole as t_cart
 from gpmpc_tpu_torch.models.symbolic import symbolic_attitude as t_sym
 from gpmpc_tpu_torch.runtime.online import OnlineLearner as TOnlineLearner
+from tests._torch_threads import _one_thread  # noqa: F401
 
 CART_Q, CART_R = [5.0, 0.1, 20.0, 0.5], [0.05]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU. Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cartpole(sparse: bool, step_backend="lanes", T=8, with_jax=True):

@@ -19,7 +19,8 @@ import gpmpc_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(gpmpc_tpu_torch.__path__, "gpmpc_tpu_torch.")]
 for name in names:
     __import__(name)
-for script in ("run_gp_mpc_torch", "eval_seeds_torch", "bench_gp_fit_torch"):
+for script in ("run_gp_mpc_torch", "eval_seeds_torch", "bench_gp_fit_torch",
+               "run_multihost_torch", "bench_scaling_torch"):
     runpy.run_path(f"scripts/{{script}}.py", run_name="probe")
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "triton", "gpmpc_tpu", "yaml",
@@ -31,8 +32,9 @@ print("LEAKED", leaked)
 
 def test_port_imports_no_jax_and_no_triton():
     """Every module of the port and the experiment scripts' module tops
-    (scripts/run_gp_mpc_torch.py, eval_seeds_torch.py, bench_gp_fit_torch.py;
-    their mains import only modules of the port): no JAX, no Triton, nothing
+    (scripts/run_gp_mpc_torch.py, eval_seeds_torch.py, bench_gp_fit_torch.py,
+    run_multihost_torch.py, bench_scaling_torch.py; their mains import only
+    modules of the port): no JAX, no Triton, nothing
     of the JAX package, and neither PyYAML nor matplotlib, which the card's
     machine does not have (matplotlib is imported only to draw)."""
     r = subprocess.run(
@@ -41,11 +43,12 @@ def test_port_imports_no_jax_and_no_triton():
     )
     assert r.returncode == 0, r.stderr
     n_modules = int(r.stdout.split("MODULES")[1].split()[0])
-    assert n_modules >= 42, r.stdout  # every module of the port was imported, device.py too
+    assert n_modules >= 45, r.stdout  # every module of the port was imported, device.py too
     for name in ("roofline", "ops.cuda_chain", "models.jacobians", "gp.kernels", "gp.exact_gp",
                  "gp.sparse", "gp.compat", "runtime.online", "utils.benchkit", "parallel.sweep",
                  "runtime.server", "runtime.native", "utils.checkpoint", "envs._stateful",
-                 "config", "utils.observations", "utils.profiling", "utils.plotting"):
+                 "config", "utils.observations", "utils.profiling", "utils.plotting",
+                 "parallel.mesh", "parallel.dryrun", "ops.riccati_parallel"):
         assert f"gpmpc_tpu_torch.{name}" in r.stdout, name
     assert "LEAKED []" in r.stdout, r.stdout
 
@@ -69,7 +72,8 @@ def test_port_sources_name_no_jax_and_no_reference_import():
         (REPO / "scripts").glob("*_torch.py"))
     assert REPO / "gpmpc_tpu_torch" / "device.py" in files
     for name in ("run_gp_mpc_torch", "eval_seeds_torch", "bench_gp_fit_torch",
-                 "serve_bench_torch", "bench_roofline_torch"):
+                 "serve_bench_torch", "bench_roofline_torch", "run_multihost_torch",
+                 "bench_scaling_torch"):
         assert REPO / "scripts" / f"{name}.py" in files, name
     assert REPO / "gpmpc_tpu_torch" / "roofline.py" in files
     for sub in ("gp", "runtime", "utils"):  # the subpackages of GP training and learning

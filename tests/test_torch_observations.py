@@ -20,17 +20,7 @@ import torch
 
 from gpmpc_tpu.utils import observations as jo
 from gpmpc_tpu_torch.utils import observations as to
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU (idle workers spin and take cores from the other test
-    processes). Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests._torch_threads import _one_thread  # noqa: F401
 
 
 ANGLE_TOL, RATE_TOL, ROUND_TRIP_TOL = 1e-6, 4e-6, 4e-6

@@ -17,17 +17,7 @@ from gpmpc_tpu.ops.pallas_ocp import solve_ocp_qp_lanes as j_solve_lanes
 from gpmpc_tpu_torch.ops import cuda_ocp
 from gpmpc_tpu_torch.ops.sqp import SqpConfig
 from gpmpc_tpu_torch.ops.sqp_lanes import MAX_LANES_HORIZON, MAX_STREAM2_HORIZON, _solve_qp_lanes
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU (idle workers spin and take cores from the other test
-    processes). Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests._torch_threads import _one_thread  # noqa: F401
 
 
 T, L = 5, 8

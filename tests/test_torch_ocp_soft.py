@@ -19,17 +19,7 @@ from gpmpc_tpu_torch.models.residual import QUADROTOR_SPEC
 from gpmpc_tpu_torch.ops import cuda_ocp, sqp_lanes
 from gpmpc_tpu_torch.ops.sqp import SqpConfig
 from gpmpc_tpu_torch.parallel.batch import dispatch_decision
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU (idle workers spin and take cores from the other test
-    processes). Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests._torch_threads import _one_thread  # noqa: F401
 
 
 L = 8

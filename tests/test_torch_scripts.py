@@ -19,6 +19,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from tests._torch_threads import _one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 SHIPPED = REPO / "scripts" / "gp_mpc_config.yaml"
@@ -35,14 +36,6 @@ def load_script(name: str, module: str):
 REF_EVAL = load_script("eval_seeds", "ref_eval_seeds")
 EVAL = load_script("eval_seeds_torch", "eval_seeds_torch")
 FIT = load_script("bench_gp_fit_torch", "bench_gp_fit_torch")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

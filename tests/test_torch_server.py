@@ -44,6 +44,7 @@ from gpmpc_tpu_torch.runtime import server as server_mod
 from gpmpc_tpu_torch.runtime.online import OnlineLearner
 from gpmpc_tpu_torch.runtime.server import DIAG_FIELDS, ControlServer
 from gpmpc_tpu_torch.utils.benchkit import replay_sessions
+from tests._torch_threads import _one_thread  # noqa: F401
 
 PRIOR = {
     "a": 12.1432, "b": 1.8118, "c": -72.08, "d": -7.5755,
@@ -55,16 +56,6 @@ HORIZON = 6
 JOIN_S = 120.0
 ENV_PARAMS = EnvParams.default()._replace(n_steps=64, traj_amplitude=0.1)
 HYPERS = ("raw_lengthscale", "raw_outputscale", "raw_noise")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU. Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_ctrl():

@@ -25,18 +25,9 @@ from gpmpc_tpu_torch.control import gpmpc as t_gpmpc
 from gpmpc_tpu_torch.control import mpc as t_mpc
 from gpmpc_tpu_torch.models.symbolic import symbolic_attitude as t_sym
 from gpmpc_tpu_torch.ops import sqp as t_sqp
+from tests._torch_threads import _one_thread  # noqa: F401
 
 F32 = np.float32
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU. Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _problem(B=3, T=10, seed=0):

@@ -4,22 +4,10 @@ suite's `--dist loadfile` runs it beside the others (the set-up and `_both_steps
 are `tests/test_torch_step_soft.py`'s)."""
 
 import numpy as np
-import pytest
-import torch
 
 from gpmpc_tpu_torch.ops import sqp_lanes as t_sqp_lanes
+from tests._torch_threads import _one_thread  # noqa: F401
 from tests.test_torch_step_soft import _both_steps, _count_calls
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU (idle workers spin and take cores from the other test
-    processes). Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_hard_step_T52_tier1_matches_jax_lanes_step(monkeypatch):

@@ -28,19 +28,10 @@ from gpmpc_tpu_torch.control import mpc as t_mpc
 from gpmpc_tpu_torch.models.symbolic import symbolic_attitude as t_sym
 from gpmpc_tpu_torch.ops import sqp_lanes as t_sqp_lanes
 from gpmpc_tpu_torch.parallel.batch import batched_gpmpc_step
+from tests._torch_threads import _one_thread  # noqa: F401
 
 F32 = np.float32
 STRESS_OUTPUTSCALE = 30.0  # chip_smoke.py's stress GP: tightenings past the boxes
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU. Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -16,19 +16,11 @@ from gpmpc_tpu_torch.models.quadrotor import PRIOR_PARAMS
 from gpmpc_tpu_torch.models.symbolic import symbolic_attitude
 from gpmpc_tpu_torch.parallel import sweep as t_sweep
 from gpmpc_tpu_torch.parallel.batch import batched_episode
+from gpmpc_tpu_torch.parallel.mesh import make_mesh
 from gpmpc_tpu_torch.utils.benchkit import Q_MPC, R_MPC
+from tests._torch_threads import _one_thread  # noqa: F401
 
 KW = dict(n_seeds=3, n_epochs=2, n_steps=24, samples_per_epoch=8, max_inducing=6, gp_iters=15)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU. Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _setup():
@@ -64,11 +56,14 @@ def test_seed_sweep_contract():
 
 
 def test_seed_sweep_refuses_the_unported_options():
-    """A mesh (ROADMAP.md item 12) raises; the xla backend runs
-    (`test_seed_sweep_on_xla`)."""
+    """Every option is ported: a mesh runs (tests/test_torch_mesh.py) and
+    refuses a seed count that does not divide over its devices, as the
+    reference does; the xla backend runs (`test_seed_sweep_on_xla`); more
+    samples than an episode's steps raise."""
     envp, model, ctrl = _setup()
-    with pytest.raises(t_gpmpc.UnsupportedPathError, match="mesh.*item 12"):
-        t_sweep.seed_sweep(model, ctrl.cfg, envp, ctrl.consts, mesh=object(), **KW)
+    mesh = make_mesh(2, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="n_seeds=3 must divide over 2 devices"):
+        t_sweep.seed_sweep(model, ctrl.cfg, envp, ctrl.consts, mesh=mesh, **KW)
     with pytest.raises(ValueError, match="samples_per_epoch"):
         t_sweep.seed_sweep(model, ctrl.cfg, envp, ctrl.consts, **dict(KW, samples_per_epoch=30))
 

@@ -42,6 +42,7 @@ from gpmpc_tpu_torch import convert
 from gpmpc_tpu_torch.control.gpmpc import GPMPC as TGPMPC
 from gpmpc_tpu_torch.gp import exact_gp as te
 from gpmpc_tpu_torch.models import twolink as t_two
+from tests._torch_threads import _one_thread  # noqa: F401
 
 N_STEPS, TAIL, ITERS, LR = 150, 50, 500, 0.05
 KW = dict(horizon=20, q_mpc=[20.0, 20.0, 0.5, 0.5], r_mpc=[0.1, 0.1], sparse_gp=False,
@@ -50,14 +51,6 @@ KW = dict(horizon=20, q_mpc=[20.0, 20.0, 0.5, 0.5], r_mpc=[0.1, 0.1], sparse_gp=
 # the two controllers on one GP: the same tail-cost ratio to this bar (they read
 # equal to 4 digits on the CPU; the bar leaves room for another CPU's rounding)
 CONTROLLER_BAR = 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rollout(env, x0, act):

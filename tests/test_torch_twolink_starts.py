@@ -25,17 +25,7 @@ from gpmpc_tpu.models import twolink as j_two
 from gpmpc_tpu_torch.control.gpmpc import GPMPC as TGPMPC
 from gpmpc_tpu_torch.envs import twolink_env as t_env
 from gpmpc_tpu_torch.models import twolink as t_two
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU (idle workers spin and take cores from the other test
-    processes). Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests._torch_threads import _one_thread  # noqa: F401
 
 
 N_STEPS, TAIL, MAX_RATIO, AGREE = 150, 50, 0.6, 0.03

@@ -44,22 +44,12 @@ from gpmpc_tpu_torch.gp.exact_gp import softplus
 from gpmpc_tpu_torch.gp.kernels import se_kernel
 from gpmpc_tpu_torch.models.symbolic import symbolic_attitude as t_sym
 from gpmpc_tpu_torch.parallel.batch import batched_gpmpc_step
+from tests._torch_threads import _one_thread  # noqa: F401
 
 F32 = np.float32
 HYPERS = ("raw_lengthscale", "raw_outputscale", "raw_noise")
 ULP = 2.0**-23
 T, B = 6, 3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Small ops: torch's intra-op threads cost more than they give on a
-    shared CPU (and a fresh process's first parallel op is sometimes off,
-    `scripts/check_first_parallel_op_torch.py`). Restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def gp_leaves(family: str, population: int = 0) -> dict:

@@ -77,8 +77,10 @@ Phases, each printing its own lines:
   0. the card's name and power limit (nvidia-smi), then the kernel build:
      one nvcc per source in parallel, each source's time and ptxas's
      register and spill report for every instantiation (kernels 7, 8 and
-     9's on lines of their own; a stack frame or a spill of kernel 7 or 8,
-     which keep their whole matrix in registers, fails the run); the
+     9's and kernel 1's tiled kernels' on lines of their own; a stack frame
+     or a spill of kernel 7 or 8, which keep their whole matrix in
+     registers, fails the run); kernel 1's tiled shared memory a block
+     against `cuda_gp.TILED_SHARED_BYTES` (a difference fails the run); the
      resident QP kernel's launch geometry at
      each width (team, scenarios per block, cluster, shared memory, blocks
      at B=1024 and B=256), which all three QP tiers share; the workspace the
@@ -91,7 +93,8 @@ Phases, each printing its own lines:
      kernel's device time with calls back to back (`device_ms`), the least
      time the card could take (`bound_ms`, see `Bound`) and, for kernel 2,
      one torch.matmul that gives the same variances (`library_ms`, see
-     `tighten_library_ms`); for the QP kernels the IP iterations each tile
+     `tighten_library_ms`), for kernel 1 one torch.matmul of its kernel rows
+     by W (`gp_library_ms`); for the QP kernels the IP iterations each tile
      ran, which for kernels 5 and 6 must equal the plain version's. The GP entry of
      a path is the multi-GP wrapper (all of a step's GPs in one launch).
      First of all the three chain
@@ -115,8 +118,11 @@ Phases, each printing its own lines:
      tiled instantiation at M = 136, 304, 512 and 2,048, on leaves at their
      own lengthscales and at 40 points' density, held against the float64
      value within 1e-4 + the plain version's own distance, with planted
-     faults that must fall outside that bar, `gp_f64_check`), the resident
-     kernel on the quadrotor
+     faults that must fall outside that bar, `gp_f64_check`; each case
+     called twice more must give the same bits), the tiled kernel's DMMA
+     fragment layout (`dmma_layout_check`), the tiled kernel's float64 sums
+     on the learned paths' register-bucket GPs (`f64_sums_on_bucket_gps`),
+     the resident kernel on the quadrotor
      path's captured QP cut to two tiles (B=256) beside the whole one, the
      resident kernel called directly on the T=100 path's QP beside tier 1
      (the same solution bit for bit and the same per-tile counts, or the
@@ -309,9 +315,10 @@ TWOLINK_STARTS = (
     (-1.5756747722625732, 1.1218749284744263, 0.45597270131111145, 0.15213492512702942),
 )
 # scripts/eval_seeds.py's quadrotor sweep (16 seeds) at scripts/gp_mpc_config.yaml's settings,
-# the episode cut from 300 steps to 30
+# the episode cut from 300 steps to 20 (it was 30 until a slow host took the whole smoke to
+# 1,120 of its 1,200 s)
 SWEEP = dict(n_seeds=16, T=25, sqp_iters=12, qp_iters=12, n_epochs=2, samples_per_epoch=15,
-             max_inducing=40, gp_iters=500, gp_lr=0.001, n_steps=30)
+             max_inducing=40, gp_iters=500, gp_lr=0.001, n_steps=20)
 # F7: the multi-GP kernel past 128 live points (the tiled instantiation): (G, D, live, N)
 F7_CASES = [(G, D, m, 25_637) for m in (136, 304, 512) for G, D in ((2, 6), (3, 3))] + [
     (2, 6, 2048, 4096), (3, 3, 2048, 4096)]
@@ -542,6 +549,24 @@ def tighten_library_ms(args) -> float:
     M = M[:, : t * (nx + Bd_in.shape[1]) + nx].contiguous()  # no input columns at k = T
     D = cov_dn.reshape(b, t * nd)
     return timed(lambda: torch.matmul(D, M))[0]
+
+
+def gp_library_ms(args, tiled: bool | None = None) -> float:
+    """The yardstick of kernel 1: one torch.matmul of the kernel rows k
+    (G, N, M) by W (G, M, M), k formed beforehand, which gives the quadratic
+    form's products; in float64 (cuBLAS DGEMM, the tiled kernel's
+    precision) where the call takes the tiled kernel (`tiled`, by default
+    as the wrapper picks it by M), else in float32 with TF32 off. The port
+    never calls it."""
+    z, form = args[:2]
+    G, _, D = z.shape
+    if tiled is None:
+        tiled = cuda_gp.gp_geometry(form.Z.shape[1], D).bucket == 0
+    dtype = torch.float64 if tiled else torch.float32
+    k = torch.stack([gp_mod.se_kernel(z[g], form.Z[g], form.lengthscale[g], form.outputscale[g])
+                     * form.mask[g] for g in range(G)]).to(dtype)
+    W = form.W.to(dtype)
+    return timed(lambda: torch.matmul(k, W))[0]
 
 
 # nonzeros of the continuous-time Jacobians (Jx, Ju) of each family's closure
@@ -1121,8 +1146,9 @@ def check_kernels(prob: Problem, results: dict, captured: dict) -> None:
             a_r, k_r = rand[T][name]
             label = "random" if T == path.T else f"random T={T}"
             worst = max(worst, compare(entry, label, kind, fn, plain, a_r, k_r, time_plain=False)[0])
-        # kernel 2's yardstick; no single PyTorch call computes kernels 1, 3 or the QP
-        library_ms = tighten_library_ms(a) if name == "tighten" else None
+        # kernels 1 and 2's yardsticks; no single PyTorch call computes kernel 3 or the QP
+        library_ms = (tighten_library_ms(a) if name == "tighten" else gp_library_ms(a)
+                      if name == "gp_posterior" else None)
         results[entry] = result_entry(entry, src, replaces, worst, ms_k, ms_p, bnd,
                                       library_ms=library_ms, dev_ms=dev_ms)
         prob.rates[name] = bnd.flops / (1e-3 * ms_k)  # operations/s the kernel reached
@@ -1159,10 +1185,15 @@ def random_gp_leaves(G: int, D: int, seed: int, m: int = 128, n_live: int = 40,
     return Z, alpha, W, ell, sf2, noise, mask
 
 
-def check_gp_kernel_level(dev, extra: list) -> None:
+def check_gp_kernel_level(dev, extra: list, captured: dict) -> None:
     """Phase 1 for kernel 1 beyond the paths: the multi-GP kernel against its
     plain version at G = 2 and 3, D = 3 and 6, N = 25,637 (not a multiple of
-    the 128-query tile), on GPs whose live points are not a prefix."""
+    the 128-query tile), on GPs whose live points are not a prefix; the
+    tiled kernel's DMMA fragment layout (`dmma_layout_check`); F7, past 128
+    live points, where every case is also called twice more and must give
+    the same bits (its partials are summed in a fixed order, no atomics);
+    then the tiled kernel on the learned paths' register-bucket GPs
+    (`f64_sums_on_bucket_gps`)."""
     fn, plain, src, replaces = KERNELS["gp_posterior"]
     n = 25_637
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
@@ -1176,7 +1207,8 @@ def check_gp_kernel_level(dev, extra: list) -> None:
             err, ms_k, ms_p, out_k, dev_ms = compare(entry, f"M={form.Z.shape[1]}", "gp_posterior",
                                                      fn, plain, a, k)
             extra.append(result_entry(entry, src, replaces, err, ms_k, ms_p, bound_gp(a, out_k),
-                                      dev_ms=dev_ms))
+                                      library_ms=gp_library_ms(a), dev_ms=dev_ms))
+    dmma_layout_check(dev)
     # F7: past 128 live points, the tiled instantiation (any M)
     for density in F7_DENSITIES:
         for G, D, m, n in F7_CASES:
@@ -1193,8 +1225,74 @@ def check_gp_kernel_level(dev, extra: list) -> None:
             a, k = (z, form), {"include_noise": True}
             err, ms_k, ms_p, out_k, dev_ms = compare(entry, f"M={form.Z.shape[1]}",
                                                      "gp_posterior_f64", fn, plain, a, k)
+            again = [fn(*a, **k) for _ in range(2)]
+            if not all(torch.equal(x, y) for o in again for x, y in zip(o, out_k)):
+                raise RuntimeError(f"{entry}: two calls on the same inputs gave different bits")
             extra.append(result_entry(entry, src, replaces, err, ms_k, ms_p, bound_gp(a, out_k),
-                                      dev_ms=dev_ms))
+                                      library_ms=gp_library_ms(a), dev_ms=dev_ms))
+    say(f"[phase 1] gp_posterior_tiled: every F7 case gave the same bits in three calls "
+        f"(plan {cuda_gp.gp_tiled_plan(3, 4096, 2048, 3)} at M=2,048, N=4,096, G=3)")
+    f64_sums_on_bucket_gps(captured, extra)
+
+
+def dmma_layout_check(dev) -> None:
+    """The tiled kernel's FP64 tensor-core fragments (`cuda_gp.dmma_probe`,
+    one warp through the kernel's own fragment loads, K-slab columns and
+    accumulator layout): exact products of identity and permutation blocks,
+    which name the lane whose register lands anywhere else; a random
+    product within 1e-13."""
+    f64 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float64), device=dev)  # noqa: E731
+    wrong = 0
+    for a, b in cuda_gp.dmma_probe_cases():
+        got, want = cuda_gp.dmma_probe(f64(a), f64(b)), f64(a @ b)
+        wrong += int((got != want).sum())
+    rng = np.random.default_rng(1)
+    a, b = rng.normal(size=(32, cuda_gp.PROBE_K)), rng.normal(size=(cuda_gp.PROBE_K, cuda_gp.PROBE_N))
+    err = float((cuda_gp.dmma_probe(f64(a), f64(b)) - f64(a @ b)).abs().max())
+    say(f"[phase 1] gp_posterior_tiled DMMA layout: {wrong} entries of {3 * 32 * cuda_gp.PROBE_N} "
+        f"wrong in the identity and permutation products (32 x {cuda_gp.PROBE_K} by "
+        f"{cuda_gp.PROBE_K} x {cuda_gp.PROBE_N}); a random product {err:.3e} off (bar 1e-13)")
+    if wrong or not err <= 1e-13:
+        raise RuntimeError("the tiled GP kernel's DMMA fragments land in the wrong places")
+
+
+def f64_sums_on_bucket_gps(captured: dict, extra: list) -> None:
+    """The float64 sums of the tiled kernel on the register buckets' GPs,
+    measured at kernel level only (no path switches): on `quadrotor-learned`'s
+    and `quadrotor-gp5k`'s captured forms, each instantiation's distance from
+    the float64 value of the same float32 inputs and its device ms, and the
+    planted fault k W k^T dropped in bars of each."""
+    fn, plain, src, replaces = KERNELS["gp_posterior"]
+    for path_name in ("quadrotor-learned", "quadrotor-gp5k"):
+        if "gp_posterior" not in captured.get(path_name, {}):
+            continue
+        (z, form), k = captured[path_name]["gp_posterior"][0][:2], captured[path_name]["gp_posterior"][1]
+        f64 = cuda_gp.GpForm(*[x.double() for x in form])
+        out_64 = cuda_gp.gp_mean_var_multi_plain(z.double(), f64, **k)
+        no_quad = cuda_gp.gp_mean_var_multi_plain(z.double(), f64._replace(W=torch.zeros_like(f64.W)),
+                                                  **k)[1]
+        fault = min(float((no_quad[g] - out_64[1][g]).abs().max()) for g in range(z.shape[0]))
+        dist = lambda o: [float((x.double() - y).abs().max()) for x, y in zip(o, out_64)]  # noqa: E731
+        bucket = cuda_gp.gp_geometry(form.Z.shape[1], z.shape[2]).bucket
+        rows = []
+        for name, call in ((f"bucket {bucket}", lambda: fn(z, form, **k)),
+                           ("tiled", lambda: fn(z, form, tiled=True, **k))):
+            out = call()
+            d = dist(out)
+            ms = device_ms(call)
+            rows.append((name, d, ms))
+            say(f"[phase 1] {path_name} GP (G={z.shape[0]}, N={z.shape[1]}, M={form.Z.shape[1]}) "
+                f"{name}: max|out - float64| mean {d[0]:.3e}, var {d[1]:.3e}; the dropped k W k^T "
+                f"fault {fault:.3e} reads {fault / (1e-4 + d[1]):.3g} bars (1e-4 + its distance) "
+                f"out; device {ms:.4f} ms")
+            if name == "tiled":
+                extra.append(result_entry(
+                    f"gp_posterior_tiled[{path_name}]", src, replaces, max(d), timed(call)[0], None,
+                    bound_gp((z, form), out), library_ms=gp_library_ms((z, form), tiled=True),
+                    dev_ms=ms))
+        say(f"[phase 1] {path_name} GP: float64 sums cost {rows[1][2] - rows[0][2]:+.4f} ms a launch "
+            f"({rows[1][2] / rows[0][2]:.2f}x) and move the variance's distance from float64 from "
+            f"{rows[0][1][1]:.3e} to {rows[1][1][1]:.3e}")
 
 
 def check_kernel_level_only(dev, captured: dict, extra: list) -> None:
@@ -1503,7 +1601,8 @@ def check_captured(path: SmokePath, path_name: str, cap, launches: dict, results
         live = path.B if name == "qp" and path.B % LANES else None
         err, ms_k, ms_p, out_k, dev_ms = compare(entry, "real step", kind, fn, plain, a, k,
                                                  live_lanes=live)
-        library_ms = tighten_library_ms(a) if name == "tighten" else None
+        library_ms = (tighten_library_ms(a) if name == "tighten" else gp_library_ms(a)
+                      if name == "gp_posterior" else None)
         results[entry] = result_entry(entry, src, replaces, err, ms_k, ms_p,
                                       kernel_bound(name, fn, a, k, out_k), library_ms=library_ms,
                                       dev_ms=dev_ms)
@@ -1584,6 +1683,11 @@ def twolink_exact_learned(dev, results: dict) -> None:
         f"{cost_prior[tail].mean():.5f} -> GP {cost_gp[tail].mean():.5f}; bar < "
         f"{cfg['max_ratio']}), clamp_frac {clamp}")
     PATHS["twolink-exact-learned"] = path
+    z_cap, form_cap = cap.args["gp_posterior"][0][:2]
+    G, n_q, D = z_cap.shape
+    say(f"[learn] twolink-exact-learned: kernel 1's captured launch has z {tuple(z_cap.shape)} "
+        f"(G, N, D) against M={form_cap.Z.shape[1]} points; "
+        f"{cuda_gp.gp_tiled_plan(G, n_q, form_cap.Z.shape[1], D)}")
     check_captured(path, "twolink-exact-learned", cap, launches, results, gp_kind="gp_posterior_f64")
     if not ratio < cfg["max_ratio"] or clamp != 0.0:
         raise RuntimeError(f"twolink-exact-learned: tail-cost ratio {ratio} or clamp_frac {clamp}")
@@ -1591,7 +1695,7 @@ def twolink_exact_learned(dev, results: dict) -> None:
 
 def quadrotor_sweep(dev, results: dict) -> None:
     """`seed_sweep(backend="lanes")` at scripts/eval_seeds.py's quadrotor
-    settings (`SWEEP`; the episode cut from 300 steps to 30): every epoch's
+    settings (`SWEEP`; the episode cut from 300 steps to 20): every epoch's
     episodes run the 16 seeds as one GP population (kernels 2 and 4). The
     cost matrix, each epoch's wall and fit time; the kernels on the first
     step's captured inputs."""
@@ -2551,6 +2655,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(f"[phase 0] ptxas: {line.strip()}")
     for e in ptxas_entries(_build.BuildInfo.log):
+        if any(k in e["entry"] for k in ("tiled_kernel", "tiled_reduce", "dmma_probe")):
+            say(f"[phase 0] ptxas, kernel 1 tiled ({e['entry']}): {e['registers']} registers, "
+                f"{e['stack']} bytes stack frame, {e['spill_stores']} / {e['spill_loads']} bytes "
+                "spill stores / loads")
         if (kernel := chain_kernel_number(e["entry"])) is None:
             continue
         say(f"[phase 0] ptxas, kernel {kernel} ({e['entry']}): {e['registers']} registers, "
@@ -2559,6 +2667,12 @@ def main() -> int:
         if kernel in (7, 8) and (e["stack"] or e["spill_stores"] or e["spill_loads"]):
             raise RuntimeError(f"kernel {kernel} keeps its matrix in local memory, not registers")
     lib = _build.load_library()
+    say(f"[phase 0] kernel 1 tiled: {lib.gp_tiled_shared_bytes()} bytes of shared memory a block "
+        f"(cuda_gp.TILED_SHARED_BYTES {cuda_gp.TILED_SHARED_BYTES}), {cuda_gp.WAVE_TARGET} blocks "
+        f"the row split aims at; plan at the two-link exact GP's B = 1 launch "
+        f"{cuda_gp.gp_tiled_plan(2, 20, 304, 6)}")
+    if lib.gp_tiled_shared_bytes() != cuda_gp.TILED_SHARED_BYTES:
+        raise RuntimeError("cuda_gp.TILED_SHARED_BYTES disagrees with the library's")
     for nx, nu in ((12, 4), (4, 1), (4, 2)):
         g = cuda_ocp.resident_geometry(nx, nu, LANES)
         lib_bytes = [getattr(lib, k + "_shared_bytes")(nx, nu, g.scenarios_per_block)
@@ -2631,7 +2745,7 @@ def main() -> int:
     stress = lambda gp: gp._replace(hypers=gp.hypers._replace(  # noqa: E731
         raw_outputscale=torch.full_like(gp.hypers.raw_outputscale, STRESS_OUTPUTSCALE)))
     closed_loop(Problem("quadrotor-soft", dev, gp_edit=stress), results, stress=True)
-    check_gp_kernel_level(dev, extra)
+    check_gp_kernel_level(dev, extra, captured)
     check_kernel_level_only(dev, captured, extra)
     say(f"[time] kernel-level checks done at {time.perf_counter() - t_run:.0f} s")
     if "--profile" in sys.argv[1:]:

@@ -35,8 +35,11 @@ _F = ctypes.c_float
 
 # C entry points: name -> argtypes. Every one returns cudaGetLastError() as int.
 SIGNATURES = {
-    # z, Zt, alpha, W, mask, hyp, G, n, m, d, include_noise, bucket, mean, var, stream
-    "gp_posterior_launch": [_P] * 6 + [_I] * 6 + [_P] * 3,
+    # z, Zt, alpha, W, mask, hyp, G, n, m, d, include_noise, bucket, splits, shared_bytes, ws,
+    # mean, var, stream
+    "gp_posterior_launch": [_P] * 6 + [_I] * 8 + [_P] * 4,
+    # A, B, D, stream: the tiled GP kernel's DMMA fragments alone
+    "gp_dmma_probe_launch": [_P] * 4,
     # covdn, A, B, K, Bd, ppf, B, T, nd, nx, nu, wsq, tx, tu, stream
     "tighten_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # family, nx, nu, par8, hyp, X, U, Zs, alpha, n_tiles, T, L, Ms, use_gp, dt, fnext, A, B, stream
@@ -170,6 +173,8 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.gp_tiled_shared_bytes.argtypes = []
+    lib.gp_tiled_shared_bytes.restype = ctypes.c_int
     lib.cudaGetErrorString_wrapper.argtypes = [ctypes.c_int]
     lib.cudaGetErrorString_wrapper.restype = ctypes.c_char_p
     for name in OCP_IP_KERNELS:

@@ -6,6 +6,8 @@ Port of `gpmpc_tpu/ops/pallas_gp.py::gp_mean_var`. The CUDA kernel is
 instantiation), from a form packed once per ensemble (`pack_form`:
 the live inducing points only, Z transposed, the hyperparameters as the
 kernel reads them). `gp_mean_var` takes one GP, through the same wrapper.
+Past 128 points the sums run in float64, on the FP64 tensor cores, over a
+grid split along W's tiles (`gp_tiled_plan`).
 `gp_mean_var_plain` is the function in plain PyTorch, which the wrappers run
 for CPU tensors. Strict float32 throughout: run the plain version on a card
 only with TF32 off
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from gpmpc_tpu_torch import _build
@@ -26,17 +29,33 @@ from gpmpc_tpu_torch.ops._wrap import check, route
 POINT_BLOCK = 8  # the kernel's points come in blocks of 8 (csrc/gp_posterior.cu JB)
 REGISTER_BUCKETS = (64, 128)  # the kernel row in registers, templated on a bucket >= M
 MAX_DIMS = 8
-QTILE = 128  # queries (threads) a block, in both kernels
-TILE_ROWS, TILE_COLS = 32, 64  # the tiled kernel's W tile (csrc/gp_posterior.cu TI, TJ)
+QTILE = 128  # queries (threads) a block of the register buckets
+# The tiled kernel (csrc/gp_posterior.cu QT, TK, TJ): a block's tile of QUERY_TILE
+# queries x TILE_COLS columns of W, its rows staged TILE_ROWS at a time.
+QUERY_TILE, TILE_ROWS, TILE_COLS = 64, 32, 128
+SMS = 132  # an H100 SXM's streaming multiprocessors
+TILED_BLOCKS_PER_SM = 1  # resident tiled blocks an SM holds (shared memory, registers)
+WAVE_TARGET = 2 * SMS * TILED_BLOCKS_PER_SM  # blocks the row split aims the grid at
+COLUMN_WARPS = 4  # the tiled kernel's consumer warps along a tile's columns, 2 along its queries
+RING_STAGES = 2  # float32 stages in flight in its ring
+# a tiled block's shared memory at any M and D: two buffers each of the W
+# slab and the K slab in float64 with rows padded by 4, the column warps'
+# exchange, a ring of float32 stages (W slab, the rows' points at MAX_DIMS,
+# their mask), the queries, the column tile's points, mask and alpha
+TILED_SHARED_BYTES = 8 * (2 * TILE_ROWS * (TILE_COLS + 4) + 2 * QUERY_TILE * (TILE_ROWS + 4)
+                          + 2 * (COLUMN_WARPS - 1) * QUERY_TILE) + 4 * (
+    RING_STAGES * (TILE_ROWS * TILE_COLS + MAX_DIMS * TILE_ROWS + TILE_ROWS)
+    + QUERY_TILE * MAX_DIMS + MAX_DIMS * TILE_COLS + 2 * TILE_COLS)
 
 
 class GpGeometry(NamedTuple):
     """The instantiation of `csrc/gp_posterior.cu` that serves M points in D
     dimensions: `bucket` 64 or 128 (the kernel row in registers, W whole in
-    shared memory) or 0 (the tiled kernel, any M: every input streamed
-    through shared memory in tiles, so a block's share does not grow with
-    M; its sums run in float64), and the shared memory a block asks for. The C launcher takes
-    `bucket` and refuses any other."""
+    shared memory) or 0 (the tiled kernel, any M: W streamed through shared
+    memory in tiles, so a block's share does not grow with M; its sums run
+    in float64 on the FP64 tensor cores, its split in `gp_tiled_plan`), and
+    the shared memory a block asks for. The C launcher takes `bucket` and
+    refuses any other."""
 
     bucket: int
     shared_bytes: int
@@ -50,10 +69,58 @@ def gp_geometry(m: int, d: int) -> GpGeometry:
     for bucket in REGISTER_BUCKETS:
         if m <= bucket:
             return GpGeometry(bucket, 4 * (m * m + (d + 2) * m + m * QTILE))
-    # the W tile in float64, the column tile's k_j per query, both tiles'
-    # points (at MAX_DIMS) and masks, and the row tile's alpha
-    return GpGeometry(0, 8 * TILE_ROWS * TILE_COLS + 4 * (
-        TILE_COLS * QTILE + (MAX_DIMS + 2) * TILE_ROWS + (MAX_DIMS + 1) * TILE_COLS))
+    return GpGeometry(0, TILED_SHARED_BYTES)
+
+
+class GpTiledPlan(NamedTuple):
+    """The tiled kernel's launch for G GPs of M points and N queries: the
+    grid (query tiles, column tiles x splits, G); W's rows in `stages` of
+    TILE_ROWS, cut into `splits` ranges of `stages_per_split` (the last may
+    be shorter); a float64 workspace (G, partials, N) of per-query partials,
+    col_tiles x splits of k W k^T, then col_tiles of the mean. The C
+    launcher computes the same split and refuses any other."""
+
+    query_tiles: int
+    col_tiles: int
+    stages: int
+    splits: int
+    stages_per_split: int
+    grid: tuple
+    workspace: tuple
+    shared_bytes: int
+
+    def block(self, y: int, m: int) -> tuple:
+        """What block row `y` of the grid sums: (its W rows, its W columns,
+        as ranges clipped to M; the index of its k W k^T partial; the index
+        of its mean partial, or None past the first row range)."""
+        col, split = divmod(y, self.splits)
+        s0 = split * self.stages_per_split
+        s1 = min(self.stages, s0 + self.stages_per_split)
+        rows = range(s0 * TILE_ROWS, min(m, s1 * TILE_ROWS))
+        cols = range(col * TILE_COLS, min(m, (col + 1) * TILE_COLS))
+        return rows, cols, y, self.col_tiles * self.splits + col if split == 0 else None
+
+
+def gp_tiled_plan(G: int, n: int, m: int, d: int) -> GpTiledPlan:
+    """The rows are split only as far as the grid needs to reach
+    WAVE_TARGET blocks (two waves of resident blocks on every SM), at most
+    into one stage a range: the longest ranges that reach it, then balanced
+    (queries and column tiles come first)."""
+    gp_geometry(m, d)
+    if G < 1 or n < 1:
+        raise ValueError(f"gp_posterior kernel needs G > 0 GPs and N > 0 queries (G={G}, N={n})")
+    query_tiles = -(-n // QUERY_TILE)
+    col_tiles = -(-m // TILE_COLS)
+    stages = -(-m // TILE_ROWS)
+    want = -(-WAVE_TARGET // (query_tiles * col_tiles * G))
+    per = stages
+    while per > 1 and -(-stages // per) < want:
+        per -= 1
+    splits = -(-stages // per)
+    per = -(-stages // splits)
+    return GpTiledPlan(query_tiles, col_tiles, stages, splits, per,
+                       (query_tiles, col_tiles * splits, G), (G, col_tiles * (splits + 1), n),
+                       TILED_SHARED_BYTES)
 
 
 def gp_mean_var_plain(
@@ -158,13 +225,15 @@ def _check_form(z: torch.Tensor, form: GpForm) -> None:
 
 
 def gp_mean_var_multi(
-    z: torch.Tensor, form: GpForm, include_noise: bool = False
+    z: torch.Tensor, form: GpForm, include_noise: bool = False, tiled: bool = False
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper with `gp_mean_var_multi_plain`'s signature: all G GPs
     in one launch, of `gp_posterior_kernel` (the kernel row in registers)
-    up to 128 points and of `gp_posterior_tiled_kernel` (W streamed through
-    shared memory in tiles) past that (`gp_geometry`). CPU tensors take the
-    plain version."""
+    up to 128 points and of the tiled kernel (W streamed through shared
+    memory in tiles, float64 sums on the FP64 tensor cores, its partials
+    summed by a second small kernel) past that (`gp_geometry`). `tiled`
+    takes the tiled kernel at any M (a kernel-level measurement of its
+    float64 sums; no path sets it). CPU tensors take the plain version."""
     _check_form(z, form)
     if route(z.device) == "plain":
         return gp_mean_var_multi_plain(z, form, include_noise)
@@ -172,17 +241,68 @@ def gp_mean_var_multi(
     m = form.Z.shape[1]
     if n == 0:
         raise ValueError("gp_posterior kernel needs N > 0 queries")
+    for name in ("W", "Zt", "mask"):  # read as 16-byte chunks
+        if getattr(form, name).data_ptr() % 16:
+            raise ValueError(f"gp_posterior kernel needs form.{name} 16-byte aligned")
     geometry = gp_geometry(m, d)
+    p = _build.ptr
     mean = torch.empty(G, n, dtype=torch.float32, device=z.device)
     var = torch.empty(G, n, dtype=torch.float32, device=z.device)
-    p = _build.ptr
+    if tiled or geometry.bucket == 0:
+        plan = gp_tiled_plan(G, n, m, d)
+        try:
+            ws = torch.empty(plan.workspace, dtype=torch.float64, device=z.device)
+        except torch.OutOfMemoryError as e:
+            raise ValueError(
+                f"gp_posterior: the tiled kernel's workspace {plan.workspace} (float64) takes "
+                f"{8 * G * plan.workspace[1] * n} bytes, more than the card can allocate; ask "
+                "for fewer queries per call") from e
+        launch = (0, plan.splits, plan.shared_bytes, p(ws))
+    else:
+        launch = (geometry.bucket, 0, geometry.shared_bytes, None)
     _build.launch(
         "gp_posterior_launch", p(z), p(form.Zt), p(form.alpha), p(form.W), p(form.mask),
-        p(form.hyp), G, n, m, d, int(include_noise), geometry.bucket, p(mean), p(var),
+        p(form.hyp), G, n, m, d, int(include_noise), *launch, p(mean), p(var),
         _build.stream_handle(z.device),
     )
     gp_mean_var_multi.launches += 1
     return mean, var
+
+
+PROBE_K = 16  # the depth of dmma_probe's product (csrc/gp_posterior.cu PROBE_K)
+
+
+def dmma_probe_cases(seed: int = 0) -> list:
+    """(a, b) pairs for `dmma_probe` whose products are exact in float64
+    (numpy): identity blocks, permutations scaled by their row and column
+    numbers, and permutations of the integers below 32 x 16 and 16 x 32."""
+    rng = np.random.default_rng(seed)
+    k, n = PROBE_K, PROBE_N
+    eye = np.eye(k)
+    return [(np.tile(eye, (32 // k, 1)), np.tile(eye, (1, n // k))),
+            (np.tile(eye[rng.permutation(k)], (32 // k, 1)) * np.arange(1, 33)[:, None],
+             np.tile(eye[rng.permutation(k)], (1, n // k)) * np.arange(1, n + 1)[None, :]),
+            (rng.permutation(32 * k).reshape(32, k).astype(np.float64),
+             rng.permutation(k * n).reshape(k, n).astype(np.float64))]
+
+
+PROBE_N = TILE_COLS // COLUMN_WARPS  # a consumer warp's columns
+
+
+def dmma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (32, 16) @ b (16, 32) in float64 through the tiled kernel's DMMA
+    fragments and accumulator layout, one warp (`gp_dmma_probe_kernel`): run
+    with identity and permutation matrices it shows which lane's register
+    lands where. Not a port of a TPU kernel and not counted. CPU tensors
+    take `a @ b`."""
+    check("a", a, (32, PROBE_K), a.device, torch.float64)
+    check("b", b, (PROBE_K, PROBE_N), a.device, torch.float64)
+    if route(a.device) == "plain":
+        return a @ b
+    out = torch.empty(32, PROBE_N, dtype=torch.float64, device=a.device)
+    p = _build.ptr
+    _build.launch("gp_dmma_probe_launch", p(a), p(b), p(out), _build.stream_handle(a.device))
+    return out
 
 
 def gp_mean_var(

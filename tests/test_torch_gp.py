@@ -282,13 +282,10 @@ def test_wrapper_picks_the_instantiation_by_m(monkeypatch, n_live, bucket):
     """On the kernel route the wrapper hands the launcher the instantiation
     `gp_geometry` names for the packed form's M (the launch itself stubbed:
     no card here): the kernel row in registers at bucket 64 or 128 up to 128
-    live points, the tiled kernel (bucket 0) past them, with no raise and no
-    plain fallback; one launch counted."""
-    calls = []
-    monkeypatch.setattr(cuda_gp, "route", lambda device: "kernel")
-    monkeypatch.setattr(cuda_gp._build, "launch", lambda entry, *a: calls.append((entry, a)))
-    monkeypatch.setattr(cuda_gp._build, "stream_handle", lambda device: 0)
-    monkeypatch.setattr(cuda_gp, "gp_mean_var_multi_plain", None)  # no fallback to it
+    live points, with no split and no workspace; the tiled kernel (bucket 0)
+    past them, with `gp_tiled_plan`'s split and a float64 workspace of its
+    shape; no raise and no plain fallback; one launch counted."""
+    calls, empties = _stub_launch(monkeypatch)
     z, leaves = make_multi(G=2, n=70, d=6, m=n_live + 8, n_live=n_live)
     form = cuda_gp.pack_form(*(torch.as_tensor(a) for a in leaves))
     m = form.Z.shape[1]
@@ -300,23 +297,162 @@ def test_wrapper_picks_the_instantiation_by_m(monkeypatch, n_live, bucket):
     assert mean.shape == var.shape == (2, 70) and cuda_gp.gp_mean_var_multi.launches == before + 1
     (entry, args), = calls
     assert entry == "gp_posterior_launch"
-    assert args[6:12] == (2, 70, m, 6, 1, bucket) and args[14] == 0
-    tiled = 8 * cuda_gp.TILE_ROWS * cuda_gp.TILE_COLS + 4 * (
-        cuda_gp.TILE_COLS * cuda_gp.QTILE + 10 * cuda_gp.TILE_ROWS + 9 * cuda_gp.TILE_COLS)
     whole = 4 * (m * m + 8 * m + m * cuda_gp.QTILE)
-    assert geometry.shared_bytes == (tiled if bucket == 0 else whole)
+    if bucket:
+        assert args[6:14] == (2, 70, m, 6, 1, bucket, 0, whole) and args[14] is None
+        assert geometry.shared_bytes == whole and empties == [(2, 70), (2, 70)]
+    else:
+        plan = cuda_gp.gp_tiled_plan(2, 70, m, 6)
+        assert args[6:14] == (2, 70, m, 6, 1, 0, plan.splits, cuda_gp.TILED_SHARED_BYTES)
+        assert geometry.shared_bytes == plan.shared_bytes == cuda_gp.TILED_SHARED_BYTES
+        assert empties == [(2, 70), (2, 70), plan.workspace]
+        assert plan.workspace == (2, plan.col_tiles * (plan.splits + 1), 70)
+    assert args[17] == 0
     assert geometry.shared_bytes <= 227 * 1024
     with pytest.raises(ValueError, match="multiple of 8"):
         cuda_gp.gp_geometry(m + 4, 6)
+
+
+def _stub_launch(monkeypatch):
+    """The kernel route with the launch stubbed: the launches made and the
+    shapes of the tensors the wrapper allocated."""
+    calls, empties = [], []
+    monkeypatch.setattr(cuda_gp, "route", lambda device: "kernel")
+    monkeypatch.setattr(cuda_gp._build, "launch", lambda entry, *a: calls.append((entry, a)))
+    monkeypatch.setattr(cuda_gp._build, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(cuda_gp, "gp_mean_var_multi_plain", None)  # no fallback to it
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        empties.append(tuple(shape[0]) if len(shape) == 1 else shape)
+        return empty(*shape, **kw)
+
+    monkeypatch.setattr(cuda_gp.torch, "empty", recording_empty)
+    return calls, empties
+
+
+def test_wrapper_takes_the_tiled_kernel_at_any_m_when_asked(monkeypatch):
+    """`tiled=True` launches the tiled kernel's plan at 40 points, where the
+    wrapper's own choice stays the register bucket (the launch stubbed)."""
+    calls, empties = _stub_launch(monkeypatch)
+    z, leaves = make_multi(G=3, n=50, d=3, m=48, n_live=40)
+    form = cuda_gp.pack_form(*(torch.as_tensor(a) for a in leaves))
+    assert form.Z.shape[1] == 40 and cuda_gp.gp_geometry(40, 3).bucket == 64
+    cuda_gp.gp_mean_var_multi(torch.as_tensor(z), form, tiled=True)
+    plan = cuda_gp.gp_tiled_plan(3, 50, 40, 3)
+    (_, args), = calls
+    assert args[6:14] == (3, 50, 40, 3, 0, 0, plan.splits, cuda_gp.TILED_SHARED_BYTES)
+    assert empties[-1] == plan.workspace == (3, 3, 50)  # one column tile, a row range a stage
 
 
 @pytest.mark.parametrize("m", [136, 5120, 65_536])
 @pytest.mark.parametrize("d", [3, 8])
 def test_tiled_kernel_shared_memory_does_not_grow_with_m(m, d):
     """The tiled instantiation streams W, the points, alpha and the mask in
-    tiles: a block's shared memory is the same at any M and D (52,736
-    bytes, a quarter of the 227 KB a block may hold), so an exact GP of
-    BASELINE config 4's 5,120 points at D = 8 launches."""
+    tiles: a block's shared memory is the same at any M, D and N (149,760
+    bytes), and TILED_BLOCKS_PER_SM = 1 block fits an SM's 228 KB with the 1
+    KB the card reserves for each, so an exact GP of BASELINE config 4's
+    5,120 points at D = 8 launches."""
     geometry = cuda_gp.gp_geometry(m, d)
-    assert geometry == cuda_gp.GpGeometry(0, 52_736)
-    assert geometry.shared_bytes <= 227 * 1024 // 4
+    assert geometry == cuda_gp.GpGeometry(0, 149_760)
+    for n in (1, 20, 25_637):
+        assert cuda_gp.gp_tiled_plan(3, n, m, d).shared_bytes == geometry.shared_bytes
+    assert geometry.shared_bytes <= 227 * 1024
+    assert cuda_gp.TILED_BLOCKS_PER_SM * (geometry.shared_bytes + 1024) <= 228 * 1024
+
+
+# chip_smoke.py's F7 cases (G, D, M, N), and the two-link exact GP's M with a
+# B = 1 step's N = 20 queries and a B = 128 tile's 2,560
+PLAN_CASES = [(G, D, m, 25_637) for m in (136, 304, 512) for G, D in ((2, 6), (3, 3))] + [
+    (2, 6, 2048, 4096), (3, 3, 2048, 4096), (2, 6, 304, 20), (2, 6, 304, 2560)]
+
+
+@pytest.mark.parametrize("G,D,m,n", PLAN_CASES)
+def test_tiled_plan_covers_w_once_and_fills_the_card(G, D, m, n):
+    """Every (row, column) entry of W below M lies in exactly one block row
+    of the grid; every column's mean share in exactly one; the partial
+    indices are distinct and fill the workspace; no row range is empty; the
+    grid holds WAVE_TARGET blocks, or every row range is one stage."""
+    plan = cuda_gp.gp_tiled_plan(G, n, m, D)
+    assert plan.grid == (-(-n // 64), plan.col_tiles * plan.splits, G)
+    assert plan.col_tiles == -(-m // 128) and plan.stages == -(-m // 32)
+    assert plan.workspace == (G, plan.col_tiles * (plan.splits + 1), n)
+    cover = np.zeros((m, m), np.int64)
+    mean_cover = np.zeros(m, np.int64)
+    partials = []
+    for y in range(plan.grid[1]):
+        rows, cols, p, p_mean = plan.block(y, m)
+        assert len(rows) and len(cols)
+        cover[rows.start:rows.stop, cols.start:cols.stop] += 1
+        partials.append(p)
+        if p_mean is not None:
+            mean_cover[cols.start:cols.stop] += 1
+            partials.append(p_mean)
+    assert (cover == 1).all() and (mean_cover == 1).all()
+    assert sorted(partials) == list(range(plan.workspace[1]))
+    blocks = plan.grid[0] * plan.grid[1] * plan.grid[2]
+    assert blocks >= cuda_gp.WAVE_TARGET or plan.splits == plan.stages
+    assert -(-plan.stages // plan.stages_per_split) == plan.splits
+    # split no further than the target needs: every smaller count of ranges
+    # (of equal length but the last) falls short of it
+    counts = {-(-plan.stages // per) for per in range(1, plan.stages + 1)}
+    fewer = max([c for c in counts if c < plan.splits], default=0)
+    assert plan.grid[0] * plan.col_tiles * fewer * G < cuda_gp.WAVE_TARGET
+    if (m, n) == (304, 20):
+        assert blocks == 60 and plan.splits == 10  # one stage a block
+    if (m, n) == (2048, 4096):
+        assert plan.splits == 1 and blocks == 64 * 16 * G
+
+
+@pytest.mark.parametrize("n", [70, 700])
+@pytest.mark.parametrize("m", [136, 304, 520])  # not multiples of the 32-row, 128-column tile
+def test_tiled_plan_partials_sum_to_the_reference(m, n):
+    """In float64: per query, the partials of k W k^T over each block's W
+    tile and of the mean over the first row range's columns, summed in the
+    reduction's order (the k W k^T partials by index, column tile by column
+    tile and row range by row range, then the mean's), equal
+    `gp_mean_var_reference` within 1e-12 (N = 700 at M = 520 cuts the rows
+    into 2 ranges of 6 stages and a last of 5)."""
+    G, D = 2, 3
+    z, (Z, alpha, W, ell, sf2, noise, mask) = make_multi(G=G, n=n, d=D, m=m, n_live=m, seed=m)
+    plan = cuda_gp.gp_tiled_plan(G, n, m, D)
+    n_quad = plan.col_tiles * plan.splits
+    f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
+    for g in range(G):
+        diff = (f64(z[g])[:, None, :] - f64(Z[g])[None, :, :]) / f64(ell[g])
+        k = f64(sf2[g]) * np.exp(-0.5 * (diff**2).sum(-1)) * f64(mask[g])
+        ws = np.zeros((plan.workspace[1], n))
+        for y in range(plan.grid[1]):
+            rows, cols, p, p_mean = plan.block(y, m)
+            kr, kc = k[:, rows.start:rows.stop], k[:, cols.start:cols.stop]
+            ws[p] = ((kr @ f64(W[g])[rows.start:rows.stop, cols.start:cols.stop]) * kc).sum(-1)
+            if p_mean is not None:
+                ws[p_mean] = kc @ f64(alpha[g])[cols.start:cols.stop]
+        quad, mean = np.zeros(n), np.zeros(n)
+        for p in range(n_quad):
+            quad = quad + ws[p]
+        for p in range(n_quad, plan.workspace[1]):
+            mean = mean + ws[p]
+        var = np.maximum(f64(sf2[g]) - quad, 1e-12) + f64(noise[g])
+        mean_j, var_j = gp_mean_var_reference(
+            *(jnp.asarray(f64(a)) for a in (z[g], Z[g], alpha[g], W[g], ell[g], sf2[g], noise[g],
+                                            mask[g])), include_noise=True)
+        assert np.asarray(var_j).dtype == np.float64
+        np.testing.assert_allclose(mean, np.asarray(mean_j), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(var, np.asarray(var_j), rtol=0, atol=1e-12)
+
+
+def test_dmma_probe_cases_are_exact_and_the_cpu_takes_the_product():
+    """The layout probe's cases (`cuda_gp.dmma_probe_cases`) have products
+    that float64 holds exactly, whatever the summation order (integers below
+    2^53), so the card's probe must match them bit for bit; on CPU tensors
+    `dmma_probe` is the product itself."""
+    for a, b in cuda_gp.dmma_probe_cases():
+        assert a.shape == (32, cuda_gp.PROBE_K) and b.shape == (cuda_gp.PROBE_K, cuda_gp.PROBE_N)
+        assert np.array_equal(a, np.round(a)) and np.array_equal(b, np.round(b))
+        assert float(np.abs(a).sum(1).max() * np.abs(b).max()) < 2.0**53
+        got = cuda_gp.dmma_probe(torch.as_tensor(a), torch.as_tensor(b))
+        assert torch.equal(got, torch.as_tensor(a @ b))
+    with pytest.raises(ValueError, match="shape"):
+        cuda_gp.dmma_probe(torch.zeros(32, 4, dtype=torch.float64),
+                           torch.zeros(4, 32, dtype=torch.float64))

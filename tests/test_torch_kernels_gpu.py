@@ -108,7 +108,8 @@ def test_gp_multi_kernel_matches_plain(dev, G, D, n):
 
 
 @pytest.mark.parametrize("density", [None, 40])
-@pytest.mark.parametrize("m,n", [(136, 25_637), (304, 25_637), (512, 25_637), (2048, 4096)])
+@pytest.mark.parametrize("m,n", [(136, 25_637), (304, 25_637), (512, 25_637), (2048, 4096),
+                                 (304, 20)])  # (304, 20): the two-link exact GP's B = 1 step
 @pytest.mark.parametrize("G,D", [(2, 6), (3, 3)])
 def test_gp_tiled_kernel_matches_plain(dev, G, D, m, n, density):
     """Past 128 live points (F7): the tiled instantiation, on GPs whose live
@@ -118,18 +119,21 @@ def test_gp_tiled_kernel_matches_plain(dev, G, D, m, n, density):
     kernel lies within 1e-4 + d of both the plain version and the float64
     value. Its sums run in float64, so it also lies within 1e-4 + d32 of
     the float64 value, d32 the distance of k's float32 rounding alone (the
-    plain version's k with float64 sums)."""
+    plain version's k with float64 sums). Its partials are summed in a
+    fixed order, without atomics: a second call gives the same bits."""
     form = cuda_gp.pack_form(*_gp_leaves(dev, G, D, seed=m + G, m=m + 16, n_live=m,
                                          density=density))
     assert form.Z.shape[1] == m and cuda_gp.gp_geometry(m, D).bucket == 0
     z = _t(np.random.default_rng(n).normal(0, 0.6, (G, n, D)), dev)
     before = cuda_gp.gp_mean_var_multi.launches
     out_k = cuda_gp.gp_mean_var_multi(z, form, include_noise=True)
+    again = cuda_gp.gp_mean_var_multi(z, form, include_noise=True)
+    assert all(torch.equal(a, b) for a, b in zip(out_k, again))
     out_p = cuda_gp.gp_mean_var_multi_plain(z, form, include_noise=True)
     out_64 = cuda_gp.gp_mean_var_multi_plain(z.double(), cuda_gp.GpForm(*[t.double() for t in form]),
                                              include_noise=True)
     torch.cuda.synchronize()
-    assert cuda_gp.gp_mean_var_multi.launches == before + 1
+    assert cuda_gp.gp_mean_var_multi.launches == before + 2
     d = max(_maxdiff(a.double(), b) for a, b in zip(out_p, out_64))
     assert max(_maxdiff(a.double(), b) for a, b in zip(out_k, out_64)) <= 1e-4 + d
     assert max(_maxdiff(a, b) for a, b in zip(out_k, out_p)) <= 1e-4 + d
@@ -141,6 +145,21 @@ def test_gp_tiled_kernel_matches_plain(dev, G, D, m, n, density):
                              1e-12) + form.noise.double()[:, None]
     d32 = max(_maxdiff(a, b) for a, b in zip((mean_32, var_32), out_64))
     assert max(_maxdiff(a.double(), b) for a, b in zip(out_k, out_64)) <= 1e-4 + d32
+
+
+def test_gp_dmma_fragment_layout(dev):
+    """The tiled GP kernel's FP64 tensor-core fragments and accumulator
+    layout (`cuda_gp.dmma_probe`, one warp, every k-step of a 16-deep
+    product): A B exactly for identity and permutation blocks, so every
+    lane's registers land where the kernel's epilogue reads them, and for a
+    random product within float64 rounding."""
+    f64 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float64), device=dev)  # noqa: E731
+    for a, b in cuda_gp.dmma_probe_cases():
+        assert torch.equal(cuda_gp.dmma_probe(f64(a), f64(b)), f64(a @ b))
+    rng = np.random.default_rng(1)
+    a, b = rng.normal(size=(32, cuda_gp.PROBE_K)), rng.normal(size=(cuda_gp.PROBE_K, cuda_gp.PROBE_N))
+    # 16 products of N(0, 1) entries summed in two orders: a few float64 ulps
+    assert _maxdiff(cuda_gp.dmma_probe(f64(a), f64(b)), f64(a @ b)) <= 1e-13
 
 
 def _train_data(dev, n=120, cap=128, seed=0):

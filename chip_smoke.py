@@ -315,10 +315,9 @@ TWOLINK_STARTS = (
     (-1.5756747722625732, 1.1218749284744263, 0.45597270131111145, 0.15213492512702942),
 )
 # scripts/eval_seeds.py's quadrotor sweep (16 seeds) at scripts/gp_mpc_config.yaml's settings,
-# the episode cut from 300 steps to 20 (it was 30 until a slow host took the whole smoke to
-# 1,120 of its 1,200 s)
+# the episode cut from 300 steps to 30
 SWEEP = dict(n_seeds=16, T=25, sqp_iters=12, qp_iters=12, n_epochs=2, samples_per_epoch=15,
-             max_inducing=40, gp_iters=500, gp_lr=0.001, n_steps=20)
+             max_inducing=40, gp_iters=500, gp_lr=0.001, n_steps=30)
 # F7: the multi-GP kernel past 128 live points (the tiled instantiation): (G, D, live, N)
 F7_CASES = [(G, D, m, 25_637) for m in (136, 304, 512) for G, D in ((2, 6), (3, 3))] + [
     (2, 6, 2048, 4096), (3, 3, 2048, 4096)]
@@ -1190,13 +1189,24 @@ def check_gp_kernel_level(dev, extra: list, captured: dict) -> None:
     plain version at G = 2 and 3, D = 3 and 6, N = 25,637 (not a multiple of
     the 128-query tile), on GPs whose live points are not a prefix; the
     tiled kernel's DMMA fragment layout (`dmma_layout_check`); F7, past 128
-    live points, where every case is also called twice more and must give
+    live points, where every case is also called once more and must give
     the same bits (its partials are summed in a fixed order, no atomics);
     then the tiled kernel on the learned paths' register-bucket GPs
-    (`f64_sums_on_bucket_gps`)."""
+    (`f64_sums_on_bucket_gps`). Prints the seconds each of the last four
+    checks and the library yardsticks took."""
     fn, plain, src, replaces = KERNELS["gp_posterior"]
     n = 25_637
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    t_start = time.perf_counter()
+    spent = dict.fromkeys(("library yardsticks", "DMMA layout", "second calls",
+                           "float64 sums on the buckets' GPs"), 0.0)
+
+    def lap(key, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        spent[key] += time.perf_counter() - t0
+        return out
+
     for G in (2, 3):
         for D in (3, 6):
             leaves = [t(a) for a in random_gp_leaves(G, D, seed=10 * G + D)]
@@ -1207,8 +1217,9 @@ def check_gp_kernel_level(dev, extra: list, captured: dict) -> None:
             err, ms_k, ms_p, out_k, dev_ms = compare(entry, f"M={form.Z.shape[1]}", "gp_posterior",
                                                      fn, plain, a, k)
             extra.append(result_entry(entry, src, replaces, err, ms_k, ms_p, bound_gp(a, out_k),
-                                      library_ms=gp_library_ms(a), dev_ms=dev_ms))
-    dmma_layout_check(dev)
+                                      library_ms=lap("library yardsticks", gp_library_ms, a),
+                                      dev_ms=dev_ms))
+    lap("DMMA layout", dmma_layout_check, dev)
     # F7: past 128 live points, the tiled instantiation (any M)
     for density in F7_DENSITIES:
         for G, D, m, n in F7_CASES:
@@ -1225,14 +1236,18 @@ def check_gp_kernel_level(dev, extra: list, captured: dict) -> None:
             a, k = (z, form), {"include_noise": True}
             err, ms_k, ms_p, out_k, dev_ms = compare(entry, f"M={form.Z.shape[1]}",
                                                      "gp_posterior_f64", fn, plain, a, k)
-            again = [fn(*a, **k) for _ in range(2)]
-            if not all(torch.equal(x, y) for o in again for x, y in zip(o, out_k)):
+            again = lap("second calls", lambda: fn(*a, **k))
+            if not all(torch.equal(x, y) for x, y in zip(again, out_k)):
                 raise RuntimeError(f"{entry}: two calls on the same inputs gave different bits")
             extra.append(result_entry(entry, src, replaces, err, ms_k, ms_p, bound_gp(a, out_k),
-                                      library_ms=gp_library_ms(a), dev_ms=dev_ms))
-    say(f"[phase 1] gp_posterior_tiled: every F7 case gave the same bits in three calls "
-        f"(plan {cuda_gp.gp_tiled_plan(3, 4096, 2048, 3)} at M=2,048, N=4,096, G=3)")
-    f64_sums_on_bucket_gps(captured, extra)
+                                      library_ms=lap("library yardsticks", gp_library_ms, a),
+                                      dev_ms=dev_ms))
+    plan = cuda_gp.gp_tiled_plan(3, 4096, 2048, 3, cuda_gp.sm_count(dev))
+    say(f"[phase 1] gp_posterior_tiled: every F7 case gave the same bits in two calls "
+        f"(plan {plan} at M=2,048, N=4,096, G=3)")
+    lap("float64 sums on the buckets' GPs", f64_sums_on_bucket_gps, captured, extra)
+    say(f"[time] kernel 1's kernel-level checks took {time.perf_counter() - t_start:.1f} s, of "
+        "which " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
 
 
 def dmma_layout_check(dev) -> None:
@@ -1687,7 +1702,7 @@ def twolink_exact_learned(dev, results: dict) -> None:
     G, n_q, D = z_cap.shape
     say(f"[learn] twolink-exact-learned: kernel 1's captured launch has z {tuple(z_cap.shape)} "
         f"(G, N, D) against M={form_cap.Z.shape[1]} points; "
-        f"{cuda_gp.gp_tiled_plan(G, n_q, form_cap.Z.shape[1], D)}")
+        f"{cuda_gp.gp_tiled_plan(G, n_q, form_cap.Z.shape[1], D, cuda_gp.sm_count(dev))}")
     check_captured(path, "twolink-exact-learned", cap, launches, results, gp_kind="gp_posterior_f64")
     if not ratio < cfg["max_ratio"] or clamp != 0.0:
         raise RuntimeError(f"twolink-exact-learned: tail-cost ratio {ratio} or clamp_frac {clamp}")
@@ -1695,7 +1710,7 @@ def twolink_exact_learned(dev, results: dict) -> None:
 
 def quadrotor_sweep(dev, results: dict) -> None:
     """`seed_sweep(backend="lanes")` at scripts/eval_seeds.py's quadrotor
-    settings (`SWEEP`; the episode cut from 300 steps to 20): every epoch's
+    settings (`SWEEP`; the episode cut from 300 steps to 30): every epoch's
     episodes run the 16 seeds as one GP population (kernels 2 and 4). The
     cost matrix, each epoch's wall and fit time; the kernels on the first
     step's captured inputs."""
@@ -1953,10 +1968,12 @@ EVAL_SEEDS_ARGS = ["--model", "cartpole", "--fast", "--seeds", "4", "--epochs", 
                    "--backend", "lanes"]
 GP_FIT_ITERS = 5  # scripts/bench_gp_fit_torch.py at its default sizes
 GP_FIT_BAR = 1e-4  # the card's raw hypers against the CPU's after GP_FIT_ITERS Adam steps
-# each kernel's name in a torch.profiler trace (the resident QP kernel is a template in
+# each kernel's names in a torch.profiler trace (kernel 1: the register buckets, or the tiled
+# kernel and its reduction past 128 points; the resident QP kernel is a template in
 # namespace gpmpc::ocp::resident)
-TRACE_NAMES = {"gp_posterior": "gp_posterior_kernel", "tighten": "tighten_sums_kernel",
-               "qp": "resident::kernel"}
+TRACE_NAMES = {"gp_posterior": ("gp_posterior_kernel", "gp_posterior_tiled_kernel",
+                                "gp_tiled_reduce_kernel"),
+               "tighten": ("tighten_sums_kernel",), "qp": ("resident::kernel",)}
 
 
 def load_script(name: str):
@@ -2116,12 +2133,12 @@ def experiment_driver(results: dict) -> None:
         f"{profiled_ms / n_ev:.1f} ms a step (upper estimate), "
         f"{1 - busy_ms / n_ev / unprofiled_ms:.3f} against the unprofiled steps' "
         f"{unprofiled_ms:.1f} ms (lower)")
-    for k, sub in TRACE_NAMES.items():
-        hits = {n: c for n, c in names.items() if sub in n}
+    for k, subs in TRACE_NAMES.items():
+        hits = {n: c for n, c in names.items() if any(sub in n for sub in subs)}
         say(f"[driver] trace: {k}: {sum(hits.values())} kernel events "
             f"({', '.join(n[:60] for n in hits)})")
         if not hits:
-            raise RuntimeError(f"driver: the trace names no {sub} kernel")
+            raise RuntimeError(f"driver: the trace names no {' or '.join(subs)} kernel")
     # the artifacts and the runs
     table = np.loadtxt(save_dir / "figs" / "runtime.csv", delimiter=",", ndmin=2)
     if table.shape != (DRIVER["epochs"] + 1, 4) or not np.isfinite(table).all():
@@ -2667,10 +2684,11 @@ def main() -> int:
         if kernel in (7, 8) and (e["stack"] or e["spill_stores"] or e["spill_loads"]):
             raise RuntimeError(f"kernel {kernel} keeps its matrix in local memory, not registers")
     lib = _build.load_library()
+    sms = cuda_gp.sm_count(dev)
     say(f"[phase 0] kernel 1 tiled: {lib.gp_tiled_shared_bytes()} bytes of shared memory a block "
-        f"(cuda_gp.TILED_SHARED_BYTES {cuda_gp.TILED_SHARED_BYTES}), {cuda_gp.WAVE_TARGET} blocks "
-        f"the row split aims at; plan at the two-link exact GP's B = 1 launch "
-        f"{cuda_gp.gp_tiled_plan(2, 20, 304, 6)}")
+        f"(cuda_gp.TILED_SHARED_BYTES {cuda_gp.TILED_SHARED_BYTES}), {2 * sms} blocks "
+        f"the row split aims at on {sms} SMs; plan at the two-link exact GP's B = 1 launch "
+        f"{cuda_gp.gp_tiled_plan(2, 20, 304, 6, sms)}")
     if lib.gp_tiled_shared_bytes() != cuda_gp.TILED_SHARED_BYTES:
         raise RuntimeError("cuda_gp.TILED_SHARED_BYTES disagrees with the library's")
     for nx, nu in ((12, 4), (4, 1), (4, 2)):

@@ -35,9 +35,9 @@ _F = ctypes.c_float
 
 # C entry points: name -> argtypes. Every one returns cudaGetLastError() as int.
 SIGNATURES = {
-    # z, Zt, alpha, W, mask, hyp, G, n, m, d, include_noise, bucket, splits, shared_bytes, ws,
-    # mean, var, stream
-    "gp_posterior_launch": [_P] * 6 + [_I] * 8 + [_P] * 4,
+    # z, Zt, alpha, W, mask, hyp, G, n, m, d, include_noise, bucket, splits, per, shared_bytes,
+    # ws, mean, var, stream
+    "gp_posterior_launch": [_P] * 6 + [_I] * 9 + [_P] * 4,
     # A, B, D, stream: the tiled GP kernel's DMMA fragments alone
     "gp_dmma_probe_launch": [_P] * 4,
     # covdn, A, B, K, Bd, ppf, B, T, nd, nx, nu, wsq, tx, tu, stream

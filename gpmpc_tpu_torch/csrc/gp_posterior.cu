@@ -47,9 +47,9 @@
 //    quad_n = sum_j V_nj K_nj. The form is bilinear, so each (row range I,
 //    column range J) of W gives an independent partial sum over i in I, j in
 //    J of k_i W_ij k_j, and the partials add.
-//  * The product runs on the FP64 tensor cores: mma.sync .f64 (DMMA; the
-//    shape is GP_TILED_MMA, scripts/bench_gp_tiled_torch.py times each). Each of
-//    its FMAs is an exact IEEE float64 one, so the float64 contract holds at
+//  * The product runs on the FP64 tensor cores: mma.sync m16n8k8 .f64 (DMMA;
+//    on an H100 m8n8k4 was 1.30-1.54x slower and m16n8k16 1-3 %, PERF.md). Each
+//    of its FMAs is an exact IEEE float64 one, so the float64 contract holds at
 //    the DMMA rate, 67 TFLOP/s on an H100 SXM, twice that of the FP64 FMA pipe.
 //    A block's 8 consumer warps hold a tile of QT = 64 queries x TJ = 128
 //    columns of V, each warp 32 x 32 in 32 float64 accumulators a lane (128
@@ -57,18 +57,18 @@
 //  * How the split fills the card: the grid is (query tiles, W tiles, G), the
 //    W tiles being the column tiles times `splits` ranges of the rows, each a
 //    whole number of stages of TK = 32 rows. The plan (ops/cuda_gp.py::
-//    gp_tiled_plan, `tiled_plan` here) splits the rows only until the grid
-//    holds two waves of a block on each of 132 SMs (264 blocks), or one stage
-//    a split: the two-link exact GP's launch (N = 20, M = 304, G = 2) is 60
-//    blocks where a grid over the queries alone had 2; at N = 4,096, M =
-//    2,048, G = 3 the column tiles alone give 3,072.
+//    gp_tiled_plan, from the card's SM count) splits the rows only until the
+//    grid holds two waves of a block on each SM (264 blocks on an H100 SXM),
+//    or one stage a split: the two-link exact GP's launch (N = 20, M = 304,
+//    G = 2) is 60 blocks where a grid over the queries alone had 2; at
+//    N = 4,096, M = 2,048, G = 3 the column tiles alone give 3,072. The
+//    launcher checks that the plan's ranges cover the stages.
 //  * Warp specialization: 8 producer warps stage, 8 consumer warps multiply.
-//    Measured on an H100 with the same warps doing both (scripts/
-//    bench_gp_tiled_torch.py's ablations), the staging alone took two thirds
-//    of the time: run between the products in warps whose 128 accumulator
-//    registers left room for 8 warps an SM, it could not hide its latency;
-//    4 producer warps were slower still; 3 or 4 stages of copies in flight
-//    gained nothing over 2.
+//    Measured on an H100 with the same warps doing both (PERF.md), the
+//    staging alone took two thirds of the time: run between the products in
+//    warps whose 128 accumulator registers left room for 8 warps an SM, it
+//    could not hide its latency; 4 producer warps were slower still; 3 or 4
+//    stages of copies in flight gained nothing over 2.
 //    A stage: the W slab (TK x TJ float32), the rows' points and mask are
 //    copied with cp.async one stage ahead into a ring of two (zero-filled past
 //    M, so those terms are exactly 0, as masked points are in the reference);
@@ -77,10 +77,11 @@
 //    (`kval`, its loop over the dimensions specialized on D, `kslab_rows`:
 //    on an H100 at D = 3 the kernel ran 11 % faster than with the loop to
 //    DMAX under a predicate) and widened beside it, while the consumers
-//    multiply the other buffer. Named barriers hand each buffer over (full: producers arrive,
-//    consumers wait; empty: the reverse). Both row strides are 4 mod 16
-//    doubles, so a warp's fragment reads hit no bank twice in either half
-//    (`a_col` keeps the K slab's writes free of conflicts too).
+//    multiply the other buffer. Named barriers hand each buffer over (full:
+//    producers arrive, consumers wait; empty: the reverse). Both row strides
+//    are 4 mod 16 doubles, so a warp's fragment reads hit no bank twice in
+//    either half (without the padding the kernel was 1.5-2.0x slower);
+//    `a_col` keeps the K slab's writes free of conflicts too.
 //  * Each block writes its per-query float64 partial of k W k^T over its W
 //    tile, and in the first row range that of the mean over its columns, to
 //    a workspace (G, partials, N) that the wrapper allocates: the epilogue
@@ -229,23 +230,11 @@ constexpr int PRODUCER_THREADS = 256; // the staging: 8 warps
 constexpr int TILED_THREADS = 32 * CONSUMER_WARPS + PRODUCER_THREADS;
 constexpr int WN = TJ / COLUMN_WARPS; // a consumer warp's columns
 constexpr int NT = WN / 8;            // its n-tiles of 8 columns
-#ifndef GP_TILED_DSPEC  // the K slab specialized on d (1) or looping to DMAX with a predicate (0)
-#define GP_TILED_DSPEC 1
-#endif
-#ifndef GP_TILED_RING
-#define GP_TILED_RING 2
-#endif
-constexpr int RING_STAGES = GP_TILED_RING;  // float32 stages: copies run RING_STAGES - 1 ahead
-static_assert(RING_STAGES >= 2, "a ring of two stages at least");
+constexpr int MMA_K = 8;              // the DMMA shape's depth, m16n8k8
+constexpr int RING_STAGES = 2;        // float32 stages: copies run one stage ahead
 constexpr int TILED_BLOCKS_PER_SM = 1;
-constexpr int SMS = 132;              // an H100 SXM's SMs
-constexpr long WAVE_TARGET = 2L * SMS * TILED_BLOCKS_PER_SM;
-#ifndef GP_TILED_PAD
-#define GP_TILED_PAD 4
-#endif
-constexpr int LDA = TK + GP_TILED_PAD;  // float64 row strides, 4 mod 16: conflict-free fragments
-constexpr int LDW = TJ + GP_TILED_PAD;
-static_assert(GP_TILED_PAD % 2 == 0, "rows of whole double2");
+constexpr int LDA = TK + 4;           // float64 row strides, 4 mod 16: conflict-free fragments
+constexpr int LDW = TJ + 4;
 constexpr int RING = TK * TJ + DMAX * TK + TK;  // floats a stage: W slab, rows' points, mask
 static_assert((TK * TJ / 4) % PRODUCER_THREADS == 0 && (TK * TJ / 2) % PRODUCER_THREADS == 0 &&
                   (DMAX + 1) * (TK / 4) <= PRODUCER_THREADS && (QT * TK) % PRODUCER_THREADS == 0,
@@ -254,37 +243,7 @@ static_assert((TK * TJ / 4) % PRODUCER_THREADS == 0 && (TK * TJ / 2) % PRODUCER_
 constexpr size_t TILED_SMEM =
     sizeof(double) * (2 * TK * LDW + 2 * QT * LDA + 2 * (COLUMN_WARPS - 1) * QT) +
     sizeof(float) * (RING_STAGES * RING + QT * DMAX + DMAX * TJ + 2 * TJ);
-
-// The DMMA shape: 884 (m8n8k4, sm_80 and up) or 1688, 16816 (m16n8k8,
-// m16n8k16, sm_90); scripts/bench_gp_tiled_torch.py times each.
-#ifndef GP_TILED_MMA
-#define GP_TILED_MMA 1688
-#endif
-static_assert(GP_TILED_MMA == 884 || GP_TILED_MMA == 1688 || GP_TILED_MMA == 16816,
-              "a DMMA shape: m8n8k4, m16n8k8 or m16n8k16");
-constexpr int MMA_K = GP_TILED_MMA == 884 ? 4 : GP_TILED_MMA == 1688 ? 8 : 16;
 static_assert(TK % MMA_K == 0, "whole k-steps a stage");
-
-// The split of a launch (ops/cuda_gp.py::gp_tiled_plan computes the same):
-// the rows' stages in `splits` ranges of `per` stages (the last may be
-// shorter): the longest ranges that give the grid WAVE_TARGET blocks, or one
-// stage a range, then balanced.
-struct TiledPlan {
-  int col_tiles, stages, splits, per;
-};
-
-TiledPlan tiled_plan(int G, int n, int m) {
-  TiledPlan p;
-  p.col_tiles = (m + TJ - 1) / TJ;
-  p.stages = (m + TK - 1) / TK;
-  const long base = (long)((n + QT - 1) / QT) * p.col_tiles * G;
-  const long want = (WAVE_TARGET + base - 1) / base;
-  int per = p.stages;
-  while (per > 1 && (p.stages + per - 1) / per < want) --per;
-  p.splits = (p.stages + per - 1) / per;
-  p.per = (p.stages + p.splits - 1) / p.splits;
-  return p;
-}
 
 // 16 bytes from global to shared memory, or 16 zero bytes (`in` false: src is not read)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
@@ -294,16 +253,10 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) 
                : "memory");
 }
 
-// D = A B + D on the FP64 tensor cores, one warp; g = lane / 4, t = lane % 4.
-// m8n8k4: a lane holds A at (row g, col t), B at (row t, col g), C at (row g,
-// cols 2 t, 2 t + 1). The m16n8kK shapes stack two such A and C tiles (rows
-// g and g + 8: a0, a1 and c0, c1 / c2, c3) and K / 4 such k-slices (A's
-// cols t + 4 s and B's rows t + 4 s: a 2 s, a 2 s + 1 and b s).
-__device__ __forceinline__ void dmma_m8n8k4(double (&c)[2], double a, double b) {
-  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
-               : "+d"(c[0]), "+d"(c[1])
-               : "d"(a), "d"(b));
-}
+// D = A B + D on the FP64 tensor cores, m16n8k8, one warp; g = lane / 4,
+// t = lane % 4. A lane holds A at rows g and g + 8 of two k-slices of 4
+// (cols t and t + 4: a0, a1 and a2, a3), B at rows t and t + 4 of col g
+// (b0, b1), C at rows g (c0, c1) and g + 8 (c2, c3) of cols 2 t, 2 t + 1.
 __device__ __forceinline__ void dmma_m16n8k8(double (&c0)[2], double (&c1)[2], const double* a,
                                              const double* b) {
   asm volatile(
@@ -311,15 +264,6 @@ __device__ __forceinline__ void dmma_m16n8k8(double (&c0)[2], double (&c1)[2], c
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+d"(c0[0]), "+d"(c0[1]), "+d"(c1[0]), "+d"(c1[1])
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
-}
-__device__ __forceinline__ void dmma_m16n8k16(double (&c0)[2], double (&c1)[2], const double* a,
-                                              const double* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
-      : "+d"(c0[0]), "+d"(c0[1]), "+d"(c1[0]), "+d"(c1[1])
-      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]), "d"(a[6]), "d"(a[7]),
-        "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 
 // A consumer warp's 32 x WN tile of the product: acc[mt][nt][c] is the entry
@@ -350,12 +294,6 @@ __device__ __forceinline__ void warp_mma_step(double (&acc)[4][NT][2], const dou
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) b[nt][s] = B[(k0 + 4 * s + t) * LDW + 8 * nt + g];
   }
-#if GP_TILED_MMA == 884
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) dmma_m8n8k4(acc[mt][nt], a[mt][0], b[nt][0]);
-#else
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     double ap[2 * S];  // the m16 tile's A fragment: rows g, g + 8 of each k-slice
@@ -365,15 +303,8 @@ __device__ __forceinline__ void warp_mma_step(double (&acc)[4][NT][2], const dou
       ap[2 * s + 1] = a[2 * p + 1][s];
     }
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#if GP_TILED_MMA == 1688
-      dmma_m16n8k8(acc[2 * p][nt], acc[2 * p + 1][nt], ap, b[nt]);
-#else
-      dmma_m16n8k16(acc[2 * p][nt], acc[2 * p + 1][nt], ap, b[nt]);
-#endif
-    }
+    for (int nt = 0; nt < NT; ++nt) dmma_m16n8k8(acc[2 * p][nt], acc[2 * p + 1][nt], ap, b[nt]);
   }
-#endif
 }
 
 // k_j of the query zq at a staged point j (its coordinates `stride` apart),
@@ -535,7 +466,6 @@ __global__ void __launch_bounds__(TILED_THREADS, TILED_BLOCKS_PER_SM)
       }
       const float* Zr = slot + TK * TJ;
       const float* mr = Zr + DMAX * TK;
-#if GP_TILED_DSPEC
       double* A_row = A_b + nk * LDA;
       switch (d) {
         case 1: kslab_rows<1>(A_row, zk, inv_ell2, sf2, Zr, mr, nk, pt % KT); break;
@@ -547,13 +477,6 @@ __global__ void __launch_bounds__(TILED_THREADS, TILED_BLOCKS_PER_SM)
         case 7: kslab_rows<7>(A_row, zk, inv_ell2, sf2, Zr, mr, nk, pt % KT); break;
         default: kslab_rows<8>(A_row, zk, inv_ell2, sf2, Zr, mr, nk, pt % KT); break;
       }
-#else
-#pragma unroll
-      for (int k = 0; k < TK / KT; ++k) {
-        const int i = pt % KT + KT * k;
-        A_b[nk * LDA + a_col(nk, i)] = (double)kval(zk, inv_ell2, d, sf2, Zr + i, TK, mr[i]);
-      }
-#endif
       __threadfence_block();  // the slabs before the arrival
       bar_arrive(BAR_FULL + buf, TILED_THREADS);
       bar_sync(BAR_PRODUCERS, PRODUCER_THREADS);  // everyone is done with this ring slot
@@ -708,23 +631,28 @@ int launch_bucket(const float* z, const float* Zt, const float* alpha, const flo
   return (int)cudaGetLastError();
 }
 
+// The plan's split (ops/cuda_gp.py::gp_tiled_plan chooses it): the rows'
+// stages in `splits` ranges of `per` stages, the last possibly shorter but
+// none empty.
 int launch_tiled(const float* z, const float* Zt, const float* alpha, const float* W,
                  const float* mask, const float* hyp, int G, int n, int m, int d,
-                 int include_noise, int splits, double* ws, float* mean, float* var,
+                 int include_noise, int splits, int per, double* ws, float* mean, float* var,
                  cudaStream_t stream) {
-  const TiledPlan p = tiled_plan(G, n, m);
-  if (splits != p.splits || ws == nullptr) return gpmpc::kUnsupported;
+  const int col_tiles = (m + TJ - 1) / TJ, stages = (m + TK - 1) / TK;
+  if (splits < 1 || per < 1 || (long)(splits - 1) * per >= stages || (long)splits * per < stages ||
+      ws == nullptr)
+    return gpmpc::kUnsupported;
   cudaError_t err = cudaFuncSetAttribute(
       gp_posterior_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TILED_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + QT - 1) / QT, p.col_tiles * p.splits, G);
+  const dim3 grid((n + QT - 1) / QT, col_tiles * splits, G);
   gp_posterior_tiled_kernel<<<grid, TILED_THREADS, TILED_SMEM, stream>>>(
-      z, Zt, alpha, W, mask, hyp, n, m, d, p.splits, p.per, ws);
+      z, Zt, alpha, W, mask, hyp, n, m, d, splits, per, ws);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 rgrid((n + REDUCE_THREADS - 1) / REDUCE_THREADS, G);
   gp_tiled_reduce_kernel<<<rgrid, REDUCE_THREADS, 0, stream>>>(
-      ws, hyp, n, d, p.col_tiles * p.splits, p.col_tiles * (p.splits + 1), include_noise, mean, var);
+      ws, hyp, n, d, col_tiles * splits, col_tiles * (splits + 1), include_noise, mean, var);
   return (int)cudaGetLastError();
 }
 
@@ -737,23 +665,24 @@ extern "C" const char* cudaGetErrorString_wrapper(int err) {
 // G GPs of m points each (m % 8 == 0), n queries each, d <= 8 dimensions.
 // The wrapper names its plan: `bucket` 64 (m <= 64) or 128 (m <= 128) for
 // the kernel row in registers, with `splits` 0 and no workspace; or 0 for
-// the tiled kernel at any m, with the plan's `splits` and a float64
-// workspace of (G, col_tiles (splits + 1), n); `shared_bytes` the block's
-// shared memory. kUnsupported for any other shape or plan.
+// the tiled kernel at any m, with the plan's `splits` ranges of `per`
+// stages and a float64 workspace of (G, col_tiles (splits + 1), n);
+// `shared_bytes` the block's shared memory. kUnsupported for any other shape
+// or plan.
 extern "C" int gp_posterior_launch(const float* z, const float* Zt, const float* alpha,
                                    const float* W, const float* mask, const float* hyp, int G,
                                    int n, int m, int d, int include_noise, int bucket, int splits,
-                                   int shared_bytes, double* ws, float* mean, float* var,
+                                   int per, int shared_bytes, double* ws, float* mean, float* var,
                                    void* stream) {
   if (G < 1 || n < 1 || m < JB || m % JB || d < 1 || d > DMAX) return gpmpc::kUnsupported;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bucket == 0) {
     if ((size_t)shared_bytes != TILED_SMEM) return gpmpc::kUnsupported;
-    return launch_tiled(z, Zt, alpha, W, mask, hyp, G, n, m, d, include_noise, splits, ws, mean,
-                        var, s);
+    return launch_tiled(z, Zt, alpha, W, mask, hyp, G, n, m, d, include_noise, splits, per, ws,
+                        mean, var, s);
   }
   const int expected = m <= 64 ? 64 : m <= 128 ? 128 : 0;
-  if (bucket != expected || splits != 0 || (size_t)shared_bytes != bucket_smem(m, d))
+  if (bucket != expected || splits != 0 || per != 0 || (size_t)shared_bytes != bucket_smem(m, d))
     return gpmpc::kUnsupported;
   if (bucket == 64)
     return launch_bucket<64>(z, Zt, alpha, W, mask, hyp, G, n, m, d, include_noise, mean, var, s);

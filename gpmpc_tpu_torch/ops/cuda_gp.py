@@ -33,9 +33,9 @@ QTILE = 128  # queries (threads) a block of the register buckets
 # The tiled kernel (csrc/gp_posterior.cu QT, TK, TJ): a block's tile of QUERY_TILE
 # queries x TILE_COLS columns of W, its rows staged TILE_ROWS at a time.
 QUERY_TILE, TILE_ROWS, TILE_COLS = 64, 32, 128
-SMS = 132  # an H100 SXM's streaming multiprocessors
+SMS = 132  # an H100 SXM's streaming multiprocessors: the plan's default card
 TILED_BLOCKS_PER_SM = 1  # resident tiled blocks an SM holds (shared memory, registers)
-WAVE_TARGET = 2 * SMS * TILED_BLOCKS_PER_SM  # blocks the row split aims the grid at
+WAVE_TARGET = 2 * SMS * TILED_BLOCKS_PER_SM  # blocks the row split aims the grid at, on SMS SMs
 COLUMN_WARPS = 4  # the tiled kernel's consumer warps along a tile's columns, 2 along its queries
 RING_STAGES = 2  # float32 stages in flight in its ring
 # a tiled block's shared memory at any M and D: two buffers each of the W
@@ -77,8 +77,9 @@ class GpTiledPlan(NamedTuple):
     grid (query tiles, column tiles x splits, G); W's rows in `stages` of
     TILE_ROWS, cut into `splits` ranges of `stages_per_split` (the last may
     be shorter); a float64 workspace (G, partials, N) of per-query partials,
-    col_tiles x splits of k W k^T, then col_tiles of the mean. The C
-    launcher computes the same split and refuses any other."""
+    col_tiles x splits of k W k^T, then col_tiles of the mean. The split
+    is chosen here alone; the C launcher refuses a split whose ranges do not
+    cover the stages, or leave one empty."""
 
     query_tiles: int
     col_tiles: int
@@ -101,18 +102,18 @@ class GpTiledPlan(NamedTuple):
         return rows, cols, y, self.col_tiles * self.splits + col if split == 0 else None
 
 
-def gp_tiled_plan(G: int, n: int, m: int, d: int) -> GpTiledPlan:
-    """The rows are split only as far as the grid needs to reach
-    WAVE_TARGET blocks (two waves of resident blocks on every SM), at most
-    into one stage a range: the longest ranges that reach it, then balanced
-    (queries and column tiles come first)."""
+def gp_tiled_plan(G: int, n: int, m: int, d: int, sms: int = SMS) -> GpTiledPlan:
+    """The rows are split only as far as the grid needs to reach two waves
+    of resident blocks on each of the card's `sms` SMs (WAVE_TARGET on an
+    H100 SXM), at most into one stage a range: the longest ranges that
+    reach it, then balanced (queries and column tiles come first)."""
     gp_geometry(m, d)
     if G < 1 or n < 1:
         raise ValueError(f"gp_posterior kernel needs G > 0 GPs and N > 0 queries (G={G}, N={n})")
     query_tiles = -(-n // QUERY_TILE)
     col_tiles = -(-m // TILE_COLS)
     stages = -(-m // TILE_ROWS)
-    want = -(-WAVE_TARGET // (query_tiles * col_tiles * G))
+    want = -(-2 * sms * TILED_BLOCKS_PER_SM // (query_tiles * col_tiles * G))
     per = stages
     while per > 1 and -(-stages // per) < want:
         per -= 1
@@ -224,6 +225,13 @@ def _check_form(z: torch.Tensor, form: GpForm) -> None:
         check(name, getattr(form, name), shape, dev)
 
 
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device, SMS for any other."""
+    if device.type != "cuda":
+        return SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def gp_mean_var_multi(
     z: torch.Tensor, form: GpForm, include_noise: bool = False, tiled: bool = False
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -249,7 +257,7 @@ def gp_mean_var_multi(
     mean = torch.empty(G, n, dtype=torch.float32, device=z.device)
     var = torch.empty(G, n, dtype=torch.float32, device=z.device)
     if tiled or geometry.bucket == 0:
-        plan = gp_tiled_plan(G, n, m, d)
+        plan = gp_tiled_plan(G, n, m, d, sm_count(z.device))
         try:
             ws = torch.empty(plan.workspace, dtype=torch.float64, device=z.device)
         except torch.OutOfMemoryError as e:
@@ -257,9 +265,9 @@ def gp_mean_var_multi(
                 f"gp_posterior: the tiled kernel's workspace {plan.workspace} (float64) takes "
                 f"{8 * G * plan.workspace[1] * n} bytes, more than the card can allocate; ask "
                 "for fewer queries per call") from e
-        launch = (0, plan.splits, plan.shared_bytes, p(ws))
+        launch = (0, plan.splits, plan.stages_per_split, plan.shared_bytes, p(ws))
     else:
-        launch = (geometry.bucket, 0, geometry.shared_bytes, None)
+        launch = (geometry.bucket, 0, 0, geometry.shared_bytes, None)
     _build.launch(
         "gp_posterior_launch", p(z), p(form.Zt), p(form.alpha), p(form.W), p(form.mask),
         p(form.hyp), G, n, m, d, int(include_noise), *launch, p(mean), p(var),

@@ -283,8 +283,10 @@ def test_wrapper_picks_the_instantiation_by_m(monkeypatch, n_live, bucket):
     `gp_geometry` names for the packed form's M (the launch itself stubbed:
     no card here): the kernel row in registers at bucket 64 or 128 up to 128
     live points, with no split and no workspace; the tiled kernel (bucket 0)
-    past them, with `gp_tiled_plan`'s split and a float64 workspace of its
-    shape; no raise and no plain fallback; one launch counted."""
+    past them, with `gp_tiled_plan`'s split (its ranges and their length,
+    on the SMS of the default card for a tensor off the card) and a float64
+    workspace of its shape; no raise and no plain fallback; one launch
+    counted."""
     calls, empties = _stub_launch(monkeypatch)
     z, leaves = make_multi(G=2, n=70, d=6, m=n_live + 8, n_live=n_live)
     form = cuda_gp.pack_form(*(torch.as_tensor(a) for a in leaves))
@@ -299,15 +301,16 @@ def test_wrapper_picks_the_instantiation_by_m(monkeypatch, n_live, bucket):
     assert entry == "gp_posterior_launch"
     whole = 4 * (m * m + 8 * m + m * cuda_gp.QTILE)
     if bucket:
-        assert args[6:14] == (2, 70, m, 6, 1, bucket, 0, whole) and args[14] is None
+        assert args[6:15] == (2, 70, m, 6, 1, bucket, 0, 0, whole) and args[15] is None
         assert geometry.shared_bytes == whole and empties == [(2, 70), (2, 70)]
     else:
         plan = cuda_gp.gp_tiled_plan(2, 70, m, 6)
-        assert args[6:14] == (2, 70, m, 6, 1, 0, plan.splits, cuda_gp.TILED_SHARED_BYTES)
+        assert args[6:15] == (2, 70, m, 6, 1, 0, plan.splits, plan.stages_per_split,
+                              cuda_gp.TILED_SHARED_BYTES)
         assert geometry.shared_bytes == plan.shared_bytes == cuda_gp.TILED_SHARED_BYTES
         assert empties == [(2, 70), (2, 70), plan.workspace]
         assert plan.workspace == (2, plan.col_tiles * (plan.splits + 1), 70)
-    assert args[17] == 0
+    assert args[18] == 0
     assert geometry.shared_bytes <= 227 * 1024
     with pytest.raises(ValueError, match="multiple of 8"):
         cuda_gp.gp_geometry(m + 4, 6)
@@ -341,8 +344,10 @@ def test_wrapper_takes_the_tiled_kernel_at_any_m_when_asked(monkeypatch):
     cuda_gp.gp_mean_var_multi(torch.as_tensor(z), form, tiled=True)
     plan = cuda_gp.gp_tiled_plan(3, 50, 40, 3)
     (_, args), = calls
-    assert args[6:14] == (3, 50, 40, 3, 0, 0, plan.splits, cuda_gp.TILED_SHARED_BYTES)
+    assert args[6:15] == (3, 50, 40, 3, 0, 0, plan.splits, plan.stages_per_split,
+                          cuda_gp.TILED_SHARED_BYTES)
     assert empties[-1] == plan.workspace == (3, 3, 50)  # one column tile, a row range a stage
+    assert cuda_gp.sm_count(torch.device("cpu")) == cuda_gp.SMS  # the plan's card off the card
 
 
 @pytest.mark.parametrize("m", [136, 5120, 65_536])
@@ -367,13 +372,20 @@ PLAN_CASES = [(G, D, m, 25_637) for m in (136, 304, 512) for G, D in ((2, 6), (3
     (2, 6, 2048, 4096), (3, 3, 2048, 4096), (2, 6, 304, 20), (2, 6, 304, 2560)]
 
 
+@pytest.mark.parametrize("sms", [cuda_gp.SMS, 114])  # an H100 SXM's SMs, an H100 PCIe's
 @pytest.mark.parametrize("G,D,m,n", PLAN_CASES)
-def test_tiled_plan_covers_w_once_and_fills_the_card(G, D, m, n):
+def test_tiled_plan_covers_w_once_and_fills_the_card(G, D, m, n, sms):
     """Every (row, column) entry of W below M lies in exactly one block row
     of the grid; every column's mean share in exactly one; the partial
     indices are distinct and fill the workspace; no row range is empty; the
-    grid holds WAVE_TARGET blocks, or every row range is one stage."""
-    plan = cuda_gp.gp_tiled_plan(G, n, m, D)
+    grid holds two waves of a block on each of the card's `sms` SMs
+    (WAVE_TARGET on an H100 SXM, the default), or every row range is one
+    stage."""
+    target = 2 * sms * cuda_gp.TILED_BLOCKS_PER_SM
+    assert cuda_gp.WAVE_TARGET == 2 * cuda_gp.SMS * cuda_gp.TILED_BLOCKS_PER_SM
+    plan = cuda_gp.gp_tiled_plan(G, n, m, D, sms)
+    if sms == cuda_gp.SMS:
+        assert plan == cuda_gp.gp_tiled_plan(G, n, m, D)
     assert plan.grid == (-(-n // 64), plan.col_tiles * plan.splits, G)
     assert plan.col_tiles == -(-m // 128) and plan.stages == -(-m // 32)
     assert plan.workspace == (G, plan.col_tiles * (plan.splits + 1), n)
@@ -391,13 +403,13 @@ def test_tiled_plan_covers_w_once_and_fills_the_card(G, D, m, n):
     assert (cover == 1).all() and (mean_cover == 1).all()
     assert sorted(partials) == list(range(plan.workspace[1]))
     blocks = plan.grid[0] * plan.grid[1] * plan.grid[2]
-    assert blocks >= cuda_gp.WAVE_TARGET or plan.splits == plan.stages
+    assert blocks >= target or plan.splits == plan.stages
     assert -(-plan.stages // plan.stages_per_split) == plan.splits
     # split no further than the target needs: every smaller count of ranges
     # (of equal length but the last) falls short of it
     counts = {-(-plan.stages // per) for per in range(1, plan.stages + 1)}
     fewer = max([c for c in counts if c < plan.splits], default=0)
-    assert plan.grid[0] * plan.col_tiles * fewer * G < cuda_gp.WAVE_TARGET
+    assert plan.grid[0] * plan.col_tiles * fewer * G < target
     if (m, n) == (304, 20):
         assert blocks == 60 and plan.splits == 10  # one stage a block
     if (m, n) == (2048, 4096):

@@ -147,6 +147,34 @@ def test_gp_tiled_kernel_matches_plain(dev, G, D, m, n, density):
     assert max(_maxdiff(a.double(), b) for a, b in zip(out_k, out_64)) <= 1e-4 + d32
 
 
+def test_gp_tiled_launcher_refuses_a_split_that_misses_stages(dev):
+    """The split is chosen in Python (`cuda_gp.gp_tiled_plan`); the C
+    launcher checks it: ranges that leave a stage out, leave one empty or
+    number none are refused (kUnsupported, a ValueError), the plan itself
+    launches. M = 304 has 10 stages of 32 rows."""
+    form = cuda_gp.pack_form(*_gp_leaves(dev, 2, 6, seed=3, m=320, n_live=304, density=40))
+    G, n, m, D = 2, 20, form.Z.shape[1], 6
+    z = _t(np.random.default_rng(3).normal(0, 0.6, (G, n, D)), dev)
+    plan = cuda_gp.gp_tiled_plan(G, n, m, D, cuda_gp.sm_count(dev))
+    assert plan.stages == 10
+    ws = torch.empty(G, plan.col_tiles * 12, n, dtype=torch.float64, device=dev)
+    mean, var = (torch.empty(G, n, device=dev) for _ in range(2))
+    p = _build.ptr
+
+    def launch(splits, per):
+        _build.launch("gp_posterior_launch", p(z), p(form.Zt), p(form.alpha), p(form.W),
+                      p(form.mask), p(form.hyp), G, n, m, D, 1, 0, splits, per,
+                      plan.shared_bytes, p(ws), p(mean), p(var), _build.stream_handle(dev))
+
+    for splits, per in ((11, 1), (1, 9), (0, 10), (3, 3), (5, 3)):
+        with pytest.raises(ValueError, match="no kernel instantiation"):
+            launch(splits, per)
+    launch(plan.splits, plan.stages_per_split)
+    want = cuda_gp.gp_mean_var_multi(z, form, include_noise=True)
+    torch.cuda.synchronize()
+    assert torch.equal(mean, want[0]) and torch.equal(var, want[1])
+
+
 def test_gp_dmma_fragment_layout(dev):
     """The tiled GP kernel's FP64 tensor-core fragments and accumulator
     layout (`cuda_gp.dmma_probe`, one warp, every k-step of a 16-deep

@@ -45,7 +45,20 @@ path's controller, 64 client threads replaying 20 recorded steps each
 against their plain versions at B=128 and every other wrapper at 0, a
 dispatch against `batched_gpmpc_step` on the same tile buffers, a GP hot
 swap, a snapshot restored into a fresh server, then 4-action replies
-(`SERVER`). Last, the experiment entry points in-process, each with its
+(`SERVER`). Then the port's headline bench in-process (`[bench]` and
+`[breakdown]` lines, `BENCH_RUNS`): `bench_torch.py::main` at bench.py's
+defaults (quadrotor, T=25, B=1024, a 60-step window), for the cartpole and
+the two-link arm (10 steps), at T=100, B=256 (5 steps) and with
+`BENCH_REAL_GP=1` (15 prior steps collected and the GP trained on the CPU;
+10 steps),
+each run's two JSON lines under the card's metric name, kernels 1-4 launched
+at phase 2's rates a step (kernel 5 in kernel 4's place at T=100) and every
+other wrapper at 0; `scripts/bench_step_breakdown_torch.py::main` at
+`BREAKDOWN_CALLS` calls a segment, its seven segments in order, `lin1`
+launching kernel 3 and `qp1_warm` and `qp1_cold` kernel 4 once a call; and
+the default run's last step for its first tile of 128 scenarios solved again
+by the plain path on the CPU from the same states and observations (control
+RMSE bar). Last, the experiment entry points in-process, each with its
 launches counted from 0 (`[driver]`, `[eval_seeds]`, `[gp_fit]` lines):
 `scripts/run_gp_mpc_torch.py` (`DRIVER`: one epoch of 10 steps at 6 SQP / 10 IP
 iterations and 100 GP iterations, `--profile`, on a copy of the shipped
@@ -172,6 +185,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+import bench_torch  # noqa: E402
 from gpmpc_tpu_torch import _build, convert, roofline  # noqa: E402
 from gpmpc_tpu_torch import gp as gp_mod  # noqa: E402
 from gpmpc_tpu_torch.control import gpmpc as gpmpc_mod  # noqa: E402
@@ -638,9 +652,7 @@ class Problem:
         elif device.type == "cuda":
             self.gp = learned_gp(self, ctrl)
         else:  # phase 3 of a learned path: the card's trained GP, on the CPU
-            self.gp = type(TRAINED[path_name])(*[
-                type(v)(*[h.cpu() for h in v]) if isinstance(v, tuple) else v.cpu()
-                for v in TRAINED[path_name]])
+            self.gp = bench_torch.gp_to(TRAINED[path_name], device)
         if gp_edit is not None:
             self.gp = gp_edit(self.gp)
         if p.population:
@@ -1987,6 +1999,148 @@ def load_script(name: str):
     return mod
 
 
+# bench_torch.py's runs in [bench]: (tag, knobs over bench.py's defaults); and the breakdown's
+# calls a segment. A GP trained on 15 transitions holds the quadrotor on its reference for some
+# 25 steps: from there its thrust saturates, and from step ~60 scenarios leave the plant's range
+# and go non-finite, in the JAX package's closed loop as in the port's plain path on the CPU
+# (PERF.md, PR 16). The real-GP run's window stops at 20 steps, before that.
+BENCH_RUNS = (
+    ("quadrotor", {}),
+    ("cartpole", {"BENCH_MODEL": "cartpole", "BENCH_STEPS": "10"}),
+    ("twolink", {"BENCH_MODEL": "twolink", "BENCH_STEPS": "10"}),
+    ("T100", {"BENCH_HORIZON": "100", "BENCH_BATCH": "256", "BENCH_STEPS": "5"}),
+    ("real-gp", {"BENCH_REAL_GP": "1", "BENCH_REAL_GP_STEPS": "15", "BENCH_STEPS": "10"}),
+)
+BREAKDOWN_CALLS = 10
+# kernel launches a closed-loop step on the lanes-fused path (phase 2): one GP and one tightening
+# launch, one linearize and one QP launch an SQP iteration (6 at most; an early exit gives fewer)
+BENCH_RATES = {"gp_posterior": (1, 1), "tighten": (1, 1), "linearize": (1, 6), "qp": (1, 6)}
+
+
+def bench_run(smi: str, tag: str, knobs: dict):
+    """`bench_torch.py::main` with `knobs` on the card, launch counts from 0:
+    its two JSON lines under the card's metric name, kernels 1-4 at phase 2's
+    rates a step (the QP kernel of the horizon's tier: kernel 5 at T = 100)
+    and every other wrapper at 0. Returns the run."""
+    import contextlib
+    import io
+
+    wrappers = reset_launches()
+    chains = {k: v[0].launches for k, v in CHAINS.items()}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        run = bench_torch.main(knobs)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    for line in lines:
+        say(f"[bench] {tag}: {json.dumps(line)}")
+    T = int(knobs.get("BENCH_HORIZON", "25"))
+    B = int(knobs.get("BENCH_BATCH", "1024"))
+    steps = 2 + 8 + int(knobs.get("BENCH_STEPS", str(max(60, (60 * 1024) // B))))
+    qp = "ocp_ip" if T <= sqp_lanes.MAX_LANES_HORIZON else "ocp_ip_streamed"
+    say(f"[bench] {tag}: {wall:.1f} s, {steps} steps; kernel launches {launches}")
+    family = knobs.get("BENCH_MODEL", "quadrotor")
+    metric = "gpmpc_torch_solves_per_sec_1gpu" + ("" if family == "quadrotor" else f"_{family}")
+    if (lines != run.records or len(lines) != 2 or [r.get("provisional") for r in lines]
+            != [True, None] or any(r["metric"] != metric or not r["value"] > 0
+                                   or r["device"] != smi for r in lines)):
+        raise RuntimeError(f"bench {tag}: expected two lines of {metric} on {smi}: {lines}")
+    for k, (lo, hi) in BENCH_RATES.items():
+        n = launches[qp if k == "qp" else k]
+        if not lo * steps <= n <= hi * steps:
+            raise RuntimeError(f"bench {tag}: {n} launches of {k} over {steps} steps, not "
+                               f"{lo}-{hi} a step")
+    if launches["linearize"] != launches[qp]:
+        raise RuntimeError(f"bench {tag}: linearize and QP launches differ: {launches}")
+    off = {k: n for k, n in launches.items() if n and k not in ("gp_posterior", "tighten",
+                                                                 "linearize", qp)}
+    off.update({k: v[0].launches - chains[k] for k, v in CHAINS.items()
+                if v[0].launches != chains[k]})
+    if off:
+        raise RuntimeError(f"bench {tag}: kernels off its path launched: {off}")
+    if not bool(torch.isfinite(run.u).all()):
+        raise RuntimeError(f"bench {tag}: non-finite actions")
+    return run
+
+
+def bench_cpu_parity(run) -> None:
+    """The default run's last step solved again on the CPU by the plain
+    path for its first tile of 128 scenarios (the tile-wide IP exit sees the
+    same tile), from the same controller states and observations: control
+    RMSE <= `RMSE_BAR`."""
+    cpu = torch.device("cpu")
+    n = LANES
+    prob = bench_torch.build_problem(run.problem.family, run.states.X_warm.shape[1] - 1,
+                                     device=cpu, **bench_torch.FIXTURE_GP)
+    st = type(run.states)(*[v[:n].cpu() for v in run.states])
+    t0 = time.perf_counter()
+    u_cpu, _, _ = batched_gpmpc_step(prob.model, run.cfg, prob.ctrl.consts, prob.gp, st,
+                                     run.obs[:n].cpu(), backend=run.backend,
+                                     var_backend=run.var_backend, var_bf16=run.var_bf16)
+    err = u_cpu - run.u[:n].cpu()
+    rmse = float(torch.sqrt(torch.mean(err**2)))
+    say(f"[bench] quadrotor: the last step's first {n} scenarios on the CPU's plain path "
+        f"({time.perf_counter() - t0:.1f} s): control RMSE vs the card {rmse:.3e} (bar "
+        f"{RMSE_BAR}), max abs {float(err.abs().max()):.3e}")
+    if not rmse <= RMSE_BAR:
+        raise RuntimeError(f"bench: control RMSE {rmse} exceeds {RMSE_BAR}")
+
+
+def bench_breakdown(smi: str) -> None:
+    """`scripts/bench_step_breakdown_torch.py::main` at `BREAKDOWN_CALLS`
+    calls a segment: its seven segments in order on the card, the launches
+    of each segment counted (between its line and the one before): `lin1`
+    launches kernel 3 and no QP, `qp1_warm` and `qp1_cold` kernel 4, once a
+    call (and once before the clock), and no linearize but the one that
+    makes the QP."""
+    import contextlib
+    import io
+
+    bd = load_script("bench_step_breakdown_torch")
+    wrappers = reset_launches()
+    seen = {}
+
+    def snapshot(row, _emit=bd.emit):
+        _emit(row)
+        seen[row["segment"]] = {k: fn.launches for k, fn in wrappers.items()}
+
+    bd.emit = snapshot
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rows = bd.main({"BENCH_CALLS": str(BREAKDOWN_CALLS)})
+    wall = time.perf_counter() - t0
+    prev = None
+    for row in rows:
+        now = seen[row["segment"]]
+        delta = {k: n - (prev[k] if prev else 0) for k, n in now.items()}
+        prev = now
+        say(f"[breakdown] {json.dumps(row)}; launches {delta}")
+        # qp1_warm's one linearize launch is its QP's own A and B, made after lin1's line
+        want = {"lin1": {"linearize": BREAKDOWN_CALLS + 1, "ocp_ip": 0},
+                "qp1_warm": {"linearize": 1, "ocp_ip": BREAKDOWN_CALLS + 1},
+                "qp1_cold": {"linearize": 0, "ocp_ip": BREAKDOWN_CALLS + 1}}.get(row["segment"], {})
+        if any(delta[k] != n for k, n in want.items()):
+            raise RuntimeError(f"breakdown {row['segment']}: launches {delta}, expected {want}")
+    say(f"[breakdown] {wall:.1f} s")
+    if ([r["segment"] for r in rows] != list(bd.SEGMENTS) or len(bd.SEGMENTS) != 7
+            or any(not r["ms_per_call"] > 0 or r["device"] != smi for r in rows)
+            or [json.loads(ln) for ln in out.getvalue().splitlines()] != rows):
+        raise RuntimeError(f"breakdown: expected the seven segments on {smi}: {rows}")
+
+
+def bench_phase(smi: str) -> None:
+    """[bench]: the port's headline bench and its breakdown in-process (see
+    `BENCH_RUNS`), then the default run's last step against the CPU."""
+    t0 = time.perf_counter()
+    runs = {tag: bench_run(smi, tag, knobs) for tag, knobs in BENCH_RUNS}
+    bench_breakdown(smi)
+    bench_cpu_parity(runs["quadrotor"])
+    say(f"[time] the [bench] phase took {time.perf_counter() - t0:.1f} s")
+
+
 def config_copy(out_dir: Path, **overrides) -> Path:
     """scripts/gp_mpc_config.yaml copied into `out_dir` with its save dir there
     and each of `overrides` (a key of the file) set; read back through the
@@ -2031,12 +2185,6 @@ def trace_kernels(trace_file: Path) -> tuple[dict, float]:
             busy_us += float(dur.group(1)) if dur else 0.0
             i = text.find(key, end)
     return names, busy_us / 1e3
-
-
-def _gp_to(gp, device):
-    return gp._replace(**{k: (v.to(device) if isinstance(v, torch.Tensor)
-                              else type(v)(*[h.to(device) for h in v]))
-                          for k, v in gp._asdict().items()})
 
 
 def default_settings_probe(drv, cfg, gp) -> tuple[float, float]:
@@ -2156,7 +2304,7 @@ def experiment_driver(results: dict) -> None:
     cfg = load_config(cfg_path, make_save_dir=False)
     cpu_ctrl = drv.build_controller(cfg, ctrl.traj.numpy(), torch.device("cpu"),
                                     step_backend="lanes")
-    cpu_ctrl.gp_model = _gp_to(ctrl.gp_model, "cpu")
+    cpu_ctrl.gp_model = bench_torch.gp_to(ctrl.gp_model, "cpu")
     ev = run["eval_run"]
     u_cpu = np.stack([cpu_ctrl.select_action(ev["obs"][k]) for k in range(DRIVER_CPU_STEPS)])
     err = u_cpu - ev["action"][:DRIVER_CPU_STEPS]
@@ -2735,6 +2883,8 @@ def main() -> int:
     step_options(problems["quadrotor"], recorded["quadrotor"][0])
     quadrotor_server(problems["quadrotor"], results)
     say(f"[time] quadrotor-server done at {time.perf_counter() - t_run:.0f} s")
+    bench_phase(smi)
+    say(f"[time] bench done at {time.perf_counter() - t_run:.0f} s")
     t_exp = time.perf_counter()
     experiment_driver(results)
     say(f"[time] driver done at {time.perf_counter() - t_run:.0f} s")

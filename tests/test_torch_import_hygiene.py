@@ -20,8 +20,9 @@ names = [m.name for m in pkgutil.walk_packages(gpmpc_tpu_torch.__path__, "gpmpc_
 for name in names:
     __import__(name)
 for script in ("run_gp_mpc_torch", "eval_seeds_torch", "bench_gp_fit_torch",
-               "run_multihost_torch", "bench_scaling_torch"):
+               "run_multihost_torch", "bench_scaling_torch", "bench_step_breakdown_torch"):
     runpy.run_path(f"scripts/{{script}}.py", run_name="probe")
+runpy.run_path("bench_torch.py", run_name="probe")
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "triton", "gpmpc_tpu", "yaml",
                                        "matplotlib"))
@@ -33,7 +34,8 @@ print("LEAKED", leaked)
 def test_port_imports_no_jax_and_no_triton():
     """Every module of the port and the experiment scripts' module tops
     (scripts/run_gp_mpc_torch.py, eval_seeds_torch.py, bench_gp_fit_torch.py,
-    run_multihost_torch.py, bench_scaling_torch.py; their mains import only
+    run_multihost_torch.py, bench_scaling_torch.py,
+    bench_step_breakdown_torch.py and bench_torch.py; their mains import only
     modules of the port): no JAX, no Triton, nothing
     of the JAX package, and neither PyYAML nor matplotlib, which the card's
     machine does not have (matplotlib is imported only to draw)."""
@@ -66,14 +68,15 @@ def test_chip_smoke_imports_no_jax():
 
 
 def test_port_sources_name_no_jax_and_no_reference_import():
-    """Every Python file of the port and chip_smoke.py, read as text: no
-    import of jax or of the JAX package, also inside functions."""
-    files = sorted((REPO / "gpmpc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] + sorted(
+    """Every Python file of the port, chip_smoke.py and bench_torch.py, read
+    as text: no import of jax or of the JAX package, also inside functions."""
+    files = sorted((REPO / "gpmpc_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "bench_torch.py"] + sorted(
         (REPO / "scripts").glob("*_torch.py"))
     assert REPO / "gpmpc_tpu_torch" / "device.py" in files
     for name in ("run_gp_mpc_torch", "eval_seeds_torch", "bench_gp_fit_torch",
                  "serve_bench_torch", "bench_roofline_torch", "run_multihost_torch",
-                 "bench_scaling_torch"):
+                 "bench_scaling_torch", "bench_step_breakdown_torch"):
         assert REPO / "scripts" / f"{name}.py" in files, name
     assert REPO / "gpmpc_tpu_torch" / "roofline.py" in files
     for sub in ("gp", "runtime", "utils"):  # the subpackages of GP training and learning

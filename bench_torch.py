@@ -18,12 +18,19 @@ BENCH_GP_POINTS, BENCH_GP_INDUCING, BENCH_GP_DATA, BENCH_REAL_GP,
 BENCH_REAL_GP_STEPS, BENCH_BATCH, BENCH_STEPS, BENCH_BACKEND (lanes|xla),
 BENCH_QP_TOL (0 turns the IP exit off), BENCH_KERNEL_LIN, BENCH_MEHROTRA,
 BENCH_PSCAN, BENCH_WARM_SHIFT, BENCH_ANALYTIC_JAC, BENCH_VAR_BACKEND
-(auto|pallas|xla), BENCH_VAR_BF16, BENCH_PROV_STEPS and BENCH_BUDGET_S. One
-knob of its own: BENCH_DEVICE (unset: the card, `cuda:0`, and
-`NoCudaDeviceError` without one; `cpu` runs the plain versions, as the tests
-do). BENCH_FUSED is not mirrored and raises: bench.py's fused window is one
-`lax.scan` program, and in eager PyTorch a window of steps is the same host
-loop whether or not it sits in one function.
+(auto|pallas|xla), BENCH_VAR_BF16, BENCH_PROV_STEPS, BENCH_BUDGET_S, BENCH_FUSED
+and BENCH_FUSED_UNROLL. One knob of its own: BENCH_DEVICE (unset: the card,
+`cuda:0`, and `NoCudaDeviceError` without one; `cpu` runs the plain versions,
+as the tests do).
+
+BENCH_FUSED=1 runs the final window as one device program, as bench.py's
+`lax.scan` window does: `gpmpc_tpu_torch/parallel/fused.py::FusedWindow`
+captures BENCH_FUSED_UNROLL closed-loop steps (a number, default 1, or
+`full`: the whole window) into one CUDA graph and replays it, with the SQP
+loop's early exit off (the same solution, no host read). The provisional line
+still comes from the chained steps. The final window is warmed once (the
+captures and one window) and then timed, closed by the copy of the window's
+trace of u[0, 0] to the host. On the CPU the same window body runs eagerly.
 
 At bench.py's GP defaults (128 points, 40 inducing, 128 data) the GP is the
 one the JAX package trains there, read from its exported fixture
@@ -35,8 +42,8 @@ after BENCH_PROV_STEPS steps, then, unless the run is over BENCH_BUDGET_S
 seconds by then (counted from the start of `main`), the final line over
 BENCH_STEPS steps: {"metric", "value", "unit", "vs_baseline", "device"}, the
 metric `gpmpc_torch_solves_per_sec_1gpu` (`_cpu` on the CPU), with
-`_{family}` appended for the cartpole and the two-link arm. Each window is
-timed by the host clock around its chained steps, closed by one
+`_{family}` appended for the cartpole and the two-link arm. A chained window
+is timed by the host clock around its steps, closed by one
 `torch.cuda.synchronize()`.
 """
 
@@ -71,8 +78,9 @@ class Problem(NamedTuple):
 
 class BenchRun(NamedTuple):
     """What `main` measured: its JSON records (the provisional one first),
-    and the last timed step's inputs and actions (controller states and
-    observations before it, u after), with the step's settings."""
+    the last timed step's inputs and actions (controller states and
+    observations before it, u after) and the loop's carry after it, with the
+    step's settings and, under BENCH_FUSED=1, the fused window."""
 
     records: list
     states: object  # control/mpc.py::MpcState before the last step
@@ -84,6 +92,8 @@ class BenchRun(NamedTuple):
     backend: str
     var_backend: str
     var_bf16: bool
+    carry: tuple = ()  # (plant states, controller states, observations) after the last step
+    window: object = None  # parallel/fused.py::FusedWindow of the final window, or None
 
 
 def build_problem(family: str, horizon: int, gp_points: int, gp_inducing: int, gp_data: int,
@@ -166,6 +176,17 @@ def closed_loop_step(prob: Problem, cfg, gp, env_states, ctrl_states, obs, backe
     return env_states, ctrl_states, obs, u
 
 
+def fused_unroll(value: str, n_steps: int) -> int:
+    """bench.py's BENCH_FUSED_UNROLL: "full" (the whole window of `n_steps`
+    in one graph) or a positive number of steps a graph."""
+    if value == "full":
+        return max(n_steps, 1)
+    k = int(value)
+    if k < 1:
+        raise ValueError(f"BENCH_FUSED_UNROLL must be 'full' or a positive number, got {value!r}")
+    return k
+
+
 def gp_to(gp, device):
     """A GpModel with every leaf on `device`."""
     return type(gp)(*[type(v)(*[h.to(device) for h in v]) if isinstance(v, tuple) else v.to(device)
@@ -196,18 +217,17 @@ def real_gp(family: str, sizes: dict, n_collect: int, device, progress):
     return gp_to(prob.ctrl.gp_model, device), len(U)
 
 
-def main(env=os.environ) -> BenchRun:
+def main(env=os.environ, problem: Problem | None = None) -> BenchRun:
     """Runs the benchmark with the knobs in `env`; prints the JSON lines and
-    returns them with the last step's inputs and actions."""
+    returns them with the last step's inputs and actions. `problem`, one
+    that `build_problem` made for these knobs' family, horizon and GP sizes
+    on this device (an earlier run's), is used instead of a new one."""
     t_start = time.perf_counter()
 
     def progress(msg: str):
         print(f"[bench +{time.perf_counter() - t_start:7.1f}s] {msg}", file=sys.stderr, flush=True)
 
-    if env.get("BENCH_FUSED", "0") == "1":
-        raise ValueError("BENCH_FUSED=1 is not mirrored by bench_torch.py: in eager PyTorch a "
-                         "window of steps is the same host loop inside one function or not "
-                         "(bench.py's fused window is one lax.scan program); unset it")
+    fused = env.get("BENCH_FUSED", "0") == "1"
     backend = env.get("BENCH_BACKEND", "lanes")
     if backend not in BACKENDS:
         raise ValueError(f"BENCH_BACKEND must be one of {BACKENDS}, got {backend!r}")
@@ -216,6 +236,7 @@ def main(env=os.environ) -> BenchRun:
 
     from gpmpc_tpu_torch.control import mpc as mpc_mod
     from gpmpc_tpu_torch.device import resolve
+    from gpmpc_tpu_torch.parallel.fused import FusedWindow
     from gpmpc_tpu_torch.utils.benchkit import card_line
 
     device = resolve(env.get("BENCH_DEVICE") or None)
@@ -231,7 +252,15 @@ def main(env=os.environ) -> BenchRun:
                  gp_inducing=int(env.get("BENCH_GP_INDUCING", "40")),
                  gp_data=int(env.get("BENCH_GP_DATA", str(min(gp_points, 5000)))))
     family = env.get("BENCH_MODEL", "quadrotor")
-    prob = build_problem(family, device=device, **sizes)
+    if problem is None:
+        prob = build_problem(family, device=device, **sizes)
+    elif (problem.family, problem.ctrl.T, problem.ctrl.device) != (family, sizes["horizon"],
+                                                                   device):
+        raise ValueError(f"the problem given is {problem.family} at T={problem.ctrl.T} on "
+                         f"{problem.ctrl.device}, the knobs ask for {family} at "
+                         f"T={sizes['horizon']} on {device}")
+    else:
+        prob = problem
     gp = prob.gp
     if env.get("BENCH_REAL_GP", "0") == "1":
         progress("BENCH_REAL_GP=1: prior rollout + GP training on the host CPU")
@@ -239,6 +268,7 @@ def main(env=os.environ) -> BenchRun:
                         progress)
     B = int(env.get("BENCH_BATCH", "1024"))
     n_timed_steps = int(env.get("BENCH_STEPS", str(max(60, (60 * 1024) // max(B, 1)))))
+    unroll = fused_unroll(env.get("BENCH_FUSED_UNROLL", "1"), n_timed_steps) if fused else None
     cfg = configure(prob.ctrl.cfg, env)
     var_backend = env.get("BENCH_VAR_BACKEND", "auto")
     var_bf16 = env.get("BENCH_VAR_BF16", "0") == "1"
@@ -289,9 +319,30 @@ def main(env=os.environ) -> BenchRun:
         sync()
         return time.perf_counter() - t0
 
+    fused_window = None
+
     def result():
         return BenchRun(records, last[0], last[1], u, prob, cfg, gp, backend, var_backend,
-                        var_bf16)
+                        var_bf16, (env_states, ctrl_states, obs), fused_window)
+
+    def fused_run(n):
+        """bench.py:356-368: the fused window warmed once (its captures and one window),
+        then one window timed up to the copy of its trace to the host."""
+        nonlocal env_states, ctrl_states, obs, last, u, fused_window
+        cfg_fused = cfg._replace(early_exit=False)
+        fused_window = FusedWindow(
+            lambda *carry: closed_loop_step(prob, cfg_fused, gp, *carry, backend, var_backend,
+                                            var_bf16),
+            (env_states, ctrl_states, obs), unroll, max_steps=n)
+        progress(f"fused window: {unroll} steps a graph; capture and a warm window")
+        fused_window.run(n)
+        sync()
+        t0 = time.perf_counter()
+        fused_window.run(n).cpu()
+        dt = time.perf_counter() - t0
+        env_states, ctrl_states, obs = fused_window.carry
+        last, u = fused_window.last[1:], fused_window.u
+        return dt
 
     prov_steps = int(env.get("BENCH_PROV_STEPS", "8"))
     if prov_steps > 0:
@@ -302,7 +353,7 @@ def main(env=os.environ) -> BenchRun:
         progress(f"over budget ({budget_s:.0f}s); keeping provisional result")
         return result()
     progress("timing window starts")
-    dt_total = window(n_timed_steps)
+    dt_total = fused_run(n_timed_steps) if fused else window(n_timed_steps)
     progress(f"timing window done ({dt_total:.3f}s); printing result")
     emit(B * n_timed_steps / dt_total)
     return result()

@@ -58,9 +58,17 @@ other wrapper at 0; `scripts/bench_step_breakdown_torch.py::main` at
 launching kernel 3 and `qp1_warm` and `qp1_cold` kernel 4 once a call; and
 the default run's last step for its first tile of 128 scenarios solved again
 by the plain path on the CPU from the same states and observations (control
-RMSE bar). Last, the experiment entry points in-process, each with its
-launches counted from 0 (`[driver]`, `[eval_seeds]`, `[gp_fit]` lines):
-`scripts/run_gp_mpc_torch.py` (`DRIVER`: one epoch of 10 steps at 6 SQP / 10 IP
+RMSE bar); the real-GP run reuses the default run's problem. Then the fused
+window (`[fused]` lines, `FUSED_RUNS`, `fused_window_check`):
+`bench_torch.py::main` with BENCH_FUSED=1 on the default run's and the T=100
+run's problems, each CUDA-graph capture launching kernels 1 and 2 once a step
+and kernels 3 and 4 (5 at T=100) six times; `FUSED_STEPS` steps from the
+default run's last carry, chained and as `FusedWindow`s of 1 and 3 steps a
+graph built and captured under sync-debug "error", whose trace, actions and
+carries must equal the chained loop's (`FUSED_TOL`); each mode's solves/s and
+its busy and idle share in a window traced by torch.profiler. Last, the
+experiment entry points in-process, each with its launches counted from 0
+(`[driver]`, `[eval_seeds]`, `[gp_fit]` lines): `scripts/run_gp_mpc_torch.py` (`DRIVER`: one epoch of 10 steps at 6 SQP / 10 IP
 iterations and 100 GP iterations, `--profile`, on a copy of the shipped
 config; kernels 1, 2 and 4 held against their plain versions on the last
 step's inputs; the trace must name them; the CSV table, every run finite,
@@ -168,6 +176,7 @@ and `device_ms`), the nvidia-smi line, then as its last line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -177,6 +186,7 @@ import subprocess
 import sys
 import time
 import warnings
+from functools import partial
 from pathlib import Path
 from typing import NamedTuple
 
@@ -209,6 +219,7 @@ from gpmpc_tpu_torch.parallel.batch import (  # noqa: E402
     make_batched_controller_step,
 )
 from gpmpc_tpu_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
+from gpmpc_tpu_torch.parallel.fused import FusedWindow  # noqa: E402
 from gpmpc_tpu_torch.parallel.mesh import (  # noqa: E402
     Sharded,
     gather,
@@ -2011,36 +2022,94 @@ BENCH_RUNS = (
     ("T100", {"BENCH_HORIZON": "100", "BENCH_BATCH": "256", "BENCH_STEPS": "5"}),
     ("real-gp", {"BENCH_REAL_GP": "1", "BENCH_REAL_GP_STEPS": "15", "BENCH_STEPS": "10"}),
 )
+# A run that reuses an earlier run's problem (the same family, horizon and GP sizes; the real-GP
+# run replaces the GP): tag -> the earlier run's tag.
+BENCH_REUSE = {"real-gp": "quadrotor"}
+# bench_torch.py's BENCH_FUSED=1 runs: tag -> (the run whose problem it reuses, knobs)
+FUSED_RUNS = {
+    "quadrotor-fused": ("quadrotor", {"BENCH_FUSED": "1"}),
+    "T100-fused": ("T100", {"BENCH_FUSED": "1", "BENCH_HORIZON": "100", "BENCH_BATCH": "256",
+                            "BENCH_STEPS": "5"}),
+}
+FUSED_STEPS = 20  # the window held against the chained loop
+FUSED_TRACED = 5  # the steps of a window traced by torch.profiler (its busy share is a step's)
+FUSED_UNROLLS = (1, 3)  # steps a graph
+FUSED_TOL = 1e-6  # bit for bit expected
+# launches a captured step: the early exit is off, so all six SQP iterations run
+FUSED_RATES = {"gp_posterior": 1, "tighten": 1, "linearize": 6, "qp": 6}
 BREAKDOWN_CALLS = 10
 # kernel launches a closed-loop step on the lanes-fused path (phase 2): one GP and one tightening
 # launch, one linearize and one QP launch an SQP iteration (6 at most; an early exit gives fewer)
 BENCH_RATES = {"gp_posterior": (1, 1), "tighten": (1, 1), "linearize": (1, 6), "qp": (1, 6)}
 
 
-def bench_run(smi: str, tag: str, knobs: dict):
-    """`bench_torch.py::main` with `knobs` on the card, launch counts from 0:
-    its two JSON lines under the card's metric name, kernels 1-4 at phase 2's
-    rates a step (the QP kernel of the horizon's tier: kernel 5 at T = 100)
-    and every other wrapper at 0. Returns the run."""
-    import contextlib
+@contextlib.contextmanager
+def counting_captures(wrappers: dict, log: list):
+    """Inside the block, every graph a `FusedWindow` captures appends (its
+    steps, each wrapper's launches during the capture) to `log`."""
+    capture = FusedWindow.capture
+
+    def counted(window, n):
+        if n in window.graphs:
+            return capture(window, n)
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        graph = capture(window, n)
+        log.append((n, {k: fn.launches - before[k] for k, fn in wrappers.items()}))
+        return graph
+
+    FusedWindow.capture = counted
+    try:
+        yield
+    finally:
+        FusedWindow.capture = capture
+
+
+def check_captures(tag: str, captures: list, qp: str) -> None:
+    """Each capture of n steps launched kernels 1 and 2 n times and kernels 3
+    and the QP kernel `qp` 6 n times (six SQP iterations a step, the early
+    exit off), and no other wrapper."""
+    for n, launches in captures:
+        want = {k: n * FUSED_RATES.get("qp" if k == qp else k, 0) for k in launches}
+        say(f"[fused] {tag}: the capture of {n} step(s) launched {launches}")
+        if launches != want:
+            raise RuntimeError(f"fused {tag}: a capture of {n} steps launched {launches}, "
+                               f"expected {want}")
+
+
+def bench_run(smi: str, tag: str, knobs: dict, problem=None):
+    """`bench_torch.py::main` with `knobs` on the card, launch counts from 0
+    (on `problem`, an earlier run's, when given): its two JSON lines under
+    the card's metric name, kernels 1-4 at phase 2's rates a step (the QP
+    kernel of the horizon's tier: kernel 5 at T = 100) and every other
+    wrapper at 0. Under BENCH_FUSED=1 the window's step (its warm-up) and
+    each capture count as steps, and each capture launches exactly
+    `FUSED_RATES` a step. Returns the run."""
     import io
 
     wrappers = reset_launches()
     chains = {k: v[0].launches for k, v in CHAINS.items()}
     out = io.StringIO()
+    captures = []
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        run = bench_torch.main(knobs)
+    with contextlib.redirect_stdout(out), counting_captures(wrappers, captures):
+        run = bench_torch.main(knobs, problem)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
     lines = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    fused = knobs.get("BENCH_FUSED") == "1"
     for line in lines:
-        say(f"[bench] {tag}: {json.dumps(line)}")
+        say(f"[{'fused' if fused else 'bench'}] {tag}: {json.dumps(line)}")
     T = int(knobs.get("BENCH_HORIZON", "25"))
     B = int(knobs.get("BENCH_BATCH", "1024"))
-    steps = 2 + 8 + int(knobs.get("BENCH_STEPS", str(max(60, (60 * 1024) // B))))
+    steps = 2 + 8 + (1 + sum(n for n, _ in captures) if fused else
+                     int(knobs.get("BENCH_STEPS", str(max(60, (60 * 1024) // B)))))
     qp = "ocp_ip" if T <= sqp_lanes.MAX_LANES_HORIZON else "ocp_ip_streamed"
-    say(f"[bench] {tag}: {wall:.1f} s, {steps} steps; kernel launches {launches}")
+    say(f"[bench] {tag}: {wall:.1f} s, {steps} steps{' launched' if fused else ''}; kernel "
+        f"launches {launches}")
+    if fused != bool(captures) or fused != (run.window is not None):
+        raise RuntimeError(f"bench {tag}: BENCH_FUSED={knobs.get('BENCH_FUSED')}, captures "
+                           f"{captures}")
+    check_captures(tag, captures, qp)
     family = knobs.get("BENCH_MODEL", "quadrotor")
     metric = "gpmpc_torch_solves_per_sec_1gpu" + ("" if family == "quadrotor" else f"_{family}")
     if (lines != run.records or len(lines) != 2 or [r.get("provisional") for r in lines]
@@ -2131,14 +2200,119 @@ def bench_breakdown(smi: str) -> None:
         raise RuntimeError(f"breakdown: expected the seven segments on {smi}: {rows}")
 
 
+def profiled_window(fn) -> tuple[float, float]:
+    """(busy ms, wall ms) of `fn` on the card, traced by torch.profiler on
+    the card alone (as `profile_step` traces the `xla` paths): busy is the
+    device time of its kernels, wall the host clock to a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms = sum(e.device_time_total for e in prof.key_averages()
+                  if getattr(e, "device_time_total", 0) > 0
+                  and e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return busy_ms, wall_ms
+
+
+def fused_window_check(smi: str, run) -> None:
+    """[fused]: `FUSED_STEPS` closed-loop steps from the default run's last
+    carry, chained (`bench_torch.closed_loop_step`, the early exit on) and
+    as a `FusedWindow` of each `FUSED_UNROLLS` steps a graph (the early exit
+    off), built and captured under `torch.cuda.set_sync_debug_mode("error")`:
+    the trace of u[0, 0], the last step's actions and the carries before and
+    after it against the chained loop's (bit for bit expected; above
+    `FUSED_TOL` fails), each capture's launches; then each mode's solves/s
+    over a window of the same steps, and the card's busy time in a window of
+    `FUSED_TRACED` steps traced by torch.profiler, with the idle share as
+    `--profile` reads it: against the traced window's wall (upper: tracing
+    slows the host, and the replay of every graph node) and against the
+    untraced window's, step for step (lower)."""
+    B = run.u.shape[0]
+    step = lambda cfg: partial(bench_torch.closed_loop_step, run.problem, cfg, run.gp,  # noqa: E731
+                               backend=run.backend, var_backend=run.var_backend,
+                               var_bf16=run.var_bf16)
+    chained_step = step(run.cfg)
+    state = {"carry": run.carry}
+
+    def chained(n=FUSED_STEPS):
+        carry, us = state["carry"], []
+        for _ in range(n):
+            before = carry
+            *carry, u = chained_step(*carry)
+            us.append(u)
+        state["carry"] = tuple(carry)
+        return before, tuple(carry), us
+
+    t0 = time.perf_counter()
+    before, final, us = chained()
+    torch.cuda.synchronize()
+    wall = {"chained": 1e3 * (time.perf_counter() - t0)}
+    u00 = torch.stack([u[0, 0] for u in us])
+    traced = {"chained": profiled_window(lambda: chained(FUSED_TRACED))}
+    wrappers = reset_launches()
+    for k in FUSED_UNROLLS:
+        captures = []
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with counting_captures(wrappers, captures):
+                window = FusedWindow(step(run.cfg._replace(early_exit=False)), run.carry, k,
+                                     max_steps=FUSED_STEPS)
+                trace = window.run(FUSED_STEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        diffs = {"trace": (trace - u00).abs().max(), "u": (window.u - us[-1]).abs().max()}
+        for name, got, want in (("last", window.last, before), ("carry", window.carry, final)):
+            diffs[name] = max((a.double() - b.double()).abs().max()
+                              for a, b in zip(tree_leaves(got), tree_leaves(want)))
+        diffs = {name: float(d) for name, d in diffs.items()}
+        say(f"[fused] quadrotor, {FUSED_STEPS} steps from the default run's last carry, {k} "
+            f"step(s) a graph (graphs of {sorted(window.graphs)} steps), captured under "
+            f"sync-debug 'error': max |fused - chained| {max(diffs.values()):.3e} ({diffs}; "
+            f"bar {FUSED_TOL})")
+        check_captures(f"quadrotor window, {k} a graph", captures, "ocp_ip")
+        if not max(diffs.values()) <= FUSED_TOL:
+            raise RuntimeError(f"fused window ({k} a graph) differs from the chained loop: {diffs}")
+        mode = f"fused, {k} a graph"
+        t0 = time.perf_counter()
+        window.run(FUSED_STEPS).cpu()
+        wall[mode] = 1e3 * (time.perf_counter() - t0)
+        traced[mode] = profiled_window(lambda: window.run(FUSED_TRACED))
+    say(f"[fused] quadrotor, B={B}, solves/s over {FUSED_STEPS} steps: " + ", ".join(
+        f"{mode} {1e3 * B * FUSED_STEPS / ms:.2f}" for mode, ms in wall.items()) + f" on {smi}")
+    for mode, (busy, traced_ms) in traced.items():
+        step_ms = wall[mode] / FUSED_STEPS
+        say(f"[fused] quadrotor, {mode}: card busy {busy:.2f} ms in a traced window of "
+            f"{FUSED_TRACED} steps, {traced_ms:.2f} ms (idle share {1 - busy / traced_ms:.3f}, "
+            f"upper); {busy / FUSED_TRACED:.3f} ms a step against {step_ms:.3f} ms a step "
+            f"untraced (idle share {1 - busy / FUSED_TRACED / step_ms:.3f}, lower) on {smi}")
+        if not busy > 0:
+            raise RuntimeError(f"fused: the traced {mode} window shows no device time")
+
+
 def bench_phase(smi: str) -> None:
     """[bench]: the port's headline bench and its breakdown in-process (see
-    `BENCH_RUNS`), then the default run's last step against the CPU."""
+    `BENCH_RUNS`), then the default run's last step against the CPU; and
+    [fused]: the bench with BENCH_FUSED=1 on the default run's and the T =
+    100 run's problems (`FUSED_RUNS`), and the fused window held against the
+    chained loop from the default run's carry (`fused_window_check`)."""
     t0 = time.perf_counter()
-    runs = {tag: bench_run(smi, tag, knobs) for tag, knobs in BENCH_RUNS}
+    runs = {}
+    for tag, knobs in BENCH_RUNS:
+        base = runs.get(BENCH_REUSE.get(tag))
+        runs[tag] = bench_run(smi, tag, knobs, base.problem if base else None)
     bench_breakdown(smi)
     bench_cpu_parity(runs["quadrotor"])
-    say(f"[time] the [bench] phase took {time.perf_counter() - t0:.1f} s")
+    t_fused = time.perf_counter()
+    for tag, (base, knobs) in FUSED_RUNS.items():
+        bench_run(smi, tag, knobs, runs[base].problem)
+    fused_window_check(smi, runs["quadrotor"])
+    say(f"[time] the [bench] phase took {time.perf_counter() - t0:.1f} s, its [fused] part "
+        f"{time.perf_counter() - t_fused:.1f} s")
 
 
 def config_copy(out_dir: Path, **overrides) -> Path:

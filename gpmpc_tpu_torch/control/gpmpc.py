@@ -36,7 +36,7 @@ import torch
 
 from gpmpc_tpu_torch.control import mpc as mpc_mod
 from gpmpc_tpu_torch.control.mpc import MPC, MpcConsts, MpcInfo, MpcState, state_bound_violation
-from gpmpc_tpu_torch.device import UnsupportedPathError, resolve, strict_float32
+from gpmpc_tpu_torch.device import UnsupportedPathError, device_constant, resolve, strict_float32
 from gpmpc_tpu_torch.gp.exact_gp import (
     GPData,
     GPHypers,
@@ -326,6 +326,12 @@ def variance_form(gp: GpModel) -> GpForm:
     return form
 
 
+def cached_forms() -> list:
+    """Every variance form `variance_form` keeps now: a CUDA graph that read
+    them holds them, so that none is freed under it."""
+    return [form for _, _, form in _FORMS]
+
+
 def _population_variances(gp: GpModel, z_slices: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """(G, B, T) variances of a GP population (every leaf leading with B) at
     z_slices (G, B, T, D): each scenario's own quadratic form."""
@@ -599,6 +605,13 @@ def batched_select_action_lanes(
                                     var_bf16, tighten_backend)
 
 
+def _kernel_params(spec: ResidualSpec, params, device) -> torch.Tensor:
+    """The family's (8,) plant coefficients for the linearize kernel on `device`, formed once
+    per (family, parameters, device) (`device_constant`): no host-to-device copy a step."""
+    return device_constant(("kernel_params", spec.name, tuple(params)), device,
+                           lambda device: spec.kernel_params(params).to(device))
+
+
 def _select_action_lanes(model, cfg, consts, gp, states, obs, lanes, var_backend, var_bf16,
                          tighten_backend):
     spec = model_spec(model)
@@ -631,7 +644,7 @@ def _select_action_lanes(model, cfg, consts, gp, states, obs, lanes, var_backend
         G, _, D = gp.Zs.shape
         inv_ell2 = (1.0 / (ell * ell)).reshape(G, -1).expand(G, D)
         lin = LanesLinearizer(
-            params8=spec.kernel_params(model.params).to(obs.device),
+            params8=_kernel_params(spec, model.params, obs.device),
             hyp=torch.cat([sf2[:, None], inv_ell2], dim=1).contiguous(),
             Zs=gp.Zs, alpha=gp.alpha_s, use_gp=True, family=spec.name,
         )

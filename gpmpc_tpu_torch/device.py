@@ -76,3 +76,44 @@ def draw_rows(kind: str, generator: torch.Generator | ShardDraw, shape: tuple,
     full = fn((generator.batch,) + tuple(shape[1:]), generator=generator.generator, dtype=dtype,
               device=device)
     return full[generator.lo:generator.hi]
+
+
+# Device constants built from plain parameters (`device_constant`): key -> tensor, oldest first.
+_CONSTANTS: dict = {}
+_CONSTANTS_KEPT = 32
+
+
+def _plain(value) -> bool:
+    """True for a number, string, None, device or a tuple of those: a value
+    that is hashable and compares by value alone."""
+    if isinstance(value, tuple):
+        return all(_plain(v) for v in value)
+    return value is None or isinstance(value, (bool, int, float, str, torch.device))
+
+
+def device_constant(key: tuple, device, build):
+    """`build(device)`, a tensor (or a tuple of tensors) made from the plain
+    values in `key` alone, built once per (key, device) and kept for the next
+    calls (the last `_CONSTANTS_KEPT`). A step that reads its constants this
+    way makes no host-to-device copy after its first call, so it can be
+    captured in a CUDA graph. A key holding anything but plain values (a
+    tensor among the parameters) builds anew every call. The tensors are made
+    outside inference mode, and no caller may write them."""
+    device = torch.device(device)
+    key = key + (device,)
+    if not _plain(key):
+        return build(device)
+    hit = _CONSTANTS.get(key)
+    if hit is None:
+        with torch.inference_mode(False):
+            hit = build(device)
+        _CONSTANTS[key] = hit
+        while len(_CONSTANTS) > _CONSTANTS_KEPT:
+            del _CONSTANTS[next(iter(_CONSTANTS))]
+    return hit
+
+
+def cached_constants() -> list:
+    """Every tensor `device_constant` keeps now: a CUDA graph that read them
+    holds them, so that none is freed under it."""
+    return list(_CONSTANTS.values())

@@ -8,7 +8,7 @@ import math
 
 import torch
 
-from gpmpc_tpu_torch.device import ShardDraw, draw_rows, resolve
+from gpmpc_tpu_torch.device import ShardDraw, device_constant, draw_rows, resolve
 
 
 def add_process_noise(p, x: torch.Tensor, rows: list[int],
@@ -25,7 +25,9 @@ def add_process_noise(p, x: torch.Tensor, rows: list[int],
         raise ValueError(f"process noise (noise_std={p.noise_std}) needs a torch.Generator on "
                          "the plant's device: pass generator=")
     noise = draw_rows("randn", generator, (x.shape[0], len(rows)), x.dtype, x.device)
-    return x.index_add(1, torch.tensor(rows, device=x.device), p.noise_std * math.sqrt(p.dt) * noise)
+    index = device_constant(("noise_rows", tuple(rows)), x.device,
+                            lambda device: torch.tensor(rows, device=device))
+    return x.index_add(1, index, p.noise_std * math.sqrt(p.dt) * noise)
 
 
 class StatefulEnv:

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from gpmpc_tpu_torch.device import resolve
+from gpmpc_tpu_torch.device import device_constant, resolve
 from gpmpc_tpu_torch.envs._stateful import StatefulEnv, add_process_noise
 from gpmpc_tpu_torch.models import cartpole
 from gpmpc_tpu_torch.models.cartpole import CartpoleParams
@@ -135,6 +135,14 @@ def env_step_dynamic(
     return _step(p, CartpoleParams(*params_arr.unbind(-1)), state, action, generator)
 
 
+def _step_constants(p: EnvParams, device):
+    """(the reference trajectory (n_steps, 4), the state box (4,) x 2) of the plant `p` on
+    `device`, built once (`device_constant`)."""
+    return device_constant(("cartpole_env.step", p), device, lambda device: (
+        make_trajectory(p, device),
+        *(torch.as_tensor(b, device=device) for b in cartpole.state_bounds())))
+
+
 def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor, generator):
     sub_dt = p.dt / p.sim_substeps
     x = state.x
@@ -143,11 +151,11 @@ def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor, generator):
     x = add_process_noise(p, x, _NOISE_ROWS, generator)  # the two velocity rows
     t = state.t + 1
 
-    ref = make_trajectory(p, x.device)[torch.remainder(t.long(), p.n_steps)]
+    traj, s_low, s_high = _step_constants(p, x.device)
+    ref = traj[torch.remainder(t.long(), p.n_steps)]
     err_pos = x[:, cartpole.IDX_X] - ref[:, cartpole.IDX_X]
     reward = -(err_pos**2 + x[:, cartpole.IDX_THETA] ** 2)
 
-    s_low, s_high = (torch.as_tensor(b, device=x.device) for b in cartpole.state_bounds())
     terminated = torch.logical_or((x < 2 * s_low).any(-1), (x > 2 * s_high).any(-1))
     truncated = t >= p.n_steps
     return EnvState(x=x, t=t), x, reward, terminated, truncated

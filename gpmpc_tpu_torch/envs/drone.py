@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from gpmpc_tpu_torch.device import resolve
+from gpmpc_tpu_torch.device import device_constant, resolve
 from gpmpc_tpu_torch.envs._stateful import StatefulEnv, add_process_noise
 from gpmpc_tpu_torch.models import quadrotor
 from gpmpc_tpu_torch.models.quadrotor import QuadrotorParams
@@ -23,6 +23,10 @@ F32 = torch.float32
 _VEL_ROWS = [quadrotor.IDX_DX, quadrotor.IDX_DY, quadrotor.IDX_DZ]
 # the rows the process noise enters: the three velocities and the two attitude rates
 _NOISE_ROWS = _VEL_ROWS + [quadrotor.IDX_DPHI, quadrotor.IDX_DTHETA]
+# the velocity and position rows as slices (every other row from 1 and from 0): indexing by a
+# slice reads a view, where a list of rows would copy its index to the card on every call
+_VEL = slice(quadrotor.IDX_DX, quadrotor.IDX_DZ + 1, 2)
+_POS = slice(quadrotor.IDX_X, quadrotor.IDX_Z + 1, 2)
 
 
 class EnvParams(NamedTuple):
@@ -123,14 +127,30 @@ def env_step_dynamic(
     return _step(p, QuadrotorParams(*params_arr.unbind(-1)), state, action, generator)
 
 
+def _step_constants(p: EnvParams, device):
+    """(alpha (4,), the reference trajectory (n_steps, 12), the state box (12,) x 2) of the
+    plant `p` on `device`, built once (`device_constant`)."""
+    def build(device):
+        sub_dt = p.dt / p.sim_substeps
+        alpha = torch.tensor(
+            [1.0 - math.exp(-sub_dt / tau) if tau > 0.0 else 1.0
+             for tau in (p.rotor_tau, p.att_tau, p.att_tau, p.att_tau)],
+            dtype=F32, device=device,
+        )
+        s_low, s_high = (torch.as_tensor(b, device=device) for b in quadrotor.state_bounds())
+        return alpha, make_trajectory(p, device), s_low, s_high
+
+    return device_constant(("drone.step", p), device, build)
+
+
 def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor, generator):
     def fc(x_, u_):
         f = quadrotor.continuous_dynamics(x_, u_, params=dyn)
         if p.drag_lin > 0.0 or p.drag_quad > 0.0:
-            v = x_[..., _VEL_ROWS]
+            v = x_[..., _VEL].contiguous()
             drag = -(p.drag_lin + p.drag_quad * torch.linalg.vector_norm(v, dim=-1, keepdim=True)) * v
             f = f.clone()
-            f[..., _VEL_ROWS] += drag
+            f[..., _VEL] += drag
         return f
 
     if p.delay_steps > 0:
@@ -141,11 +161,7 @@ def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor, generator):
         u_queue = state.u_queue
 
     sub_dt = p.dt / p.sim_substeps
-    alpha = torch.tensor(
-        [1.0 - math.exp(-sub_dt / tau) if tau > 0.0 else 1.0
-         for tau in (p.rotor_tau, p.att_tau, p.att_tau, p.att_tau)],
-        dtype=F32, device=action.device,
-    )
+    alpha, traj, s_low, s_high = _step_constants(p, action.device)
     x = state.x
     u_act = state.u_act
     for _ in range(p.sim_substeps):
@@ -154,12 +170,10 @@ def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor, generator):
     x = add_process_noise(p, x, _NOISE_ROWS, generator)
     t = state.t + 1
 
-    traj = make_trajectory(p, x.device)
     ref = traj[torch.remainder(t.long(), p.n_steps)]
-    pos_err = x[:, [0, 2, 4]] - ref[:, [0, 2, 4]]
+    pos_err = x[:, _POS] - ref[:, _POS]
     reward = -torch.sum(pos_err**2, dim=-1)
 
-    s_low, s_high = (torch.as_tensor(b, device=x.device) for b in quadrotor.state_bounds())
     terminated = torch.logical_or((x < 2 * s_low).any(-1), (x > 2 * s_high).any(-1))
     truncated = t >= p.n_steps
     return EnvState(x=x, t=t, u_act=u_act, u_queue=u_queue), x, reward, terminated, truncated

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from gpmpc_tpu_torch.device import resolve
+from gpmpc_tpu_torch.device import device_constant, resolve
 from gpmpc_tpu_torch.envs._stateful import StatefulEnv, add_process_noise
 from gpmpc_tpu_torch.models import twolink
 from gpmpc_tpu_torch.models.twolink import GRAVITY, TwoLinkParams
@@ -151,6 +151,14 @@ def env_step_dynamic(
     return _step(p, TwoLinkParams(*params_arr.unbind(-1)), state, action, generator)
 
 
+def _step_constants(p: EnvParams, device):
+    """(the reference trajectory (n_steps, 4), the state box (4,) x 2) of the plant `p` on
+    `device`, built once (`device_constant`)."""
+    return device_constant(("twolink_env.step", p), device, lambda device: (
+        make_trajectory(p, device),
+        *(torch.as_tensor(b, device=device) for b in twolink.state_bounds())))
+
+
 def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor, generator):
     sub_dt = p.dt / p.sim_substeps
     x = state.x
@@ -159,10 +167,10 @@ def _step(p: EnvParams, dyn, state: EnvState, action: torch.Tensor, generator):
     x = add_process_noise(p, x, _NOISE_ROWS, generator)  # the two velocity rows
     t = state.t + 1
 
-    ref = make_trajectory(p, x.device)[torch.remainder(t.long(), p.n_steps)]
+    traj, s_low, s_high = _step_constants(p, x.device)
+    ref = traj[torch.remainder(t.long(), p.n_steps)]
     reward = -torch.sum((x[:, :2] - ref[:, :2]) ** 2, dim=-1)
 
-    s_low, s_high = (torch.as_tensor(b, device=x.device) for b in twolink.state_bounds())
     terminated = torch.logical_or((x < 2 * s_low).any(-1), (x > 2 * s_high).any(-1))
     truncated = t >= p.n_steps
     return EnvState(x=x, t=t), x, reward, terminated, truncated

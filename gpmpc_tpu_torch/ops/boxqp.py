@@ -127,7 +127,9 @@ def solve_ocp_qp(
     soft = soft_x is not None
     full = lambda shape, v: torch.full(shape, v, dtype=dtype, device=dev)  # noqa: E731
     if soft:
-        rho = torch.as_tensor(soft_x, dtype=dtype, device=dev).expand(Bn, T + 1, nx)
+        # a number is filled on the device: torch.as_tensor would copy it from the host
+        rho = (soft_x.to(dtype=dtype, device=dev) if isinstance(soft_x, torch.Tensor)
+               else full((), soft_x)).expand(Bn, T + 1, nx)
 
     dx0 = full((Bn, T + 1, nx), 0.0)
     du0 = full((Bn, T, nu), 0.0)
@@ -136,7 +138,7 @@ def solve_ocp_qp(
     s_ux = torch.clamp_min(qp.ux + e0 - dx0, s_min)
     s_lu = torch.clamp_min(du0 - qp.lu, s_min)
     s_uu = torch.clamp_min(qp.uu - du0, s_min)
-    mu_init = torch.tensor(mu0, dtype=dtype, device=dev)
+    mu_init = full((), mu0)
     lam_lx0 = mu_init / s_lx
     lam_ux0 = mu_init / s_ux
     if soft:

@@ -29,6 +29,7 @@ from gpmpc_tpu.parallel.batch import batched_gpmpc_step as j_batched_gpmpc_step
 from gpmpc_tpu.utils.benchkit import Q_MPC, R_MPC, reference_prior_dict
 from gpmpc_tpu_torch.control import mpc as t_mpc
 from gpmpc_tpu_torch.envs import drone as t_drone
+from gpmpc_tpu_torch.parallel.mesh import tree_leaves
 from tests._torch_threads import _one_thread  # noqa: F401
 from tests.test_torch_scripts import _assert_same_value
 from tests.test_torch_step import _jax_bench_gp
@@ -163,6 +164,28 @@ def test_configure_equals_bench_py(family, knobs):
         assert got.qp_tol is None
 
 
+def jax_bench_loop(B: int):
+    """The JAX side of bench.py's quadrotor loop at T = 8 (bench.py:247-255,
+    :304-313): the JAX package's controller, bench.py's SqpConfig, the
+    fixture GP, the plant's default parameters and B initial plant states,
+    observations and controller states from PRNGKey(0); with the port's
+    problem and config at the same settings."""
+    jc, prob = _controllers("quadrotor")
+    env_p = j_drone.EnvParams.default()
+    es, obs = jax.vmap(lambda k: j_drone.env_reset(env_p, k))(
+        jax.random.split(jax.random.PRNGKey(0), B))
+    st_j = jax.vmap(lambda _: j_mpc.init_state(HORIZON, 12, 4))(jnp.arange(B))
+    return dict(jc=jc, cfg_j=_bench_py_cfg(jc.cfg, {}), gp_j=_jax_bench_gp(), env_p=env_p, es=es,
+                obs=obs, st_j=st_j, prob=prob, cfg_t=BENCH.configure(prob.ctrl.cfg, {}))
+
+
+def port_env_state(es) -> t_drone.EnvState:
+    """JAX's plant states as the port's, in float32."""
+    t = lambda a: torch.as_tensor(np.array(a))  # noqa: E731
+    return t_drone.EnvState(x=t(es.x).float(), t=t(es.t), u_act=t(es.u_act).float(),
+                            u_queue=t(es.u_queue).float())
+
+
 def test_closed_loop_step_matches_jax():
     """`closed_loop_step` at bench.py's quadrotor settings (T = 8, B = 4, 3
     steps, the fixture GP on both sides) from JAX's initial states
@@ -173,22 +196,15 @@ def test_closed_loop_step_matches_jax():
     and u within 5e-4 at every step, as tests/test_torch_step.py's; the
     port's next observations within 1e-4 of JAX's."""
     T, B = HORIZON, 4
-    jc, prob = _controllers("quadrotor")
-    cfg_j = _bench_py_cfg(jc.cfg, {})
-    cfg_t = BENCH.configure(prob.ctrl.cfg, {})
-    gp_j = _jax_bench_gp()
-    step_j = jax.jit(partial(j_batched_gpmpc_step, jc.model, cfg_j, backend="xla"))
-    env_p = j_drone.EnvParams.default()
+    loop = jax_bench_loop(B)
+    jc, prob, cfg_t, env_p = loop["jc"], loop["prob"], loop["cfg_t"], loop["env_p"]
+    step_j = jax.jit(partial(j_batched_gpmpc_step, jc.model, loop["cfg_j"], backend="xla"))
     plant = jax.jit(jax.vmap(lambda s, a: j_drone.env_step(env_p, s, a)))
-    es, obs = jax.vmap(lambda k: j_drone.env_reset(env_p, k))(
-        jax.random.split(jax.random.PRNGKey(0), B))
-    st_j = jax.vmap(lambda _: j_mpc.init_state(T, 12, 4))(jnp.arange(B))
+    es, obs, st_j, gp_j = loop["es"], loop["obs"], loop["st_j"], loop["gp_j"]
     st_t = t_mpc.init_state(B, T, 12, 4, device="cpu")
-    t = lambda a: torch.as_tensor(np.array(a))  # noqa: E731
     u_j, u_t = [], []
     for _ in range(3):
-        es_t = t_drone.EnvState(x=t(es.x).float(), t=t(es.t), u_act=t(es.u_act).float(),
-                                u_queue=t(es.u_queue).float())
+        es_t = port_env_state(es)
         _, st_t, obs_t, ut = BENCH.closed_loop_step(prob, cfg_t, prob.gp, es_t, st_t,
                                                     torch.tensor(np.asarray(obs, F32)))
         uj, st_j, _ = step_j(jc.consts, gp_j, st_j, jnp.asarray(np.asarray(obs, F32)))
@@ -250,13 +266,40 @@ def test_main_real_gp(capsys):
 
 
 @pytest.mark.parametrize("knobs,error", [
-    ({"BENCH_FUSED": "1"}, ValueError),
     ({"BENCH_BACKEND": "pallas"}, ValueError),
     ({"BENCH_MODEL": "unicycle"}, ValueError),
+    ({"BENCH_FUSED_UNROLL": "0", "BENCH_FUSED": "1"}, ValueError),
 ])
 def test_main_refuses_what_it_does_not_run(knobs, error):
     with pytest.raises(error, match=next(iter(knobs))):
         BENCH.main(dict(TINY, **knobs))
+
+
+_UNFUSED: list = []
+
+
+@pytest.mark.parametrize("unroll", ["1", "full"])
+def test_main_fused(capsys, unroll):
+    """BENCH_FUSED=1 on the CPU (the window body run eagerly, 2 steps, one
+    or both a graph's worth): the provisional line and the final line under
+    the unfused run's metric name; after its 2 + 2 chained steps and two
+    windows of 2 the run ends on the states, observations and actions of an
+    unfused run of 2 + 2 + 4 chained steps, bit for bit, and it returns its
+    window."""
+    if not _UNFUSED:
+        _UNFUSED.append(BENCH.main(dict(TINY, BENCH_STEPS="4")))
+        capsys.readouterr()
+    unfused = _UNFUSED[0]
+    run = BENCH.main(dict(TINY, BENCH_FUSED="1", BENCH_FUSED_UNROLL=unroll))
+    lines, err = _lines(capsys)
+    assert lines == run.records and len(lines) == 2
+    assert [r.get("provisional") for r in lines] == [True, None]
+    assert all(r["metric"] == "gpmpc_torch_solves_per_sec_cpu" and r["value"] > 0 for r in lines)
+    assert f"fused window: {2 if unroll == 'full' else 1} steps a graph" in err
+    assert run.window is not None and unfused.window is None
+    assert torch.equal(run.u, unfused.u) and torch.equal(run.obs, unfused.obs)
+    got, want = tree_leaves((run.carry, run.states)), tree_leaves((unfused.carry, unfused.states))
+    assert len(got) == len(want) == 11 and all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("script", ["bench", "breakdown"])

@@ -720,3 +720,78 @@ def test_chain_kernels_slice_wide_tiles_and_refuse_odd_bf16_tiles(dev):
     odd = torch.zeros(1, 1, 12, 12, 7, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="no kernel instantiation"):
         cuda_chain.lanes_chain_bf16(odd, 1)
+
+
+def _bench_loop(dev, horizon=25, batch=128):
+    """bench_torch.py's quadrotor loop on the card at `horizon` and `batch`:
+    (the closed-loop step for a config, bench.py's config, the carry after
+    one chained step, which fills the step's caches)."""
+    from functools import partial
+
+    import bench_torch
+    from gpmpc_tpu_torch.control import mpc as mpc_mod
+
+    prob = bench_torch.build_problem("quadrotor", horizon, device=dev, **bench_torch.FIXTURE_GP)
+    cfg = bench_torch.configure(prob.ctrl.cfg, {})
+    es, obs = prob.env_mod.env_reset(prob.env_p, batch,
+                                     torch.Generator(device=dev).manual_seed(0), dev)
+    step = lambda cfg_: partial(bench_torch.closed_loop_step, prob, cfg_, prob.gp)  # noqa: E731
+    *carry, _ = step(cfg)(es, mpc_mod.init_state(batch, horizon, 12, 4, device=dev), obs)
+    return step, cfg, tuple(carry)
+
+
+def test_fused_window_captures_under_sync_debug_error(dev):
+    """The lanes-fused closed-loop step (bench.py's quadrotor, T = 25, one
+    tile) warms and is captured with `torch.cuda.set_sync_debug_mode("error")`
+    set around the whole window: no host read, no copy from pageable memory;
+    the replays give finite actions."""
+    from gpmpc_tpu_torch.parallel.fused import FusedWindow
+
+    step, cfg, carry = _bench_loop(dev)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        window = FusedWindow(step(cfg._replace(early_exit=False)), carry, 2)
+        trace = window.run(5)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert sorted(window.graphs) == [1, 2]
+    assert bool(torch.isfinite(trace).all()) and bool(torch.isfinite(window.u).all())
+
+
+@pytest.mark.parametrize("horizon", [25, 100])
+def test_fused_window_replays_the_chained_loop_bit_for_bit(dev, horizon):
+    """Five steps of the fused window (graphs of 1, 2 and all 5 steps; T = 25
+    on kernel 4, T = 100 on kernel 5) against five chained steps with the
+    early exit from the same carry: the trace of u[0, 0], the last actions
+    and the carries before and after the last step bit for bit."""
+    from gpmpc_tpu_torch.parallel.fused import FusedWindow
+    from gpmpc_tpu_torch.parallel.mesh import tree_leaves
+
+    step, cfg, carry = _bench_loop(dev, horizon)
+    chained, us = carry, []
+    for _ in range(5):
+        before = chained
+        *chained, u = step(cfg)(*chained)
+        us.append(u)
+    for k in (1, 2, 5):
+        window = FusedWindow(step(cfg._replace(early_exit=False)), carry, k)
+        assert torch.equal(window.run(5), torch.stack([u[0, 0] for u in us]))
+        assert torch.equal(window.u, us[-1])
+        for got, want in ((window.last, before), (window.carry, tuple(chained))):
+            assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def test_a_step_that_reads_the_host_fails_its_capture(dev):
+    """The step with the SQP loop's early exit on reads `converged.all()` on
+    the host every iteration: its capture raises, and no graph is kept. The
+    card is usable after: the same window without the exit runs."""
+    from gpmpc_tpu_torch.parallel.fused import FusedWindow
+
+    step, cfg, carry = _bench_loop(dev)
+    window = FusedWindow(step(cfg), carry)
+    with pytest.raises(RuntimeError):
+        window.run(1)
+    assert window.graphs == {}
+    fixed = FusedWindow(step(cfg._replace(early_exit=False)), carry)
+    assert bool(torch.isfinite(fixed.run(2)).all())

@@ -160,7 +160,11 @@ Phases, each printing its own lines:
      30, which must report soft violations and stay finite;
   3. per path, the same observations for the first scenarios solved by the
      port's plain path on the CPU: control RMSE against the card's actions
-     <= 1e-3.
+     <= 1e-3. Phase 3 (and the [bench] phase's CPU check) runs in a spawned
+     worker process beside the card's phases (`CpuWorker`: its torch
+     threads pinned to all but two cores), fed each path's recorded steps as
+     soon as phase 2 has them and joined before the final lines; a failed
+     comparison there fails the run.
 
 `--profile` adds a torch.profiler pass over one step of each path and
 prints the card's busy time with the idle share against the profiled step
@@ -1510,9 +1514,12 @@ def closed_loop(prob: Problem, results: dict, stress=False):
     return rec_obs, rec_u
 
 
-def cpu_parity(path_name: str, rec_obs, rec_u) -> None:
-    """Phase 3 for one path: the plain path on the CPU, same observations."""
+def cpu_parity(path_name: str, rec_obs, rec_u, trained_gp=None) -> None:
+    """Phase 3 for one path: the plain path on the CPU, same observations
+    (`trained_gp`: a learned path's GP, trained on the card, on the CPU)."""
     cpu = torch.device("cpu")
+    if trained_gp is not None:
+        TRAINED[path_name] = trained_gp
     path = PATHS[path_name]
     prob = Problem(path_name, cpu, batch=path.n_cpu)
     st = mpc_mod.init_state(path.n_cpu, path.T, prob.model.nx, prob.model.nu, device=cpu)
@@ -1531,6 +1538,89 @@ def cpu_parity(path_name: str, rec_obs, rec_u) -> None:
         f"(bar {RMSE_BAR}), max abs {float(err.abs().max()):.3e}")
     if not rmse <= RMSE_BAR:
         raise RuntimeError(f"{path_name}: control RMSE {rmse} exceeds {RMSE_BAR}")
+
+
+WORKER_POLL_S = 5.0  # how often a wait for the CPU worker looks whether it is still alive
+WORKER_SPARE_CORES = 2  # cores left to this process, whose host thread paces the card
+
+
+def cpu_worker_main(jobs, done, cores: list) -> None:
+    """The CPU worker's loop (a spawned process): each job (a function of
+    this module by name, its arguments) is run and answered on `done` with
+    (name, None) or (name, the traceback); None ends the loop. Its torch
+    threads are pinned to `cores`."""
+    import traceback
+
+    os.sched_setaffinity(0, cores)
+    torch.set_num_threads(len(cores))
+    while (job := jobs.get()) is not None:
+        name, args = job
+        try:
+            globals()[name](*args)
+            done.put((name, None))
+        except BaseException:  # noqa: BLE001 - reported to the main process, which raises
+            done.put((name, traceback.format_exc()))
+
+
+class CpuWorker:
+    """Phase 3 and the bench's CPU check in a spawned process, beside the
+    card phases: the card's run hands each job over as soon as it has its
+    inputs (every tensor on the CPU) and goes on. The worker's torch threads
+    are pinned to all but `WORKER_SPARE_CORES` of this process's cores, the
+    host-paced card phases keep those. A job that fails fails the run, at
+    the next `poll` or at `join`, which waits for every job before the
+    final line; the worker is a daemon, so it ends with this process."""
+
+    def __init__(self):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        cores = sorted(os.sched_getaffinity(0))
+        self.cores = cores[WORKER_SPARE_CORES:] if len(cores) > 2 * WORKER_SPARE_CORES else cores
+        self.jobs, self.done = ctx.Queue(), ctx.Queue()
+        self.proc = ctx.Process(target=cpu_worker_main, args=(self.jobs, self.done, self.cores),
+                                daemon=True)
+        self.proc.start()
+        self.pending = 0
+
+    def submit(self, fn, *args) -> None:
+        self.jobs.put((fn.__name__, args))
+        self.pending += 1
+        self.poll()
+
+    def _answer(self, name: str, error) -> None:
+        self.pending -= 1
+        if error is not None:
+            raise RuntimeError(f"the CPU worker's {name} failed:\n{error}")
+
+    def poll(self) -> None:
+        """Raises for a job that has failed so far."""
+        import queue
+
+        while True:
+            try:
+                self._answer(*self.done.get_nowait())
+            except queue.Empty:
+                return
+
+    def join(self) -> float:
+        """Waits for every job (raising for one that failed, or if the
+        worker died) and ends the worker; returns the seconds waited."""
+        import queue
+
+        t0 = time.perf_counter()
+        self.jobs.put(None)
+        while self.pending:
+            try:
+                self._answer(*self.done.get(timeout=WORKER_POLL_S))
+            except queue.Empty:
+                if not self.proc.is_alive():
+                    raise RuntimeError(f"the CPU worker died (exit code {self.proc.exitcode}) "
+                                       f"with {self.pending} job(s) open") from None
+        self.proc.join(timeout=60)
+        if self.proc.exitcode != 0:
+            raise RuntimeError(f"the CPU worker ended with exit code {self.proc.exitcode}")
+        return time.perf_counter() - t0
 
 
 def analytic_jacobian_run(dev, rec_u) -> None:
@@ -2134,23 +2224,28 @@ def bench_run(smi: str, tag: str, knobs: dict, problem=None):
     return run
 
 
-def bench_cpu_parity(run) -> None:
+def bench_cpu_parity_args(run, n: int = LANES) -> tuple:
+    """`bench_cpu_parity`'s arguments for a run's last step, its first `n`
+    scenarios on the CPU."""
+    states = type(run.states)(*[v[:n].cpu() for v in run.states])
+    return (run.problem.family, run.states.X_warm.shape[1] - 1, states, run.obs[:n].cpu(),
+            run.u[:n].cpu(), run.cfg, run.backend, run.var_backend, run.var_bf16)
+
+
+def bench_cpu_parity(family, T, states, obs, u, cfg, backend, var_backend, var_bf16) -> None:
     """The default run's last step solved again on the CPU by the plain
     path for its first tile of 128 scenarios (the tile-wide IP exit sees the
-    same tile), from the same controller states and observations: control
-    RMSE <= `RMSE_BAR`."""
+    same tile), from the same controller states and observations
+    (`bench_cpu_parity_args`): control RMSE <= `RMSE_BAR`."""
     cpu = torch.device("cpu")
-    n = LANES
-    prob = bench_torch.build_problem(run.problem.family, run.states.X_warm.shape[1] - 1,
-                                     device=cpu, **bench_torch.FIXTURE_GP)
-    st = type(run.states)(*[v[:n].cpu() for v in run.states])
+    n = obs.shape[0]
+    prob = bench_torch.build_problem(family, T, device=cpu, **bench_torch.FIXTURE_GP)
     t0 = time.perf_counter()
-    u_cpu, _, _ = batched_gpmpc_step(prob.model, run.cfg, prob.ctrl.consts, prob.gp, st,
-                                     run.obs[:n].cpu(), backend=run.backend,
-                                     var_backend=run.var_backend, var_bf16=run.var_bf16)
-    err = u_cpu - run.u[:n].cpu()
+    u_cpu, _, _ = batched_gpmpc_step(prob.model, cfg, prob.ctrl.consts, prob.gp, states, obs,
+                                     backend=backend, var_backend=var_backend, var_bf16=var_bf16)
+    err = u_cpu - u
     rmse = float(torch.sqrt(torch.mean(err**2)))
-    say(f"[bench] quadrotor: the last step's first {n} scenarios on the CPU's plain path "
+    say(f"[bench] {family}: the last step's first {n} scenarios on the CPU's plain path "
         f"({time.perf_counter() - t0:.1f} s): control RMSE vs the card {rmse:.3e} (bar "
         f"{RMSE_BAR}), max abs {float(err.abs().max()):.3e}")
     if not rmse <= RMSE_BAR:
@@ -2294,9 +2389,10 @@ def fused_window_check(smi: str, run) -> None:
             raise RuntimeError(f"fused: the traced {mode} window shows no device time")
 
 
-def bench_phase(smi: str) -> None:
+def bench_phase(smi: str, worker: CpuWorker) -> None:
     """[bench]: the port's headline bench and its breakdown in-process (see
-    `BENCH_RUNS`), then the default run's last step against the CPU; and
+    `BENCH_RUNS`), then the default run's last step against the CPU (a job
+    of the CPU worker); and
     [fused]: the bench with BENCH_FUSED=1 on the default run's and the T =
     100 run's problems (`FUSED_RUNS`), and the fused window held against the
     chained loop from the default run's carry (`fused_window_check`)."""
@@ -2306,7 +2402,7 @@ def bench_phase(smi: str) -> None:
         base = runs.get(BENCH_REUSE.get(tag))
         runs[tag] = bench_run(smi, tag, knobs, base.problem if base else None)
     bench_breakdown(smi)
-    bench_cpu_parity(runs["quadrotor"])
+    worker.submit(bench_cpu_parity, *bench_cpu_parity_args(runs["quadrotor"]))
     t_fused = time.perf_counter()
     for tag, (base, knobs) in FUSED_RUNS.items():
         bench_run(smi, tag, knobs, runs[base].problem)
@@ -2985,6 +3081,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda:0")
+    worker = CpuWorker()  # phase 3 beside the card's phases
+    say(f"[phase 0] CPU worker for phase 3: pid {worker.proc.pid}, torch threads pinned to cores "
+        f"{worker.cores} of {sorted(os.sched_getaffinity(0))}")
     t0 = time.perf_counter()
     _build.load_library()
     per_source = ", ".join(f"{k} {v:.1f} s" for k, v in _build.BuildInfo.per_source.items())
@@ -3048,7 +3147,10 @@ def main() -> int:
             xla_against_lanes(prob, problems["quadrotor"], *recorded["quadrotor"])
         if path_name == "quadrotor-nominal":
             nominal_episode(prob, rec_u)
-        cpu_parity(path_name, rec_obs, rec_u)  # phase 3
+        trained = TRAINED.get(path_name)
+        worker.submit(cpu_parity, path_name, [o.cpu() for o in rec_obs],  # phase 3
+                      [u.cpu() for u in rec_u],
+                      None if trained is None else bench_torch.gp_to(trained, "cpu"))
         say(f"[time] {path_name} done at {time.perf_counter() - t_run:.0f} s")
     twolink_exact_learned(dev, results)
     say(f"[time] twolink-exact-learned done at {time.perf_counter() - t_run:.0f} s")
@@ -3057,7 +3159,7 @@ def main() -> int:
     step_options(problems["quadrotor"], recorded["quadrotor"][0])
     quadrotor_server(problems["quadrotor"], results)
     say(f"[time] quadrotor-server done at {time.perf_counter() - t_run:.0f} s")
-    bench_phase(smi)
+    bench_phase(smi, worker)
     say(f"[time] bench done at {time.perf_counter() - t_run:.0f} s")
     t_exp = time.perf_counter()
     experiment_driver(results)
@@ -3090,6 +3192,8 @@ def main() -> int:
     check_gp_kernel_level(dev, extra, captured)
     check_kernel_level_only(dev, captured, extra)
     say(f"[time] kernel-level checks done at {time.perf_counter() - t_run:.0f} s")
+    say(f"[time] the CPU worker's jobs joined at {time.perf_counter() - t_run:.0f} s (waited "
+        f"{worker.join():.1f} s)")
     if "--profile" in sys.argv[1:]:
         for prob in problems.values():
             profile_step(prob)

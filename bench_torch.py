@@ -337,6 +337,11 @@ def main(env=os.environ, problem: Problem | None = None) -> BenchRun:
         progress(f"fused window: {unroll} steps a graph; capture and a warm window")
         fused_window.run(n)
         sync()
+        for st in fused_window.stats.values():
+            progress(f"graph of {st.steps} step(s): captured in {st.capture_s:.3f} s, instantiated "
+                     f"in {st.instantiate_s:.3f} s, {st.nodes or 'uncounted'} nodes, its pool "
+                     f"{st.pool_bytes / 2**20:.1f} MiB and {st.graph_bytes / 2**20:.1f} MiB more "
+                     "of card memory")
         t0 = time.perf_counter()
         fused_window.run(n).cpu()
         dt = time.perf_counter() - t0

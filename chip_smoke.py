@@ -66,7 +66,14 @@ and kernels 3 and 4 (5 at T=100) six times; `FUSED_STEPS` steps from the
 default run's last carry, chained and as `FusedWindow`s of 1 and 3 steps a
 graph built and captured under sync-debug "error", whose trace, actions and
 carries must equal the chained loop's (`FUSED_TOL`); each mode's solves/s and
-its busy and idle share in a window traced by torch.profiler. Last, the
+its busy and idle share in a window traced by torch.profiler. Then the fused
+window off the lanes-fused defaults (`fused_path_check`): BENCH_FUSED=1 with
+BENCH_BACKEND=xla (2 steps, every kernel wrapper at 0 in the capture), with
+BENCH_KERNEL_LIN=0 (5 steps; kernels 1, 2 and 4 at 1, 1 and 6 a captured
+step) and at BENCH_HORIZON=512, BENCH_BATCH=256 (2 steps; kernels 1, 2 and 6
+at 1, 1 and 6), each run's own one-step graph replayed from its last carry
+against its chained loop from the same carry (`FUSED_TOL`), its solves/s and
+its busy and idle share over a traced window of one step. Last, the
 experiment entry points in-process, each with its launches counted from 0
 (`[driver]`, `[eval_seeds]`, `[gp_fit]` lines): `scripts/run_gp_mpc_torch.py` (`DRIVER`: one epoch of 10 steps at 6 SQP / 10 IP
 iterations and 100 GP iterations, `--profile`, on a copy of the shipped
@@ -230,6 +237,7 @@ from gpmpc_tpu_torch.parallel.mesh import (  # noqa: E402
     make_mesh,
     shard_leading_axis,
     tree_leaves,
+    tree_map,
 )
 from gpmpc_tpu_torch.parallel.sweep import seed_sweep  # noqa: E402
 from gpmpc_tpu_torch.runtime.server import DIAG_FIELDS, ControlServer  # noqa: E402
@@ -658,7 +666,7 @@ class Problem:
             horizon=p.T, q_mpc=c["q_mpc"], r_mpc=c["r_mpc"], prob=0.95, sqp_iters=6, qp_iters=10,
             device=device, bounds=c["bounds"], lm_reg=c["lm_reg"], soft_constraints=p.soft, **gp_kw,
         )
-        self.consts = ctrl.consts
+        self.consts, self.ctrl = ctrl.consts, ctrl
         self.cfg = ctrl.cfg._replace(qp_tol=1e-6, kernel_linearize=p.kernel_linearize,
                                      qp_mehrotra=True, analytic_jac=analytic_jac)
         self.device = device
@@ -2115,51 +2123,89 @@ BENCH_RUNS = (
 # A run that reuses an earlier run's problem (the same family, horizon and GP sizes; the real-GP
 # run replaces the GP): tag -> the earlier run's tag.
 BENCH_REUSE = {"real-gp": "quadrotor"}
-# bench_torch.py's BENCH_FUSED=1 runs: tag -> (the run whose problem it reuses, knobs)
-FUSED_RUNS = {
-    "quadrotor-fused": ("quadrotor", {"BENCH_FUSED": "1"}),
-    "T100-fused": ("T100", {"BENCH_FUSED": "1", "BENCH_HORIZON": "100", "BENCH_BATCH": "256",
-                            "BENCH_STEPS": "5"}),
-}
 FUSED_STEPS = 20  # the window held against the chained loop
 FUSED_TRACED = 5  # the steps of a window traced by torch.profiler (its busy share is a step's)
 FUSED_UNROLLS = (1, 3)  # steps a graph
 FUSED_TOL = 1e-6  # bit for bit expected
-# launches a captured step: the early exit is off, so all six SQP iterations run
-FUSED_RATES = {"gp_posterior": 1, "tighten": 1, "linearize": 6, "qp": 6}
+# bench_torch.py's BENCH_FUSED=1 runs: tag -> (the bench run or smoke path whose problem it
+# reuses, knobs). The runs of `FUSED_PATH_RUNS`, off the lanes-fused defaults, are each held
+# against their chained loop from the run's own carry over the run's steps (`fused_path_check`);
+# the defaults' window is held by `fused_window_check`.
+FUSED_RUNS = {
+    "quadrotor-fused": ("quadrotor", {"BENCH_FUSED": "1"}),
+    "T100-fused": ("T100", {"BENCH_FUSED": "1", "BENCH_HORIZON": "100", "BENCH_BATCH": "256",
+                            "BENCH_STEPS": "5"}),
+    "xla-fused": ("quadrotor", {"BENCH_FUSED": "1", "BENCH_BACKEND": "xla", "BENCH_STEPS": "2",
+                                "BENCH_PROV_STEPS": "1"}),
+    "jacfwd-fused": ("quadrotor", {"BENCH_FUSED": "1", "BENCH_KERNEL_LIN": "0", "BENCH_STEPS": "5",
+                                   "BENCH_PROV_STEPS": "1"}),
+    "T512-fused": ("quadrotor-T512", {"BENCH_FUSED": "1", "BENCH_HORIZON": "512",
+                                      "BENCH_BATCH": "256", "BENCH_STEPS": "2",
+                                      "BENCH_PROV_STEPS": "1"}),
+}
+FUSED_PATH_RUNS = ("xla-fused", "jacfwd-fused", "T512-fused")
+FUSED_PATH_TRACED = 1  # the steps of those runs' traced windows (an xla step is 134,014 nodes)
 BREAKDOWN_CALLS = 10
 # kernel launches a closed-loop step on the lanes-fused path (phase 2): one GP and one tightening
 # launch, one linearize and one QP launch an SQP iteration (6 at most; an early exit gives fewer)
 BENCH_RATES = {"gp_posterior": (1, 1), "tighten": (1, 1), "linearize": (1, 6), "qp": (1, 6)}
+# the same on the lanes path (linearized in torch); the xla backend launches no kernel
+BENCH_RATES_LANES = {"gp_posterior": (1, 1), "tighten": (1, 1), "qp": (1, 6)}
+
+
+def step_rates(knobs: dict) -> dict:
+    """The (least, most) launches a closed-loop step of each kernel on the
+    path bench.py's `knobs` take ('qp': the horizon's QP kernel)."""
+    if knobs.get("BENCH_BACKEND") == "xla":
+        return {}
+    lanes = (knobs.get("BENCH_KERNEL_LIN") == "0"
+             or int(knobs.get("BENCH_HORIZON", "25")) > sqp_lanes.MAX_FUSED_HORIZON)
+    return BENCH_RATES_LANES if lanes else BENCH_RATES
+
+
+def fused_rates(knobs: dict) -> dict:
+    """The launches a captured step: the early exit is off, so all six SQP
+    iterations run and each kernel launches its most."""
+    return {k: hi for k, (_, hi) in step_rates(knobs).items()}
+
+
+def bench_qp(T: int) -> str:
+    """The QP wrapper `_solve_qp_lanes` sends a hard-bounded horizon T to."""
+    return ("ocp_ip" if T <= sqp_lanes.MAX_LANES_HORIZON else "ocp_ip_streamed"
+            if T <= sqp_lanes.MAX_STREAM_HORIZON else "ocp_ip_streamed2")
+
+
+def bench_problem(prob: Problem) -> "bench_torch.Problem":
+    """A smoke path's problem as `bench_torch.build_problem` makes it for the
+    same family and horizon (bench.py's controller, the fixture GP)."""
+    return bench_torch.Problem(prob.family, prob.env, prob.env_p, prob.model, prob.ctrl, prob.gp)
 
 
 @contextlib.contextmanager
 def counting_captures(wrappers: dict, log: list):
-    """Inside the block, every graph a `FusedWindow` captures appends (its
-    steps, each wrapper's launches during the capture) to `log`."""
-    capture = FusedWindow.capture
+    """Inside the block, every graph a `FusedWindow` captures (the one-step
+    graph a larger graph's projection captures first among them) appends
+    (its steps, each wrapper's launches during the capture) to `log`."""
+    capture = FusedWindow._capture
 
     def counted(window, n):
-        if n in window.graphs:
-            return capture(window, n)
         before = {k: fn.launches for k, fn in wrappers.items()}
-        graph = capture(window, n)
+        stats = capture(window, n)
         log.append((n, {k: fn.launches - before[k] for k, fn in wrappers.items()}))
-        return graph
+        return stats
 
-    FusedWindow.capture = counted
+    FusedWindow._capture = counted
     try:
         yield
     finally:
-        FusedWindow.capture = capture
+        FusedWindow._capture = capture
 
 
-def check_captures(tag: str, captures: list, qp: str) -> None:
-    """Each capture of n steps launched kernels 1 and 2 n times and kernels 3
-    and the QP kernel `qp` 6 n times (six SQP iterations a step, the early
-    exit off), and no other wrapper."""
+def check_captures(tag: str, captures: list, qp: str, rates: dict) -> None:
+    """Each capture of n steps launched each kernel n times its `rates`
+    (`fused_rates`; 'qp' is the QP kernel `qp`), and no other wrapper."""
     for n, launches in captures:
-        want = {k: n * FUSED_RATES.get("qp" if k == qp else k, 0) for k in launches}
+        want = {k: n * rates.get("qp" if k == qp else k, 0) for k in launches}
         say(f"[fused] {tag}: the capture of {n} step(s) launched {launches}")
         if launches != want:
             raise RuntimeError(f"fused {tag}: a capture of {n} steps launched {launches}, "
@@ -2169,11 +2215,12 @@ def check_captures(tag: str, captures: list, qp: str) -> None:
 def bench_run(smi: str, tag: str, knobs: dict, problem=None):
     """`bench_torch.py::main` with `knobs` on the card, launch counts from 0
     (on `problem`, an earlier run's, when given): its two JSON lines under
-    the card's metric name, kernels 1-4 at phase 2's rates a step (the QP
-    kernel of the horizon's tier: kernel 5 at T = 100) and every other
-    wrapper at 0. Under BENCH_FUSED=1 the window's step (its warm-up) and
-    each capture count as steps, and each capture launches exactly
-    `FUSED_RATES` a step. Returns the run."""
+    the card's metric name, the kernels of its path at phase 2's rates a
+    step (the lanes-fused step: kernels 1-4, the QP kernel of the horizon's
+    tier; the lanes path: kernels 1, 2 and the QP kernel; the xla backend:
+    none) and every other wrapper at 0. Under BENCH_FUSED=1 the window's
+    step (its warm-up) and each capture count as steps, and each capture
+    launches exactly `fused_rates` a step. Returns the run."""
     import io
 
     wrappers = reset_launches()
@@ -2181,7 +2228,9 @@ def bench_run(smi: str, tag: str, knobs: dict, problem=None):
     out = io.StringIO()
     captures = []
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out), counting_captures(wrappers, captures):
+    with contextlib.redirect_stdout(out), counting_captures(wrappers, captures), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # T = 512's one dispatch warning
         run = bench_torch.main(knobs, problem)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
@@ -2191,30 +2240,37 @@ def bench_run(smi: str, tag: str, knobs: dict, problem=None):
         say(f"[{'fused' if fused else 'bench'}] {tag}: {json.dumps(line)}")
     T = int(knobs.get("BENCH_HORIZON", "25"))
     B = int(knobs.get("BENCH_BATCH", "1024"))
-    steps = 2 + 8 + (1 + sum(n for n, _ in captures) if fused else
-                     int(knobs.get("BENCH_STEPS", str(max(60, (60 * 1024) // B)))))
-    qp = "ocp_ip" if T <= sqp_lanes.MAX_LANES_HORIZON else "ocp_ip_streamed"
+    steps = 2 + int(knobs.get("BENCH_PROV_STEPS", "8")) + (
+        1 + sum(n for n, _ in captures) if fused else
+        int(knobs.get("BENCH_STEPS", str(max(60, (60 * 1024) // B)))))
+    qp, rates = bench_qp(T), step_rates(knobs)
     say(f"[bench] {tag}: {wall:.1f} s, {steps} steps{' launched' if fused else ''}; kernel "
         f"launches {launches}")
     if fused != bool(captures) or fused != (run.window is not None):
         raise RuntimeError(f"bench {tag}: BENCH_FUSED={knobs.get('BENCH_FUSED')}, captures "
                            f"{captures}")
-    check_captures(tag, captures, qp)
+    check_captures(tag, captures, qp, fused_rates(knobs))
+    if fused:
+        for st in run.window.stats.values():
+            say(f"[fused] {tag}: graph of {st.steps} step(s): captured in {st.capture_s:.3f} s, "
+                f"instantiated in {st.instantiate_s:.3f} s, {st.nodes or 'uncounted'} nodes, its "
+                f"pool {st.pool_bytes / 2**20:.1f} MiB and {st.graph_bytes / 2**20:.1f} MiB more "
+                "of card memory")
     family = knobs.get("BENCH_MODEL", "quadrotor")
     metric = "gpmpc_torch_solves_per_sec_1gpu" + ("" if family == "quadrotor" else f"_{family}")
     if (lines != run.records or len(lines) != 2 or [r.get("provisional") for r in lines]
             != [True, None] or any(r["metric"] != metric or not r["value"] > 0
                                    or r["device"] != smi for r in lines)):
         raise RuntimeError(f"bench {tag}: expected two lines of {metric} on {smi}: {lines}")
-    for k, (lo, hi) in BENCH_RATES.items():
+    for k, (lo, hi) in rates.items():
         n = launches[qp if k == "qp" else k]
         if not lo * steps <= n <= hi * steps:
             raise RuntimeError(f"bench {tag}: {n} launches of {k} over {steps} steps, not "
                                f"{lo}-{hi} a step")
-    if launches["linearize"] != launches[qp]:
+    if "linearize" in rates and launches["linearize"] != launches[qp]:
         raise RuntimeError(f"bench {tag}: linearize and QP launches differ: {launches}")
-    off = {k: n for k, n in launches.items() if n and k not in ("gp_posterior", "tighten",
-                                                                 "linearize", qp)}
+    on_path = {qp if k == "qp" else k for k in rates}
+    off = {k: n for k, n in launches.items() if n and k not in on_path}
     off.update({k: v[0].launches - chains[k] for k, v in CHAINS.items()
                 if v[0].launches != chains[k]})
     if off:
@@ -2369,7 +2425,7 @@ def fused_window_check(smi: str, run) -> None:
             f"step(s) a graph (graphs of {sorted(window.graphs)} steps), captured under "
             f"sync-debug 'error': max |fused - chained| {max(diffs.values()):.3e} ({diffs}; "
             f"bar {FUSED_TOL})")
-        check_captures(f"quadrotor window, {k} a graph", captures, "ocp_ip")
+        check_captures(f"quadrotor window, {k} a graph", captures, "ocp_ip", fused_rates({}))
         if not max(diffs.values()) <= FUSED_TOL:
             raise RuntimeError(f"fused window ({k} a graph) differs from the chained loop: {diffs}")
         mode = f"fused, {k} a graph"
@@ -2389,13 +2445,68 @@ def fused_window_check(smi: str, run) -> None:
             raise RuntimeError(f"fused: the traced {mode} window shows no device time")
 
 
-def bench_phase(smi: str, worker: CpuWorker) -> None:
+def fused_path_check(smi: str, tag: str, run) -> None:
+    """[fused] for a BENCH_FUSED=1 run off the lanes-fused defaults (the
+    xla backend, the lanes path, tier 2): the run's own window (its graph
+    of one step, captured in the run) replayed from the run's last carry
+    against the chained loop (`bench_torch.closed_loop_step`, the early exit
+    on) from a copy of that carry, over the run's steps: the trace of
+    u[0, 0], the last actions and the carries before and after the last step
+    within `FUSED_TOL`, no graph captured anew; then the chained loop's
+    solves/s beside the run's final line (its fused window over as many
+    steps), and the card's busy time in a window of `FUSED_PATH_TRACED`
+    steps traced by torch.profiler, with the idle share against the traced
+    window (upper) and against the run's untraced window (lower)."""
+    window, B = run.window, run.u.shape[0]
+    n = window.max_steps
+    step = partial(bench_torch.closed_loop_step, run.problem, run.cfg, run.gp,
+                   backend=run.backend, var_backend=run.var_backend, var_bf16=run.var_bf16)
+    carry, us = tree_map(torch.clone, window.carry), []
+    graphs = sorted(window.graphs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # T = 512's one dispatch warning
+        for _ in range(n):
+            before = carry
+            *carry, u = step(*carry)
+            us.append(u)
+    torch.cuda.synchronize()
+    chained_ms = 1e3 * (time.perf_counter() - t0)
+    trace = window.run(n)
+    diffs = {"trace": (trace - torch.stack([u[0, 0] for u in us])).abs().max(),
+             "u": (window.u - us[-1]).abs().max()}
+    for name, got, want in (("last", window.last, before), ("carry", window.carry, tuple(carry))):
+        diffs[name] = max((a.double() - b.double()).abs().max()
+                          for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    diffs = {name: float(d) for name, d in diffs.items()}
+    say(f"[fused] {tag}, {n} steps from the run's last carry, the run's window (graphs of "
+        f"{graphs} steps): max |fused - chained| {max(diffs.values()):.3e} ({diffs}; bar "
+        f"{FUSED_TOL})")
+    if not max(diffs.values()) <= FUSED_TOL or sorted(window.graphs) != graphs:
+        raise RuntimeError(f"fused {tag}: the window differs from the chained loop ({diffs}) or "
+                           f"captured anew ({sorted(window.graphs)} against {graphs})")
+    fused_sps = run.records[-1]["value"]
+    busy, traced_ms = profiled_window(lambda: window.run(FUSED_PATH_TRACED))
+    step_ms = 1e3 * B / fused_sps
+    say(f"[fused] {tag}, B={B}, solves/s over {n} steps: chained {1e3 * B * n / chained_ms:.2f}, "
+        f"fused {fused_sps:.2f} (the run's final line) on {smi}")
+    say(f"[fused] {tag}, fused: card busy {busy:.2f} ms in a traced window of "
+        f"{FUSED_PATH_TRACED} step(s), {traced_ms:.2f} ms (idle share {1 - busy / traced_ms:.3f}, "
+        f"upper); {busy / FUSED_PATH_TRACED:.3f} ms a step against {step_ms:.3f} ms a step "
+        f"untraced (idle share {1 - busy / FUSED_PATH_TRACED / step_ms:.3f}, lower) on {smi}")
+    if not busy > 0:
+        raise RuntimeError(f"fused {tag}: the traced window shows no device time")
+
+
+def bench_phase(smi: str, worker: CpuWorker, problems: dict) -> None:
     """[bench]: the port's headline bench and its breakdown in-process (see
     `BENCH_RUNS`), then the default run's last step against the CPU (a job
-    of the CPU worker); and
-    [fused]: the bench with BENCH_FUSED=1 on the default run's and the T =
-    100 run's problems (`FUSED_RUNS`), and the fused window held against the
-    chained loop from the default run's carry (`fused_window_check`)."""
+    of the CPU worker); and [fused]: the bench with BENCH_FUSED=1 on the
+    problems of earlier bench runs and smoke paths (`FUSED_RUNS`), the fused
+    window held against the chained loop from the default run's carry
+    (`fused_window_check`), and each run off the lanes-fused defaults held
+    against its own chained loop (`fused_path_check`)."""
     t0 = time.perf_counter()
     runs = {}
     for tag, knobs in BENCH_RUNS:
@@ -2404,11 +2515,18 @@ def bench_phase(smi: str, worker: CpuWorker) -> None:
     bench_breakdown(smi)
     worker.submit(bench_cpu_parity, *bench_cpu_parity_args(runs["quadrotor"]))
     t_fused = time.perf_counter()
+    t_paths = 0.0
     for tag, (base, knobs) in FUSED_RUNS.items():
-        bench_run(smi, tag, knobs, runs[base].problem)
+        t_run = time.perf_counter()
+        problem = runs[base].problem if base in runs else bench_problem(problems[base])
+        run = bench_run(smi, tag, knobs, problem)
+        if tag in FUSED_PATH_RUNS:
+            fused_path_check(smi, tag, run)
+            t_paths += time.perf_counter() - t_run
     fused_window_check(smi, runs["quadrotor"])
     say(f"[time] the [bench] phase took {time.perf_counter() - t0:.1f} s, its [fused] part "
-        f"{time.perf_counter() - t_fused:.1f} s")
+        f"{time.perf_counter() - t_fused:.1f} s, of which the runs off the lanes-fused defaults "
+        f"({', '.join(FUSED_PATH_RUNS)}) {t_paths:.1f} s")
 
 
 def config_copy(out_dir: Path, **overrides) -> Path:
@@ -3159,7 +3277,7 @@ def main() -> int:
     step_options(problems["quadrotor"], recorded["quadrotor"][0])
     quadrotor_server(problems["quadrotor"], results)
     say(f"[time] quadrotor-server done at {time.perf_counter() - t_run:.0f} s")
-    bench_phase(smi, worker)
+    bench_phase(smi, worker, problems)
     say(f"[time] bench done at {time.perf_counter() - t_run:.0f} s")
     t_exp = time.perf_counter()
     experiment_driver(results)

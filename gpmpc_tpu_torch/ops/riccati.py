@@ -20,6 +20,13 @@ matrices, so `ops/boxqp.py` factors once and applies twice, with the same
 arithmetic as two full solves. The products of a stage are taken on [A | B]
 at once (A'PA, A'PB and B'PB are blocks of [A | B]' P [A | B]).
 
+The solves through Guu's Cholesky factor L go through L's inverse, formed
+once a stage by forward substitution over its nu rows in plain tensor ops
+(`tril_inverse`): Guu^-1 b = L^-T (L^-1 b), two small products. The same code
+runs on the CPU and the card, and it is capturable in a CUDA graph, where
+`torch.cholesky_solve` is not (PyTorch sends a batch to MAGMA, whose
+`magma_spotrs_batched` a capturing stream refuses).
+
 A scenario whose Guu is not positive definite at some stage gets NaN in its
 whole solution, as JAX's Cholesky gives it, while the other scenarios of the
 batch are solved as usual (`torch.linalg.cholesky` would raise for the batch).
@@ -58,11 +65,11 @@ class LqSolution(NamedTuple):
 
 class RiccatiFactor(NamedTuple):
     """The matrix half of the backward sweep, per stage k (lists of T):
-    P_{k+1}, the Cholesky factor of Guu_k, Gxu_k and the gain K_k."""
+    P_{k+1}, the inverse of Guu_k's Cholesky factor, Gxu_k and the gain K_k."""
 
     AB: torch.Tensor  # (B, T, nx, nx + nu), [A | B]
     P_next: list
-    L: list
+    Linv: list
     Gxu: list
     K: list
 
@@ -79,6 +86,31 @@ def cholesky_or_nan(G: torch.Tensor) -> torch.Tensor:
     return torch.where((info != 0)[..., None, None], torch.full_like(L, torch.nan), L)
 
 
+def tril_inverse(L: torch.Tensor) -> torch.Tensor:
+    """The inverse of each lower-triangular (..., n, n) L, by forward
+    substitution over its n rows: row i of L^-1 is (e_i - sum_{j<i} L_ij
+    (L^-1)_j) / L_ii. A few batched ops a row; NaN in L gives NaN."""
+    n = L.shape[-1]
+    eye = torch.eye(n, dtype=L.dtype, device=L.device)
+    rows = [eye[0] / L[..., 0, :1]]
+    for i in range(1, n):
+        done = torch.stack(rows, dim=-2)  # (..., i, n)
+        rows.append((eye[i] - (L[..., i, None, :i] @ done)[..., 0, :]) / L[..., i, i, None])
+    return torch.stack(rows, dim=-2)
+
+
+def cholesky_inverse_or_nan(G: torch.Tensor) -> torch.Tensor:
+    """L^-1 for the lower Cholesky factor L of each (..., n, n) G, NaN in
+    every matrix that is not positive definite (`cholesky_or_nan`)."""
+    return tril_inverse(cholesky_or_nan(G))
+
+
+def cho_apply(Linv: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """G^-1 rhs for G = L L' from Linv = L^-1 (`cholesky_inverse_or_nan`):
+    L^-T (L^-1 rhs), what `torch.cholesky_solve(rhs, L)` computes."""
+    return Linv.transpose(-1, -2) @ (Linv @ rhs)
+
+
 def stack_dynamics(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """[A | B], (B, T, nx, nx + nu): formed once per QP."""
     return torch.cat([A, B], dim=-1)
@@ -90,7 +122,7 @@ def riccati_factor(AB: torch.Tensor, Qxx: torch.Tensor, Ruu: torch.Tensor) -> Ri
     T, nx = AB.shape[1], AB.shape[2]
     ABt = AB.transpose(-1, -2)
     P = Qxx[:, T]
-    P_next, L, Gxu, K = [None] * T, [None] * T, [None] * T, [None] * T
+    P_next, Linv, Gxu, K = [None] * T, [None] * T, [None] * T, [None] * T
     for k in range(T - 1, -1, -1):
         P_next[k] = P
         H = (ABt[:, k] @ P) @ AB[:, k]  # [A'PA, A'PB; B'PA, B'PB]
@@ -98,11 +130,11 @@ def riccati_factor(AB: torch.Tensor, Qxx: torch.Tensor, Ruu: torch.Tensor) -> Ri
         Guu = Ruu[:, k] + H[:, nx:, nx:]
         Gxu[k] = H[:, :nx, nx:]
         # du* = K dx + kff through the Cholesky factor of Guu
-        L[k] = cholesky_or_nan(Guu)
-        K[k] = -torch.cholesky_solve(Gxu[k].transpose(-1, -2), L[k])
+        Linv[k] = cholesky_inverse_or_nan(Guu)
+        K[k] = -cho_apply(Linv[k], Gxu[k].transpose(-1, -2))
         P = Gxx + Gxu[k] @ K[k]
         P = 0.5 * (P + P.transpose(-1, -2))
-    return RiccatiFactor(AB=AB, P_next=P_next, L=L, Gxu=Gxu, K=K)
+    return RiccatiFactor(AB=AB, P_next=P_next, Linv=Linv, Gxu=Gxu, K=K)
 
 
 def riccati_apply(
@@ -119,7 +151,7 @@ def riccati_apply(
     for k in range(T - 1, -1, -1):
         Fr_p = _mv(f.P_next[k], r[:, k]) + p
         g = g_lin[:, k] + _mv(ABt[:, k], Fr_p)  # [gx; gu]
-        kff[k] = -torch.cholesky_solve(g[:, nx:, None], f.L[k]).squeeze(-1)
+        kff[k] = -cho_apply(f.Linv[k], g[:, nx:, None]).squeeze(-1)
         p = g[:, :nx] + _mv(f.Gxu[k], kff[k])
     dx, du = [dx0], []
     for k in range(T):

@@ -30,7 +30,13 @@ from typing import NamedTuple
 import torch
 
 from gpmpc_tpu_torch.device import strict_float32
-from gpmpc_tpu_torch.ops.riccati import LqProblem, LqSolution, _mv, cholesky_or_nan
+from gpmpc_tpu_torch.ops.riccati import (
+    LqProblem,
+    LqSolution,
+    _mv,
+    cho_apply,
+    cholesky_inverse_or_nan,
+)
 
 
 class _ValueElem(NamedTuple):
@@ -180,9 +186,9 @@ def _solve_parallel(lq: LqProblem, dx0: torch.Tensor, mesh) -> LqSolution:
         prefix_scan = lambda e: _two_level(e, devices, _affine_combine, False)  # noqa: E731
 
     # stage elements k = 0..T-1 and the terminal element
-    L_ruu = cholesky_or_nan(lq.Ruu)
-    Rinv_Bt = torch.cholesky_solve(lq.B.transpose(-1, -2), L_ruu)  # (B, T, nu, nx)
-    Rinv_ru = torch.cholesky_solve(lq.ru[..., None], L_ruu)[..., 0]  # (B, T, nu)
+    Linv_ruu = cholesky_inverse_or_nan(lq.Ruu)
+    Rinv_Bt = cho_apply(Linv_ruu, lq.B.transpose(-1, -2))  # (B, T, nu, nx)
+    Rinv_ru = cho_apply(Linv_ruu, lq.ru[..., None])[..., 0]  # (B, T, nu)
     zeros_m = torch.zeros(Bn, 1, nx, nx, dtype=dtype, device=dev)
     zeros_v = torch.zeros(Bn, 1, nx, dtype=dtype, device=dev)
     elems = _ValueElem(
@@ -201,9 +207,9 @@ def _solve_parallel(lq: LqProblem, dx0: torch.Tensor, mesh) -> LqSolution:
     Guu = lq.Ruu + BtP @ lq.B
     Gxu_T = BtP @ lq.A  # (B, T, nu, nx) = Gxu'
     gu = lq.ru + _mv(Bt, _mv(P_next, lq.r) + p_next)
-    chol = cholesky_or_nan(Guu)
-    K = -torch.cholesky_solve(Gxu_T, chol)
-    kff = -torch.cholesky_solve(gu[..., None], chol)[..., 0]
+    Linv = cholesky_inverse_or_nan(Guu)
+    K = -cho_apply(Linv, Gxu_T)
+    kff = -cho_apply(Linv, gu[..., None])[..., 0]
 
     # the rollout: a prefix scan of the closed loop's affine maps
     Ms, vs = prefix_scan(_Affine(lq.A + lq.B @ K, _mv(lq.B, kff) + lq.r))

@@ -16,11 +16,21 @@ runs it with `SqpConfig(early_exit=False)`, which gives the same solution
 (converged scenarios are frozen either way). A capture that fails raises;
 nothing falls back to the eager loop. On the CPU the same window body runs
 eagerly, step by step.
+
+A graph grows with its steps: the `xla` step is some 10^5 nodes, so a
+window of 60 such steps in one graph is millions. Before a graph of more
+than one step is captured, the window captures the one-step graph (which it
+keeps), reads its node count and the card memory it took, and projects the
+larger graph from them (`project`); a projection past a `FREE_SHARE` of
+the card's free memory raises ValueError naming the projected nodes and
+bytes, before that capture starts.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import ctypes
+import time
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -29,6 +39,34 @@ from gpmpc_tpu_torch.device import cached_constants
 from gpmpc_tpu_torch.parallel.mesh import tree_leaves, tree_map
 
 MAX_STEPS = 4096  # the trace's length: the most steps one `run` takes
+FREE_SHARE = 0.9  # the share of the card's free memory a projected graph may take
+
+
+class GraphStats(NamedTuple):
+    """One captured graph: its steps, the host's seconds to record them
+    (`capture_s`) and to instantiate the graph (`instantiate_s`), its nodes
+    (counted for the one-step graph, else None), the growth of the caching
+    allocator's reserved memory over the capture (`pool_bytes`: the graph's
+    private pool) and the rest of the card memory it took (`graph_bytes`:
+    the driver's, for the instantiated graph)."""
+
+    steps: int
+    capture_s: float
+    instantiate_s: float
+    nodes: int | None
+    pool_bytes: int
+    graph_bytes: int
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The node count of a graph captured with `keep_graph=True`
+    (`cuGraphGetNodes` of the CUDA driver)."""
+    count = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {err}")
+    return count.value
 
 
 class FusedWindow:
@@ -43,7 +81,8 @@ class FusedWindow:
     each graph it needs on first use (`capture`); a step that reads the
     host or copies from pageable memory makes the capture raise (it runs
     under `torch.cuda.set_sync_debug_mode("error")`). `max_steps` bounds
-    the steps of one `run`."""
+    the steps of one `run`. `stats` holds each captured graph's
+    `GraphStats` by its steps."""
 
     def __init__(self, step_fn: Callable, carry: tuple, steps_per_graph: int = 1,
                  max_steps: int = MAX_STEPS):
@@ -60,6 +99,7 @@ class FusedWindow:
         self.last = tree_map(torch.empty_like, self.carry)
         self.u = None  # the last step's actions, allocated at the first step
         self.graphs: dict[int, torch.cuda.CUDAGraph] = {}
+        self.stats: dict[int, GraphStats] = {}
         self._counter = torch.zeros(1, dtype=torch.int64, device=self.device)
         self._trace = None
         if self.device.type == "cuda":
@@ -98,18 +138,60 @@ class FusedWindow:
         tree_map(lambda dst, src: dst.copy_(src), self.carry, carry)
 
     def capture(self, n: int) -> torch.cuda.CUDAGraph:
-        """The graph of n steps, captured on first use."""
+        """The graph of n steps, captured on first use; past one step only
+        once `project` allows it."""
         if n not in self.graphs:
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                mode = torch.cuda.get_sync_debug_mode()
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    self._body(n)
-                finally:
-                    torch.cuda.set_sync_debug_mode(mode)
-            self.graphs[n] = graph
+            if n > 1:
+                self.project(n)
+            self._capture(n)
         return self.graphs[n]
+
+    def project(self, n: int) -> tuple[int, int]:
+        """(nodes, bytes) projected for a graph of n steps from the one-step
+        graph (captured here if it is not yet): n times its nodes, its pool
+        once (a capture reuses the blocks its steps free) and n times the
+        rest of the memory it took. Raises ValueError if the bytes exceed a
+        `FREE_SHARE` of the card's free memory."""
+        one = self.stats.get(1) or self._capture(1)
+        nodes, need = n * one.nodes, one.pool_bytes + n * one.graph_bytes
+        limit = int(FREE_SHARE * torch.cuda.mem_get_info(self.device)[0])
+        if need > limit:
+            raise ValueError(
+                f"a graph of {n} steps is projected at {nodes} nodes and {need} bytes of card "
+                f"memory (one step: {one.nodes} nodes, a pool of {one.pool_bytes} bytes and "
+                f"{one.graph_bytes} bytes of graph), over the {limit} bytes it may take; capture "
+                "fewer steps a graph")
+        return nodes, need
+
+    def _capture(self, n: int) -> GraphStats:
+        """Captures and instantiates the graph of n steps under sync-debug
+        "error", recording its `GraphStats`; the one-step graph keeps its
+        CUDA graph for `graph_nodes`."""
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        free, reserved = torch.cuda.mem_get_info(self.device)[0], torch.cuda.memory_reserved(
+            self.device)
+        graph = torch.cuda.CUDAGraph(keep_graph=n == 1)
+        with torch.cuda.graph(graph):
+            t0 = time.perf_counter()
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self._body(n)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            t1 = time.perf_counter()
+        nodes = None
+        if n == 1:
+            nodes = graph_nodes(graph)
+            graph.instantiate()
+        torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        pool = torch.cuda.memory_reserved(self.device) - reserved
+        taken = free - torch.cuda.mem_get_info(self.device)[0]
+        self.graphs[n] = graph
+        self.stats[n] = GraphStats(n, t1 - t0, t2 - t1, nodes, pool, max(taken - pool, 0))
+        return self.stats[n]
 
     def run(self, n: int) -> torch.Tensor:
         """n closed-loop steps from the static carry: the (n,) trace of

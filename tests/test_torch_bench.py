@@ -275,22 +275,28 @@ def test_main_refuses_what_it_does_not_run(knobs, error):
         BENCH.main(dict(TINY, **knobs))
 
 
-_UNFUSED: list = []
+_UNFUSED: dict = {}
+# (BENCH_FUSED_UNROLL, the step's knobs): the lanes-fused step, the xla backend, the lanes path
+FUSED_CASES = {"1": ("1", {}), "full": ("full", {}), "xla": ("1", {"BENCH_BACKEND": "xla"}),
+               "jacfwd": ("1", {"BENCH_KERNEL_LIN": "0"})}
 
 
-@pytest.mark.parametrize("unroll", ["1", "full"])
-def test_main_fused(capsys, unroll):
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_main_fused(capsys, case):
     """BENCH_FUSED=1 on the CPU (the window body run eagerly, 2 steps, one
-    or both a graph's worth): the provisional line and the final line under
-    the unfused run's metric name; after its 2 + 2 chained steps and two
-    windows of 2 the run ends on the states, observations and actions of an
-    unfused run of 2 + 2 + 4 chained steps, bit for bit, and it returns its
-    window."""
-    if not _UNFUSED:
-        _UNFUSED.append(BENCH.main(dict(TINY, BENCH_STEPS="4")))
+    or both a graph's worth; on the lanes-fused step, on BENCH_BACKEND=xla
+    and on BENCH_KERNEL_LIN=0): the provisional line and the final line
+    under the unfused run's metric name; after its 2 + 2 chained steps and
+    two windows of 2 the run ends on the states, observations and actions of
+    an unfused run of 2 + 2 + 4 chained steps with the same knobs, bit for
+    bit, and it returns its window."""
+    unroll, knobs = FUSED_CASES[case]
+    key = tuple(sorted(knobs.items()))
+    if key not in _UNFUSED:
+        _UNFUSED[key] = BENCH.main(dict(TINY, BENCH_STEPS="4", **knobs))
         capsys.readouterr()
-    unfused = _UNFUSED[0]
-    run = BENCH.main(dict(TINY, BENCH_FUSED="1", BENCH_FUSED_UNROLL=unroll))
+    unfused = _UNFUSED[key]
+    run = BENCH.main(dict(TINY, BENCH_FUSED="1", BENCH_FUSED_UNROLL=unroll, **knobs))
     lines, err = _lines(capsys)
     assert lines == run.records and len(lines) == 2
     assert [r.get("provisional") for r in lines] == [True, None]

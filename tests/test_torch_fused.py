@@ -167,34 +167,50 @@ def test_fused_window_equals_the_chained_loop(unroll):
     assert _equal_trees(window.last, loop.before_last)
 
 
-def test_fused_window_follows_a_jax_scan_of_bench_py():
+_JAX_SCAN: dict = {}
+
+
+def _jax_scan_of_bench_py():
+    """bench.py's fused window in the JAX package (T = 8, B = 4, 3 steps of
+    `closed_loop_step` in one `lax.scan`, float32 carry) from PRNGKey(0):
+    (the JAX loop's settings, the carry it started from, its actions),
+    compiled once for every case."""
+    if not _JAX_SCAN:
+        loop = jax_bench_loop(B)
+        jc, env_p = loop["jc"], loop["env_p"]
+
+        f32 = partial(jax.tree.map, lambda a: a.astype(jnp.float32)  # noqa: E731
+                      if jnp.issubdtype(a.dtype, jnp.floating) else a)
+
+        def body(carry, _):
+            es, st, obs = carry
+            u, st, _ = j_batched_gpmpc_step(jc.model, loop["cfg_j"], jc.consts, loop["gp_j"], st,
+                                            obs, backend="xla")
+            es, obs, *_ = jax.vmap(lambda s, a: j_drone.env_step(env_p, s, a))(es, u)
+            return f32((es, st, obs)), u
+
+        carry_j = f32((loop["es"], loop["st_j"], loop["obs"]))
+        _, u_j = jax.jit(lambda c: jax.lax.scan(body, c, None, length=3))(carry_j)
+        _JAX_SCAN.update(loop=loop, carry=carry_j, u=np.asarray(u_j, np.float32))
+    return _JAX_SCAN["loop"], _JAX_SCAN["carry"], _JAX_SCAN["u"]
+
+
+@pytest.mark.parametrize("backend", ["lanes", "xla"])
+def test_fused_window_follows_a_jax_scan_of_bench_py(backend):
     """The window, one step a run (T = 8, B = 4, 3 steps, the fixture GP),
-    against a `lax.scan` of bench.py's `closed_loop_step` (bench.py:247-285,
-    the JAX package's `batched_gpmpc_step` on `xla` and its plant) from the
-    same initial states (PRNGKey(0)), each side stepping its own plant: u
-    within 5e-4 at every step and control RMSE <= 1e-3 (BASELINE.md); the
-    trace of each run is its u[0, 0]."""
-    loop = jax_bench_loop(B)
-    jc, env_p = loop["jc"], loop["env_p"]
-
-    f32 = partial(jax.tree.map, lambda a: a.astype(jnp.float32)  # noqa: E731
-                  if jnp.issubdtype(a.dtype, jnp.floating) else a)
-
-    def body(carry, _):
-        es, st, obs = carry
-        u, st, _ = j_batched_gpmpc_step(jc.model, loop["cfg_j"], jc.consts, loop["gp_j"], st, obs,
-                                        backend="xla")
-        es, obs, *_ = jax.vmap(lambda s, a: j_drone.env_step(env_p, s, a))(es, u)
-        return f32((es, st, obs)), u
-
-    carry_j = f32((loop["es"], loop["st_j"], loop["obs"]))
-    _, u_j = jax.jit(lambda c: jax.lax.scan(body, c, None, length=3))(carry_j)
-    u_j = np.asarray(u_j, np.float32)
+    on the port's lanes-fused step and on its `xla` step, against a
+    `lax.scan` of bench.py's `closed_loop_step` (bench.py:247-285, the JAX
+    package's `batched_gpmpc_step` on `xla` and its plant) from the same
+    initial states (PRNGKey(0)), each side stepping its own plant: u within
+    5e-4 at every step and control RMSE <= 1e-3 (BASELINE.md); the trace of
+    each run is its u[0, 0]."""
+    loop, carry_j, u_j = _jax_scan_of_bench_py()
     prob = loop["prob"]
     carry = (port_env_state(carry_j[0]), t_mpc.init_state(B, HORIZON, 12, 4, device="cpu"),
              torch.tensor(np.asarray(carry_j[2])))
     window = FusedWindow(partial(BENCH.closed_loop_step, prob,
-                                 loop["cfg_t"]._replace(early_exit=False), prob.gp), carry)
+                                 loop["cfg_t"]._replace(early_exit=False), prob.gp,
+                                 backend=backend), carry)
     u_t = []
     for _ in range(3):
         trace = window.run(1)

@@ -722,32 +722,68 @@ def test_chain_kernels_slice_wide_tiles_and_refuse_odd_bf16_tiles(dev):
         cuda_chain.lanes_chain_bf16(odd, 1)
 
 
-def _bench_loop(dev, horizon=25, batch=128):
-    """bench_torch.py's quadrotor loop on the card at `horizon` and `batch`:
-    (the closed-loop step for a config, bench.py's config, the carry after
-    one chained step, which fills the step's caches)."""
+# bench.py's knobs on the fused window, one tile of 128 scenarios each: the xla step (the
+# reference's default backend), the lanes step (forward-mode and analytic linearization), T = 512
+# (tier 2, kernel 6, on lanes), the small families on xla and each remaining knob
+FUSED_KNOBS = {
+    "lanes-fused": {},
+    "xla": {"BENCH_BACKEND": "xla"},
+    "jacfwd": {"BENCH_KERNEL_LIN": "0"},
+    "analytic": {"BENCH_KERNEL_LIN": "0", "BENCH_ANALYTIC_JAC": "1"},
+    "T512": {"BENCH_HORIZON": "512"},
+    "cartpole-xla": {"BENCH_MODEL": "cartpole", "BENCH_BACKEND": "xla"},
+    "twolink-xla": {"BENCH_MODEL": "twolink", "BENCH_BACKEND": "xla"},
+    "var-xla": {"BENCH_VAR_BACKEND": "xla"},
+    "var-pallas": {"BENCH_VAR_BACKEND": "pallas"},
+    "var-bf16": {"BENCH_VAR_BF16": "1"},
+    "no-mehrotra": {"BENCH_MEHROTRA": "0"},
+    "qp-tol-0": {"BENCH_QP_TOL": "0"},
+    "xla-pscan": {"BENCH_BACKEND": "xla", "BENCH_PSCAN": "1"},
+    "xla-warm-shift": {"BENCH_BACKEND": "xla", "BENCH_WARM_SHIFT": "1"},
+    "warm-shift": {"BENCH_WARM_SHIFT": "1"},
+}
+
+
+def _bench_loop(dev, horizon=25, batch=128, knobs=None):
+    """bench_torch.py's loop on the card at `horizon` and `batch` with
+    bench.py's `knobs` (BENCH_MODEL, BENCH_HORIZON and the step's knobs):
+    (the closed-loop step for a config, the config, the carry after one
+    chained step, which fills the step's caches)."""
+    import warnings
     from functools import partial
 
     import bench_torch
     from gpmpc_tpu_torch.control import mpc as mpc_mod
 
-    prob = bench_torch.build_problem("quadrotor", horizon, device=dev, **bench_torch.FIXTURE_GP)
-    cfg = bench_torch.configure(prob.ctrl.cfg, {})
+    knobs = knobs or {}
+    horizon = int(knobs.get("BENCH_HORIZON", horizon))
+    prob = bench_torch.build_problem(knobs.get("BENCH_MODEL", "quadrotor"), horizon, device=dev,
+                                     **bench_torch.FIXTURE_GP)
+    cfg = bench_torch.configure(prob.ctrl.cfg, knobs)
     es, obs = prob.env_mod.env_reset(prob.env_p, batch,
                                      torch.Generator(device=dev).manual_seed(0), dev)
-    step = lambda cfg_: partial(bench_torch.closed_loop_step, prob, cfg_, prob.gp)  # noqa: E731
-    *carry, _ = step(cfg)(es, mpc_mod.init_state(batch, horizon, 12, 4, device=dev), obs)
+    step = lambda cfg_: partial(  # noqa: E731
+        bench_torch.closed_loop_step, prob, cfg_, prob.gp,
+        backend=knobs.get("BENCH_BACKEND", "lanes"),
+        var_backend=knobs.get("BENCH_VAR_BACKEND", "auto"),
+        var_bf16=knobs.get("BENCH_VAR_BF16", "0") == "1")
+    nx, nu = prob.model.nx, prob.model.nu
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # T = 512's one dispatch warning
+        *carry, _ = step(cfg)(es, mpc_mod.init_state(batch, horizon, nx, nu, device=dev), obs)
     return step, cfg, tuple(carry)
 
 
-def test_fused_window_captures_under_sync_debug_error(dev):
-    """The lanes-fused closed-loop step (bench.py's quadrotor, T = 25, one
-    tile) warms and is captured with `torch.cuda.set_sync_debug_mode("error")`
-    set around the whole window: no host read, no copy from pageable memory;
-    the replays give finite actions."""
+@pytest.mark.parametrize("knobs", list(FUSED_KNOBS))
+def test_fused_window_captures_under_sync_debug_error(dev, knobs):
+    """The closed-loop step of bench.py's knobs (`FUSED_KNOBS`; the
+    quadrotor at T = 25 unless they say otherwise, one tile) warms and is
+    captured with `torch.cuda.set_sync_debug_mode("error")` set around the
+    whole window: no host read, no copy from pageable memory; the replays
+    give finite actions."""
     from gpmpc_tpu_torch.parallel.fused import FusedWindow
 
-    step, cfg, carry = _bench_loop(dev)
+    step, cfg, carry = _bench_loop(dev, knobs=FUSED_KNOBS[knobs])
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -759,16 +795,18 @@ def test_fused_window_captures_under_sync_debug_error(dev):
     assert bool(torch.isfinite(trace).all()) and bool(torch.isfinite(window.u).all())
 
 
-@pytest.mark.parametrize("horizon", [25, 100])
-def test_fused_window_replays_the_chained_loop_bit_for_bit(dev, horizon):
-    """Five steps of the fused window (graphs of 1, 2 and all 5 steps; T = 25
-    on kernel 4, T = 100 on kernel 5) against five chained steps with the
-    early exit from the same carry: the trace of u[0, 0], the last actions
-    and the carries before and after the last step bit for bit."""
+@pytest.mark.parametrize("knobs", ["T100"] + list(FUSED_KNOBS))
+def test_fused_window_replays_the_chained_loop_bit_for_bit(dev, knobs):
+    """Five steps of the fused window (graphs of 1, 2 and all 5 steps) of
+    bench.py's knobs (`FUSED_KNOBS`, and T = 100 on kernel 5) against five
+    chained steps with the early exit from the same carry: the trace of
+    u[0, 0], the last actions and the carries before and after the last
+    step bit for bit."""
     from gpmpc_tpu_torch.parallel.fused import FusedWindow
     from gpmpc_tpu_torch.parallel.mesh import tree_leaves
 
-    step, cfg, carry = _bench_loop(dev, horizon)
+    knob_set = {"BENCH_HORIZON": "100"} if knobs == "T100" else FUSED_KNOBS[knobs]
+    step, cfg, carry = _bench_loop(dev, knobs=knob_set)
     chained, us = carry, []
     for _ in range(5):
         before = chained
@@ -780,6 +818,32 @@ def test_fused_window_replays_the_chained_loop_bit_for_bit(dev, horizon):
         assert torch.equal(window.u, us[-1])
         for got, want in ((window.last, before), (window.carry, tuple(chained))):
             assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def test_a_window_too_large_for_the_card_raises_before_capture(dev, monkeypatch):
+    """A window of 60 steps a graph projects its graph from the one-step
+    graph: 60 times its nodes, its pool once and 60 times the rest of its
+    memory. Past the share of the card's free memory a graph may take (here
+    set to a ten-billionth) `run` raises ValueError naming the projected
+    nodes and bytes, and only the one-step graph was captured; within it
+    (the default share), the same window runs."""
+    from gpmpc_tpu_torch.parallel import fused
+    from gpmpc_tpu_torch.parallel.fused import FusedWindow
+
+    step, cfg, carry = _bench_loop(dev)
+    fixed = step(cfg._replace(early_exit=False))
+    window = FusedWindow(fixed, carry, 60, max_steps=60)
+    nodes, need = window.project(60)
+    one = window.stats[1]
+    assert one.nodes > 60 and nodes == 60 * one.nodes
+    assert need == one.pool_bytes + 60 * one.graph_bytes > 0
+    small = FusedWindow(fixed, carry, 60, max_steps=60)
+    with monkeypatch.context() as m:
+        m.setattr(fused, "FREE_SHARE", 1e-10)
+        with pytest.raises(ValueError, match=f"projected at {nodes} nodes and [0-9]+ bytes"):
+            small.run(60)
+    assert sorted(small.graphs) == [1]
+    assert bool(torch.isfinite(window.run(60)).all()) and sorted(window.graphs) == [1, 60]
 
 
 def test_a_step_that_reads_the_host_fails_its_capture(dev):

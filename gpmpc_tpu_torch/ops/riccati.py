@@ -21,9 +21,10 @@ arithmetic as two full solves. The products of a stage are taken on [A | B]
 at once (A'PA, A'PB and B'PB are blocks of [A | B]' P [A | B]).
 
 The solves through Guu's Cholesky factor L go through L's inverse, formed
-once a stage by forward substitution over its nu rows in plain tensor ops
-(`tril_inverse`): Guu^-1 b = L^-T (L^-1 b), two small products. The same code
-runs on the CPU and the card, and it is capturable in a CUDA graph, where
+once a stage by one batched triangular solve against the identity
+(`tril_inverse`: cuBLAS's batched `trsm` on the card, LAPACK on the CPU):
+Guu^-1 b = L^-T (L^-1 b), two small products. The same code runs on the CPU
+and the card, and it is capturable in a CUDA graph, where
 `torch.cholesky_solve` is not (PyTorch sends a batch to MAGMA, whose
 `magma_spotrs_batched` a capturing stream refuses).
 
@@ -87,16 +88,11 @@ def cholesky_or_nan(G: torch.Tensor) -> torch.Tensor:
 
 
 def tril_inverse(L: torch.Tensor) -> torch.Tensor:
-    """The inverse of each lower-triangular (..., n, n) L, by forward
-    substitution over its n rows: row i of L^-1 is (e_i - sum_{j<i} L_ij
-    (L^-1)_j) / L_ii. A few batched ops a row; NaN in L gives NaN."""
-    n = L.shape[-1]
-    eye = torch.eye(n, dtype=L.dtype, device=L.device)
-    rows = [eye[0] / L[..., 0, :1]]
-    for i in range(1, n):
-        done = torch.stack(rows, dim=-2)  # (..., i, n)
-        rows.append((eye[i] - (L[..., i, None, :i] @ done)[..., 0, :]) / L[..., i, i, None])
-    return torch.stack(rows, dim=-2)
+    """The inverse of each lower-triangular (..., n, n) L: one batched
+    triangular solve against the identity (for n <= 512 PyTorch takes
+    cuBLAS's batched `trsm` on the card, not MAGMA). NaN in L gives NaN."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
 
 
 def cholesky_inverse_or_nan(G: torch.Tensor) -> torch.Tensor:

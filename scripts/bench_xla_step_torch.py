@@ -11,7 +11,9 @@ GP-MPC step at T=100, B=256 with soft bounds; with `--long` also one step at
 T=800, B=256 with soft bounds. Each line has every
 step's synchronized wall ms and their median, the SQP iterations, and the
 card's name and power limit. Then one T=25 step under torch.profiler (host
-and card): its launches, the card's busy ms and the top rows of each side.
+and card): its launches, the card's busy ms, the top rows of each side and
+every card kernel of a dense solver library (MAGMA, cuSOLVER, cuBLAS's
+triangular and LU routines) by name.
 Needs one CUDA card; imports no JAX."""
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ from gpmpc_tpu_torch.models.symbolic import symbolic_attitude  # noqa: E402
 from gpmpc_tpu_torch.parallel.batch import batched_gpmpc_step  # noqa: E402
 
 Q_MPC = [8, 0.1, 8, 0.1, 8, 0.1, 0.5, 0.5, 0.5, 0.001, 0.001, 0.001]
+# kernel-name fragments of dense solver libraries: which library `torch.linalg.cholesky_ex`
+# reaches on the xla step, and whether any MAGMA kernel is left (a capturing stream refuses
+# MAGMA's batched solves)
+SOLVER_WORDS = ("magma", "potrf", "potrs", "trsm", "trsv", "getrf", "getrs", "cusolver")
 R_MPC = [3, 3, 3, 0.1]
 
 
@@ -97,6 +103,8 @@ def profile_step(dev, smi: str) -> None:
         "card_top": [[e.key[:60], e.device_time_total / 1e3, e.count]
                      for e in sorted(card, key=lambda e: -e.device_time_total)[:8]],
         "host_top": [[e.key[:60], e.self_cpu_time_total / 1e3, e.count] for e in host],
+        "solver_kernels": [[e.key[:80], e.device_time_total / 1e3, e.count] for e in card
+                           if any(w in e.key.lower() for w in SOLVER_WORDS)],
         "card": smi}), flush=True)
 
 

@@ -48,7 +48,7 @@ class GraphStats(NamedTuple):
     (counted for the one-step graph, else None), the growth of the caching
     allocator's reserved memory over the capture (`pool_bytes`: the graph's
     private pool) and the rest of the card memory it took (`graph_bytes`:
-    the driver's, for the instantiated graph)."""
+    what the CUDA runtime took for the instantiated graph)."""
 
     steps: int
     capture_s: float
@@ -60,7 +60,7 @@ class GraphStats(NamedTuple):
 
 def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
     """The node count of a graph captured with `keep_graph=True`
-    (`cuGraphGetNodes` of the CUDA driver)."""
+    (`cuGraphGetNodes` from libcuda)."""
     count = ctypes.c_size_t(0)
     err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
         ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
